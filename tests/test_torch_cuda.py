@@ -1,0 +1,182 @@
+"""The port's hand-written kernels and their build, with no JAX in the file,
+so that it also runs on a machine that has a card and no JAX.
+
+* The build (runs anywhere, with a stand-in compiler): one ``nvcc`` per
+  ``csrc/*.cu`` into a library named by a hash of its sources, reused while
+  they are unchanged, and an error when the compiler fails.
+* On a card (marked ``cuda``, skipped without one): each kernel bitwise
+  against its plain version, the default compressor against the plain CPU
+  path, and a wrapper that raises when its kernel library cannot be built.
+
+The card's cases run with
+``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py``.
+"""
+
+import shutil
+
+import numpy as np
+import pytest
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core import interop
+from repro_torch.core.api import get_compressor
+from repro_torch.data import cosmo
+from repro_torch.kernels import _build
+from repro_torch.kernels import lorenzo3d as tlor
+from repro_torch.kernels import sz_fused as tszf
+
+# Writes the file named after -o, or fails when FAKE_NVCC_FAIL is set.
+FAKE_NVCC = """#!/bin/sh
+while [ $# -gt 0 ]; do
+  if [ "$1" = "-o" ]; then out="$2"; fi
+  shift
+done
+if [ -n "$FAKE_NVCC_FAIL" ]; then echo "error: refused"; exit 2; fi
+echo "ptxas info    : Used 32 registers" > "$out"
+echo "ptxas info    : Used 32 registers"
+"""
+
+
+@pytest.fixture
+def fake_toolchain(tmp_path, monkeypatch):
+    """A copy of ``csrc`` and a stand-in ``nvcc``, with an empty build
+    directory and no loaded library."""
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    nvcc = tmp_path / "cuda" / "bin" / "nvcc"
+    nvcc.parent.mkdir(parents=True)
+    nvcc.write_text(FAKE_NVCC)
+    nvcc.chmod(0o755)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "cuda"))
+    monkeypatch.delenv("FAKE_NVCC_FAIL", raising=False)
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "_LIBS", {})
+    monkeypatch.setattr(_build, "_FUNCS", {})
+    return csrc
+
+
+def test_build_compiles_each_source_once_and_again_when_edited(fake_toolchain):
+    csrc = fake_toolchain
+    names = {p.stem for p in csrc.glob("*.cu")}
+    assert names == {"lorenzo3d", "sz_fused"}
+    logs = _build.build(verbose=True)
+    assert set(logs) == names and all("registers" in log for log in logs.values())
+    libs = {name: _build.library_path(name) for name in names}
+    assert all(p.is_file() and p.parent == _build.BUILD_DIR for p in libs.values())
+    assert not list(_build.BUILD_DIR.glob("*.tmp"))
+    assert _build.build() == {}  # unchanged sources are reused
+
+    (csrc / "sz_fused.cu").write_text((csrc / "sz_fused.cu").read_text() + "\n// edit\n")
+    assert set(_build.build()) == {"sz_fused"}
+    assert _build.library_path("lorenzo3d") == libs["lorenzo3d"]
+
+    header = next(csrc.glob("*.cuh"))
+    header.write_text(header.read_text() + "\n// edit\n")  # every source includes it
+    assert set(_build.build()) == names
+
+
+def test_build_failure_raises_and_leaves_no_library(fake_toolchain, monkeypatch):
+    monkeypatch.setenv("FAKE_NVCC_FAIL", "1")
+    with pytest.raises(RuntimeError, match=r"(?s)nvcc failed for .*error: refused"):
+        _build.library("lorenzo3d")
+    assert not list(_build.BUILD_DIR.glob("*.so"))
+    assert "lorenzo3d" not in _build._LIBS
+
+
+# ------------------------------------------------------------ on a card ---
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the hand-written kernels run only there")
+    return torch.device("cuda")
+
+
+def _same(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Bitwise equality, uint32 and float32 compared as their int32 bits."""
+    a = a.view(torch.int32) if a.dtype in (torch.uint32, torch.float32) else a
+    b = b.view(torch.int32) if b.dtype in (torch.uint32, torch.float32) else b
+    return a.shape == b.shape and bool(torch.equal(a.cpu(), b.cpu()))
+
+
+def _field(shape, seed):
+    rng = np.random.default_rng(seed)
+    f = rng.normal(size=shape).astype(np.float32)
+    for ax in range(len(shape)):
+        f = np.cumsum(f, axis=ax)
+    return (f * 100.0 / max(np.abs(f).max(), 1e-9)).astype(np.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(16, 64, 128), (10, 70, 130)])
+def test_cuda_kernels_match_plain(cuda_device, shape):
+    """Each kernel on the card against its plain version on the same CUDA
+    inputs: bitwise equal."""
+    x = F.pad(torch.from_numpy(_field(shape, seed=9)),
+              (0, (-shape[2]) % 128, 0, (-shape[1]) % 64, 0, (-shape[0]) % 8))
+    x = x.to(cuda_device).contiguous()
+    eb_i = tlor.guarded_eb(x, 1e-2)
+    delta = tlor.lorenzo3d_quantize(x, eb_i)
+    assert _same(delta, tlor.lorenzo3d_quantize_plain(x, eb_i))
+    assert _same(tlor.lorenzo3d_reconstruct(delta, eb_i),
+                 tlor.lorenzo3d_reconstruct_plain(delta, eb_i))
+    words, widths = tszf.fused_encode(x, eb_i)
+    words_p, widths_p = tszf.fused_encode_plain(x, eb_i)
+    assert _same(words, words_p) and _same(widths, widths_p)
+    padded = tuple(x.shape)
+    assert _same(tszf.fused_decode(words, widths, padded, eb_i),
+                 tszf.fused_decode_plain(words, widths, padded, eb_i))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("field", ["baryon_density", "vx"])
+def test_cuda_compressor_matches_plain_cpu(cuda_device, field):
+    """The default compressor (CUDA, kernel backend, fused path) emits the
+    stream and reconstruction of the plain versions on the CPU."""
+    x = cosmo.nyx_fields(n=64)[field]
+    eb = 1e-4 * float(x.max() - x.min())
+    gpu = get_compressor("tpu-sz")
+    cpu = get_compressor("tpu-sz", backend="kernel", device="cpu")
+    rg, rc = gpu.compress(x, eb=eb), cpu.compress(x, eb=eb)
+    assert rg.meta["backend"] == "kernel" and rg.nbytes == rc.nbytes
+    assert _same(rg.payload["kpacked"].words, rc.payload["kpacked"].words)
+    assert _same(rg.payload["kpacked"].widths, rc.payload["kpacked"].widths)
+    xg = gpu.decompress(rg)
+    assert xg.is_cuda and _same(xg, cpu.decompress(rc))
+    assert float((xg.cpu() - torch.from_numpy(x)).abs().max()) <= eb * (1 + 1e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_record_lands_on_the_card(cuda_device):
+    """A payload record rebuilt without a device lands on the card and
+    decodes through the kernels there; a CPU payload is refused by the
+    card's compressor, never decoded on the CPU."""
+    x = cosmo.nyx_fields(n=64)["temperature"]
+    eb = 1e-4 * float(x.max() - x.min())
+    gpu = get_compressor("tpu-sz")
+    cpu = get_compressor("tpu-sz", backend="kernel", device="cpu")
+    rc = cpu.compress(x, eb=eb)
+    rg = interop.from_record(interop.to_record(rc))
+    assert rg.payload["kpacked"].words.is_cuda and rg.payload["eb_i"].is_cuda
+    before = tszf.launches["fused_decode"]
+    xg = gpu.decompress(rg)
+    assert tszf.launches["fused_decode"] == before + 1
+    assert xg.is_cuda and _same(xg, cpu.decompress(rc))
+    with pytest.raises(ValueError, match="payload on cpu"):
+        gpu.decompress(rc)
+
+
+@pytest.mark.cuda
+def test_cuda_wrapper_raises_when_the_library_cannot_be_built(cuda_device, fake_toolchain,
+                                                               monkeypatch):
+    """No fallback: a CUDA tensor whose kernel library fails to build raises
+    and launches nothing."""
+    monkeypatch.setenv("FAKE_NVCC_FAIL", "1")
+    x = torch.zeros(8, 64, 128, device=cuda_device)
+    before = dict(tlor.launches)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        tlor.lorenzo3d_quantize(x, torch.tensor(0.1, device=cuda_device))
+    assert tlor.launches == before
