@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port of TPU-SZ on one GPU and check every result.
+"""Drive the PyTorch/CUDA port of TPU-SZ and TPU-ZFP on one GPU and check
+every result.
 
     python3 chip_smoke.py
 
@@ -8,9 +9,9 @@ Needs one CUDA card and ``nvcc``; it builds the hand-written kernels from
 
 1. prints the card's name and power limit (``nvidia-smi``) and the kernel
    build time;
-2. holds each kernel (K1-K4) against its plain PyTorch version on the card,
-   at 256^3 and at a ragged shape, requiring bitwise equality;
-3. drives the main path: the six ``nyx_fields(n=256, seed=42)`` fields
+2. holds each SZ kernel (K1-K4) against its plain PyTorch version on the
+   card, at 256^3 and at a ragged shape, requiring bitwise equality;
+3. drives the SZ main path: the six ``nyx_fields(n=256, seed=42)`` fields
    through ``get_compressor("tpu-sz")`` (CUDA, ``kernel`` backend, ``fused``
    path), then through the ``xla`` path, with the launch counts reset just
    before each run and read just after.  The two paths' streams must be
@@ -23,9 +24,27 @@ Needs one CUDA card and ``nvcc``; it builds the hand-written kernels from
 5. runs the ``core`` backend on the card: baryon density (ABS) and HACC
    ``vx`` (``hacc_particles(grid=128)``) in PW_REL 1e-2 mode, each held to
    its bound;
-6. prints one JSON line of per-kernel numbers (launches, max difference from
-   the plain version, median ms at 256^3, the plain version's ms, the bound)
-   and, last, ``{"ok": true, "device": {...}}``.
+6. holds each ZFP kernel (K5-K7) against its plain version on the card, at
+   the 256^3 baryon density and the ragged vx slice, at rates 2, 4, 8 and
+   16, requiring bitwise equality;
+7. drives the ZFP main path: the six 256^3 fields through
+   ``get_compressor("tpu-zfp")`` at rate 8 (CUDA, ``kernel`` backend,
+   ``fused`` path: K6 then K7), then through the ``xla`` path (K5) and the
+   ``core`` backend on the card, with the launch counts reset before each
+   run and read after.  All three streams must be equal and the ratio
+   exactly 4.0; prints PSNR, the power-spectrum gate and compress /
+   decompress MB/s (median and range of 20 calls);
+8. compresses the paper's 512^3 Nyx side, the 256^3 baryon density tiled
+   2 x 2 x 2 on the card (Nyx fields are periodic), through the same entry
+   point, whose reconstruction must be the 256^3 one tiled; prints MB/s and
+   peak memory;
+9. checks the card's ZFP streams against the plain versions on the CPU for
+   the six 64^3 fields, and drives HACC ``x`` and ``vx`` (2^21 particles,
+   one (32768, 8, 8) partition each) through ``tpu-zfp``;
+10. prints the ZFP stage times and one JSON line of per-kernel numbers for
+    K1-K7 (launches, max difference from the plain version, median ms at
+    256^3, the plain version's ms, the bound) and, last, ``{"ok": true,
+    "device": {...}}``.
 
 Any failure raises and exits non-zero; so does a machine without CUDA, and a
 directory without the rest of the repository.
@@ -49,11 +68,14 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 from repro_torch import kernels  # noqa: E402
 from repro_torch.analysis import metrics, spectrum  # noqa: E402
 from repro_torch.core import bitpack  # noqa: E402
+from repro_torch.core import zfp as zfp_core  # noqa: E402
 from repro_torch.core.api import get_compressor  # noqa: E402
 from repro_torch.data import cosmo  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels import lorenzo3d as lor  # noqa: E402
 from repro_torch.kernels import sz_fused as szf  # noqa: E402
+from repro_torch.kernels import zfp3d as k5  # noqa: E402
+from repro_torch.kernels import zfp_fused as zff  # noqa: E402
 
 N = 256  # Nyx grid side of the main path
 HACC_GRID = 128  # HACC particles per side of the core-backend check
@@ -61,6 +83,8 @@ SMALL_N = 64  # grid side of the CPU agreement check
 SEED = 42
 REL_EB = 1e-4  # eb = REL_EB x value range (10.0 on baryon density, as in quickstart)
 PW_REL = 1e-2
+ZFP_RATE = 8  # quickstart's rate
+ZFP_CHECK_RATES = (2, 4, 8, 16)  # rates of the kernel-vs-plain checks
 TIMING_ITERS = 20  # CUDA-event-timed calls per kernel, stage and field
 PLAIN_ITERS = 3
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
@@ -74,6 +98,46 @@ INT32_OPS_PER_S = 67e12 / 2
 OPS_PER_POINT = {"lorenzo3d_quantize": 9, "lorenzo3d_reconstruct": 5,
                  "fused_encode": 19, "fused_decode": 14}
 
+# Scalar operations the ZFP functions need per 64-point block, whatever a
+# kernel's own instruction count: no idle lanes, no loop or address work,
+# and data moves (the sequency permutation, loads, stores) count 0.
+# Stages 1-3: |x| 64, block max 63, exponent and scale 6, scale multiply 64,
+# round 64, 48 four-point lifts of 16, negabinary 2 a point.
+ZFP_STAGES_1_3 = 64 + 63 + 6 + 64 + 64 + 48 * 16 + 64 * 2
+# Bit lengths 2 a point, maxima within the 10 groups 64 - 10.
+ZFP_GROUP_MAXIMA = 64 * 2 + (64 - 10)
+# Two 32x32 bit transposes at their scalar cost (Hacker's Delight 7-3, as
+# core.zfp._bit_transpose32: 5 rounds of 16 word pairs, 6 operations a pair).
+ZFP_TRANSPOSE = 2 * 5 * 16 * 6
+# Plane widths and offsets as a prefix over the 32 planes (entry plane of
+# each group 2, then per plane width, offset and kept bits 5).
+ZFP_PLANE_LAYOUT = 10 * 2 + 32 * 5
+# Per plane that keeps bits: two masks 10, its payload placed at (or fetched
+# from) its offset 14.  Per group run in such a plane: slice 2, shift into
+# place 6, advance 1.  Both counts come from this run's headers.
+ZFP_KEPT_PLANE, ZFP_RUN = 24, 9
+# The decoder's inverse: negabinary 2 a point, 48 inverse lifts of 16,
+# scale 4, convert and multiply 2 a point.
+ZFP_INVERSE = 64 * 2 + 48 * 16 + 4 + 64 * 2
+
+
+def zfp_ops(gtops, rate: int) -> dict[str, int]:
+    """Operations K5, K6 and K7 need on the blocks whose headers are
+    ``gtops`` at ``rate``: the coder's share follows the planes that keep
+    bits and the group runs in them."""
+    nb = gtops.shape[0]
+    _, keep = zfp_core._plane_offsets(gtops, rate * 64 - zfp_core._HEADER_BITS)
+    kept = keep > 0
+    planes = torch.arange(32, device=gtops.device)
+    present = gtops.to(torch.int64)[:, None, :] + planes[None, :, None] >= 32
+    runs = int((present & kept[..., None]).sum())
+    coder = (nb * (ZFP_TRANSPOSE + ZFP_PLANE_LAYOUT) + ZFP_KEPT_PLANE * int(kept.sum())
+             + ZFP_RUN * runs)
+    transform = nb * (ZFP_STAGES_1_3 + ZFP_GROUP_MAXIMA)
+    return {"zfp3d_transform": transform, "fused_compress_blocks": transform + coder,
+            "fused_decompress_blocks": coder + nb * ZFP_INVERSE}
+
+
 KERNELS = {
     "lorenzo3d_quantize": ("K1", "src/repro_torch/kernels/csrc/lorenzo3d.cu",
                            "src/repro/kernels/lorenzo3d.py:72"),
@@ -83,7 +147,14 @@ KERNELS = {
                      "src/repro/kernels/sz_fused.py:177"),
     "fused_decode": ("K4", "src/repro_torch/kernels/csrc/sz_fused.cu",
                      "src/repro/kernels/sz_fused.py:336"),
+    "zfp3d_transform": ("K5", "src/repro_torch/kernels/csrc/zfp3d.cu",
+                        "src/repro/kernels/zfp3d.py:116"),
+    "fused_compress_blocks": ("K6", "src/repro_torch/kernels/csrc/zfp_fused.cu",
+                              "src/repro/kernels/zfp_fused.py:84"),
+    "fused_decompress_blocks": ("K7", "src/repro_torch/kernels/csrc/zfp_fused.cu",
+                                "src/repro/kernels/zfp_fused.py:161"),
 }
+SZ_KERNELS = ("lorenzo3d_quantize", "lorenzo3d_reconstruct", "fused_encode", "fused_decode")
 
 
 def check(cond: bool, what: str) -> None:
@@ -147,7 +218,7 @@ def pad_to_tile(x):
 def kernels_vs_plain(inputs: dict) -> dict[str, float]:
     """Each kernel against its plain version on the same CUDA inputs; bitwise
     equality required.  Returns the largest difference per kernel (0)."""
-    worst = {name: 0.0 for name in KERNELS}
+    worst = {name: 0.0 for name in SZ_KERNELS}
     for label, (x, eb) in inputs.items():
         xp = pad_to_tile(x)
         eb_i = lor.guarded_eb(xp, eb)
@@ -167,6 +238,33 @@ def kernels_vs_plain(inputs: dict) -> dict[str, float]:
             check(same(got, want), f"{name} differs from plain at {label} (max |diff| {err})")
             worst[name] = max(worst[name], err)
         print(f"kernels vs plain at {label} {tuple(xp.shape)}: bitwise equal")
+    return worst
+
+
+def zfp_kernels_vs_plain(inputs: dict) -> dict[str, float]:
+    """K5-K7 against their plain versions on the same CUDA inputs, at every
+    rate of ZFP_CHECK_RATES; bitwise equality required."""
+    worst = {"zfp3d_transform": 0.0, "fused_compress_blocks": 0.0,
+             "fused_decompress_blocks": 0.0}
+
+    def hold(name, got, want, label):
+        for g, w in zip(got, want):
+            err = max_abs_diff(g, w)
+            check(same(g, w), f"{name} differs from plain at {label} (max |diff| {err})")
+            worst[name] = max(worst[name], err)
+
+    for label, x in inputs.items():
+        blocks = zfp_core._carve_blocks(x)
+        hold("zfp3d_transform", k5.zfp3d_transform(blocks), k5.zfp3d_transform_plain(blocks),
+             label)
+        for rate in ZFP_CHECK_RATES:
+            enc = zff.fused_compress_blocks(blocks, rate)
+            hold("fused_compress_blocks", enc, zff.fused_compress_blocks_plain(blocks, rate),
+                 f"{label} rate {rate}")
+            hold("fused_decompress_blocks", [zff.fused_decompress_blocks(*enc, rate)],
+                 [zff.fused_decompress_blocks_plain(*enc, rate)], f"{label} rate {rate}")
+        print(f"ZFP kernels vs plain at {label} {tuple(x.shape)}, rates {ZFP_CHECK_RATES}: "
+              "bitwise equal")
     return worst
 
 
@@ -219,16 +317,10 @@ def main_path(fields: dict, device) -> dict[str, int]:
         orig, recon = fields[name], xr.cpu().numpy()
         d = metrics.distortion(orig, recon)
         ok, dev = spectrum.pk_gate(orig, recon)
-        mb = r.raw_nbytes / 1e6
-        rates = {}
-        for what, fn in (("compress", lambda x=x, name=name: comp.compress(x, eb=ebs[name])),
-                         ("decompress", lambda r=r: comp.decompress(r))):
-            ms = sorted(cuda_times(fn, TIMING_ITERS))
-            rates[what] = (f"{mb / statistics.median(ms) * 1e3:.1f}MB/s "
-                           f"[{mb / ms[-1] * 1e3:.1f}..{mb / ms[0] * 1e3:.1f}]")
+        rates = rate_line(comp, lambda: comp.compress(x, eb=ebs[name]), r)
         print(f"{name:20s} eb={ebs[name]:.6g} ratio={r.ratio:.4f} bitrate={r.bitrate:.4f} "
               f"psnr={d.psnr:.4f}dB max_err={err:.6g} pk_gate={'PASS' if ok else 'FAIL'} "
-              f"(dev {dev:.6f}) compress={rates['compress']} decompress={rates['decompress']}")
+              f"(dev {dev:.6f}) {rates}")
     return launches
 
 
@@ -269,9 +361,178 @@ def core_backend(baryon, vx, device) -> None:
           f"max_rel_err={rel:.6g}")
 
 
+def rate_line(comp, compress, r) -> str:
+    """Compress and decompress MB/s of one field: median [slowest..fastest]
+    of TIMING_ITERS CUDA-event-timed entry-point calls after a warm-up;
+    ``compress()`` compresses the field, ``r`` is its result."""
+    mb = r.raw_nbytes / 1e6
+    out = []
+    for what, fn in (("compress", compress), ("decompress", lambda: comp.decompress(r))):
+        ms = sorted(cuda_times(fn, TIMING_ITERS))
+        out.append(f"{what}={mb / statistics.median(ms) * 1e3:.1f}MB/s "
+                   f"[{mb / ms[-1] * 1e3:.1f}..{mb / ms[0] * 1e3:.1f}]")
+    return " ".join(out)
+
+
+def peak_mib(fn) -> float:
+    """Peak device memory of one call of ``fn`` above what was allocated before."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    fn()
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - base) / 2**20
+
+
+def same_zfp(a, b) -> bool:
+    return (same(a.words, b.words) and same(a.emax, b.emax) and same(a.gtops, b.gtops)
+            and tuple(a.shape) == tuple(b.shape) and a.rate == b.rate)
+
+
+def zfp_main_path(fields: dict, device) -> dict[str, int]:
+    """The six fields through the default ``tpu-zfp`` entry point (fused),
+    then the xla path and the core backend on the card; returns each
+    kernel's launches in the run of its path."""
+    comp = get_compressor("tpu-zfp")
+    check(comp.device.type == "cuda", "the default ZFP compressor is not on CUDA")
+    xs = {k: torch.from_numpy(v).to(device) for k, v in fields.items()}
+
+    kernels.reset_launch_counts()
+    fused = {}
+    for name, x in xs.items():
+        r = comp.compress(x, rate=ZFP_RATE)
+        fused[name] = (r, comp.decompress(r))
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    launches = {k: counts[k] for k in ("fused_compress_blocks", "fused_decompress_blocks")}
+
+    kernels.reset_launch_counts()
+    for name, x in xs.items():
+        c = ops.zfp_compress_kernel(x, ZFP_RATE, path="xla")
+        r, xr = fused[name]
+        check(same_zfp(c, r.payload["parts"][0]), f"{name}: ZFP fused and xla streams differ")
+        check(same(ops.zfp_decompress_kernel(c, path="xla"), xr),
+              f"{name}: ZFP fused and xla reconstructions differ")
+    torch.cuda.synchronize()
+    launches["zfp3d_transform"] = kernels.launch_counts()["zfp3d_transform"]
+    for name, n in launches.items():
+        check(n > 0, f"kernel {name} was not launched on the ZFP main path")
+    print("ZFP main path launches: " + json.dumps(launches))
+
+    core = get_compressor("tpu-zfp", backend="core")
+    for name, x in xs.items():
+        rc = core.compress(x, rate=ZFP_RATE)
+        r, xr = fused[name]
+        check(same_zfp(rc.payload["parts"][0], r.payload["parts"][0]),
+              f"{name}: ZFP fused and core streams differ")
+        check(same(core.decompress(rc), xr), f"{name}: ZFP fused and core reconstructions differ")
+    print("ZFP fused == xla == core on the card: streams and reconstructions, six fields")
+
+    for name, x in xs.items():
+        r, xr = fused[name]
+        check(r.meta.get("backend") == "kernel", "default ZFP backend on CUDA is not kernel")
+        check(r.ratio == 4.0, f"{name}: ZFP ratio {r.ratio} != 32 / {ZFP_RATE}")
+        check(xr.shape == x.shape and bool(torch.isfinite(xr).all()),
+              f"{name}: bad ZFP reconstruction")
+        orig, recon = fields[name], xr.cpu().numpy()
+        d = metrics.distortion(orig, recon)
+        ok, dev = spectrum.pk_gate(orig, recon)
+        rates = rate_line(comp, lambda: comp.compress(x, rate=ZFP_RATE), r)
+        print(f"zfp {name:20s} rate={ZFP_RATE} ratio={r.ratio:.4f} bitrate={r.bitrate:.4f} "
+              f"psnr={d.psnr:.4f}dB max_err={d.max_abs_err:.6g} "
+              f"pk_gate={'PASS' if ok else 'FAIL'} (dev {dev:.6f}) {rates}")
+    return launches
+
+
+def zfp_nyx_512(base) -> None:
+    """The paper's 512^3 Nyx side: the 256^3 field tiled 2 x 2 x 2 on the
+    card.  256 is a multiple of 4, so every block of the tiled field is a
+    block of the 256^3 one and the reconstruction is the 256^3 one tiled."""
+    comp = get_compressor("tpu-zfp")
+    x = base.repeat(2, 2, 2)
+    r = comp.compress(x, rate=ZFP_RATE)
+    xr = comp.decompress(r)
+    check(r.ratio == 4.0 and r.payload["parts"][0].words.shape[0] == 2**21,
+          f"512^3: ratio {r.ratio}, blocks {r.payload['parts'][0].words.shape[0]}")
+    small = comp.decompress(comp.compress(base, rate=ZFP_RATE))
+    check(same(xr, small.repeat(2, 2, 2)), "512^3 reconstruction is not the 256^3 one tiled")
+    pc = peak_mib(lambda: comp.compress(x, rate=ZFP_RATE))
+    pd = peak_mib(lambda: comp.decompress(r))
+    rates = rate_line(comp, lambda: comp.compress(x, rate=ZFP_RATE), r)
+    print(f"zfp 512^3 tiled baryon_density rate={ZFP_RATE} ratio={r.ratio:.4f} "
+          f"{rates} peak_mib compress={pc:.1f} decompress={pd:.1f}")
+
+
+def zfp_agrees_with_cpu(small: dict, device) -> None:
+    gpu = get_compressor("tpu-zfp", device=device)
+    cpu = get_compressor("tpu-zfp", backend="kernel", device="cpu")
+    for name, v in small.items():
+        rg, rc = gpu.compress(v, rate=ZFP_RATE), cpu.compress(v, rate=ZFP_RATE)
+        check(same_zfp(rg.payload["parts"][0], rc.payload["parts"][0]) and rg.nbytes == rc.nbytes,
+              f"{name}: card and CPU ZFP streams differ at {SMALL_N}^3")
+        check(same(gpu.decompress(rg), cpu.decompress(rc)),
+              f"{name}: card and CPU ZFP reconstructions differ at {SMALL_N}^3")
+    torch.cuda.synchronize()
+    print(f"ZFP card == plain CPU versions on the six {SMALL_N}^3 fields: streams and "
+          "reconstructions")
+
+
+def zfp_hacc(hacc, device) -> None:
+    """HACC x and vx (one partition each, (N/64) x 8 x 8) through tpu-zfp,
+    the stream held to the core backend on the card."""
+    comp = get_compressor("tpu-zfp")
+    core = get_compressor("tpu-zfp", backend="core")
+    for name in ("x", "vx"):
+        v = torch.from_numpy(hacc.fields[name]).to(device)
+        r = comp.compress(v, rate=ZFP_RATE)
+        vr = comp.decompress(r)
+        part = r.payload["parts"][0]
+        check(tuple(part.shape) == (v.shape[0] // 64, 8, 8), f"HACC {name}: shape {part.shape}")
+        check(same_zfp(part, core.compress(v, rate=ZFP_RATE).payload["parts"][0]),
+              f"HACC {name}: ZFP kernel and core streams differ")
+        check(vr.shape == v.shape and bool(torch.isfinite(vr).all()),
+              f"HACC {name}: bad reconstruction")
+        d = metrics.distortion(hacc.fields[name], vr.cpu().numpy())
+        rates = rate_line(comp, lambda: comp.compress(v, rate=ZFP_RATE), r)
+        print(f"zfp HACC {name} (grid {HACC_GRID}, {v.shape[0]} particles, "
+              f"{part.words.shape[0]} blocks) rate={ZFP_RATE} ratio={r.ratio:.4f} "
+              f"psnr={d.psnr:.4f}dB {rates}")
+
+
+def zfp_stage_times(x) -> dict[str, float]:
+    """Median ms of each stage of one ZFP compress and decompress of ``x``
+    on both paths, beside the whole entry-point calls, and the peak device
+    memory of one entry-point call each."""
+    comp = get_compressor("tpu-zfp")
+    r = comp.compress(x, rate=ZFP_RATE)
+    c = r.payload["parts"][0]
+    blocks = zfp_core._carve_blocks(x)
+    dec = zff.fused_decompress_blocks(c.words, c.emax, c.gtops, ZFP_RATE)
+    u, _, gtops = k5.zfp3d_transform(blocks)
+    perm = zfp_core._index(zfp_core.PERM, x.device)
+    stages = {
+        "zfp.fused.compress": lambda: comp.compress(x, rate=ZFP_RATE),
+        "zfp.fused.compress.carve": lambda: zfp_core._carve_blocks(x),
+        "zfp.fused.compress.K6": lambda: zff.fused_compress_blocks(blocks, ZFP_RATE),
+        "zfp.fused.decompress": lambda: comp.decompress(r),
+        "zfp.fused.decompress.K7": lambda: zff.fused_decompress_blocks(
+            c.words, c.emax, c.gtops, ZFP_RATE),
+        "zfp.fused.decompress.uncarve": lambda: zfp_core._uncarve_blocks(dec, c.shape),
+        "zfp.xla.compress.K5": lambda: k5.zfp3d_transform(blocks),
+        "zfp.xla.compress.permute+encode_words": lambda: zfp_core.encode_words(
+            u.view(torch.int32)[:, perm], gtops, ZFP_RATE),
+        "zfp.xla.decompress.core_decompress": lambda: zfp_core.decompress(c),
+    }
+    out = {name: cuda_ms(fn, TIMING_ITERS) for name, fn in stages.items()}
+    out["zfp.fused.compress.peak_mib"] = peak_mib(lambda: comp.compress(x, rate=ZFP_RATE))
+    out["zfp.fused.decompress.peak_mib"] = peak_mib(lambda: comp.decompress(r))
+    return out
+
+
 def kernel_times(x, eb: float) -> dict[str, dict]:
     """Median ms of each kernel and of its plain version at the main path's
-    256^3 shape, beside the bound from this run's bytes and operations."""
+    256^3 shape, beside the bound from this run's bytes and operations (for
+    K6 and K7 the operations of this run's headers, :func:`zfp_ops`)."""
     xp = pad_to_tile(x)
     shape = tuple(xp.shape)
     n = xp.numel()
@@ -280,6 +541,7 @@ def kernel_times(x, eb: float) -> dict[str, dict]:
     delta = lor.lorenzo3d_quantize(xp, eb_i)
     words, widths = szf.fused_encode(xp, eb_i)
     payload_words = 2 * int(widths.sum())  # the words K4 must read for this data
+    ops = {name: OPS_PER_POINT[name] * n for name in SZ_KERNELS}
     runs = {
         "lorenzo3d_quantize": (lambda: lor.lorenzo3d_quantize(xp, eb_i),
                                lambda: lor.lorenzo3d_quantize_plain(xp, eb_i), 8 * n),
@@ -291,14 +553,31 @@ def kernel_times(x, eb: float) -> dict[str, dict]:
                          lambda: szf.fused_decode_plain(words, widths, shape, eb_i),
                          4 * payload_words + 4 * nb + 4 * n),
     }
+    # ZFP at the main path's rate; headers at the format's 11 B per block
+    blocks = zfp_core._carve_blocks(x)
+    zb = blocks.shape[0]
+    zn = 64 * zb  # points of the carved blocks
+    enc = zff.fused_compress_blocks(blocks, ZFP_RATE)
+    ops.update(zfp_ops(enc[2], ZFP_RATE))
+    stream_bytes = 4 * zfp_core.payload_words(ZFP_RATE) * zb + 11 * zb
+    runs.update({
+        "zfp3d_transform": (lambda: k5.zfp3d_transform(blocks),
+                            lambda: k5.zfp3d_transform_plain(blocks), 8 * zn + 11 * zb),
+        "fused_compress_blocks": (lambda: zff.fused_compress_blocks(blocks, ZFP_RATE),
+                                  lambda: zff.fused_compress_blocks_plain(blocks, ZFP_RATE),
+                                  4 * zn + stream_bytes),
+        "fused_decompress_blocks": (lambda: zff.fused_decompress_blocks(*enc, ZFP_RATE),
+                                    lambda: zff.fused_decompress_blocks_plain(*enc, ZFP_RATE),
+                                    stream_bytes + 4 * zn),
+    })
     out = {}
     for name, (kernel, plain, nbytes) in runs.items():
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        ops_ms = OPS_PER_POINT[name] * n / INT32_OPS_PER_S * 1e3
+        ops_ms = ops[name] / INT32_OPS_PER_S * 1e3
         out[name] = {"ms": cuda_ms(kernel, TIMING_ITERS), "plain_ms": cuda_ms(plain, PLAIN_ITERS),
                      "bound_ms": max(bytes_ms, ops_ms),
                      "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-                     "bytes": nbytes}
+                     "bytes_ms": bytes_ms, "ops_ms": ops_ms}
     return out
 
 
@@ -331,14 +610,8 @@ def stage_times(x, eb: float) -> dict[str, float]:
         "xla.decompress.K2": lambda: lor.lorenzo3d_reconstruct(delta, eb_i),
     }
     out = {name: cuda_ms(fn, TIMING_ITERS) for name, fn in stages.items()}
-    for name, fn in (("fused.compress.peak_mib", lambda: comp.compress(x, eb=eb)),
-                     ("fused.decompress.peak_mib", lambda: comp.decompress(r))):
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        base = torch.cuda.memory_allocated()
-        fn()
-        torch.cuda.synchronize()
-        out[name] = (torch.cuda.max_memory_allocated() - base) / 2**20
+    out["fused.compress.peak_mib"] = peak_mib(lambda: comp.compress(x, eb=eb))
+    out["fused.decompress.peak_mib"] = peak_mib(lambda: comp.decompress(r))
     return out
 
 
@@ -367,9 +640,20 @@ def run(device) -> dict:
     hacc = cosmo.hacc_particles(grid=HACC_GRID)
     core_backend(fields["baryon_density"], hacc.fields["vx"], device)
 
+    worst.update(zfp_kernels_vs_plain({f"{N}^3 baryon_density": base, "ragged vx": ragged}))
+    launches.update(zfp_main_path(fields, device))
+    zfp_nyx_512(base)
+    zfp_agrees_with_cpu(cosmo.nyx_fields(n=SMALL_N, seed=SEED), device)
+    zfp_hacc(hacc, device)
+
     stages = stage_times(base, ebs["baryon_density"])
     print(f"stages at {N}^3 baryon_density (median ms; peak MiB): " + json.dumps(stages))
+    stages = zfp_stage_times(base)
+    print(f"ZFP stages at {N}^3 baryon_density, rate {ZFP_RATE} (median ms; peak MiB): "
+          + json.dumps(stages))
     times = kernel_times(base, ebs["baryon_density"])
+    print("kernel bounds (ms: bytes, operations): " + json.dumps(
+        {name: [t["bytes_ms"], t["ops_ms"]] for name, t in times.items()}))
     rows = []
     for name, (kid, source, replaces) in KERNELS.items():
         t = times[name]

@@ -1,9 +1,10 @@
 """Compressor registry and (de)compression front end (the port of
-``repro.core.api``, TPU-SZ only so far).
+``repro.core.api``).
 
 Modes (paper §II-A):
   * ``abs``     — error-bounded, |x̂ - x| <= eb           (TPU-SZ)
   * ``pw_rel``  — pointwise relative via log transform    (TPU-SZ, Liang'18)
+  * ``rate``    — fixed rate, exact bits/value            (TPU-ZFP)
 
 A compressor runs on one device, CUDA unless ``device="cpu"`` is passed
 (:func:`repro_torch.device.resolve_device`): inputs are moved there,
@@ -19,7 +20,7 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
-from repro_torch.core import sz, transforms
+from repro_torch.core import sz, transforms, zfp
 from repro_torch.device import resolve_device
 
 
@@ -40,6 +41,12 @@ class CompressionResult:
     def bitrate(self) -> float:
         """Bits per value: compressed bits over the f32 value count."""
         return 8.0 * self.nbytes / max(self.raw_nbytes / 4.0, 1.0)
+
+
+def _check_payload_device(words: torch.Tensor, device: torch.device) -> None:
+    if words.device.type != device.type:
+        raise ValueError(f"payload on {words.device}, compressor on {device}; "
+                         f"rebuild the payload with device={device.type!r}")
 
 
 class SZCompressor:
@@ -124,9 +131,7 @@ class SZCompressor:
     def decompress(self, r: CompressionResult) -> torch.Tensor:
         packed = (r.payload["kpacked"] if r.payload.get("kernel")
                   else r.payload["parts"][0].packed)
-        if packed.words.device.type != self.device.type:
-            raise ValueError(f"payload on {packed.words.device}, compressor on {self.device}; "
-                             f"rebuild the payload with device={self.device.type!r}")
+        _check_payload_device(packed.words, self.device)
         if r.payload.get("kernel"):
             from repro_torch.kernels import ops as kops
 
@@ -147,8 +152,92 @@ class SZCompressor:
         return x
 
 
+class ZFPCompressor:
+    """TPU-ZFP front end (fixed rate).  1-D fields are partitioned to the
+    paper's HACC layout and each partition goes through the (N/64) x 8 x 8
+    reshape (§IV-B4); 2-D fields get a trailing unit axis.
+
+    ``backend`` selects the engine (as for :class:`SZCompressor`):
+      * ``core``   — the word-level coder of :mod:`repro_torch.core.zfp` in
+                     plain PyTorch (the default on the CPU),
+      * ``kernel`` — :func:`repro_torch.kernels.ops.zfp_compress_kernel`
+                     (the hand-written K6/K7 kernels on CUDA),
+      * ``auto``   — ``kernel`` on CUDA, ``core`` on the CPU.
+    All backends emit the same ``words``/``emax``/``gtops`` and decode each
+    other's payloads.  Partitions are compressed one after another (the
+    reference batches same-shape partitions with ``vmap``).
+
+    Accounting: ``raw_nbytes`` (hence ``ratio``/``bitrate``) uses the
+    original element count; the padding of the reshapes is charged to the
+    compressed size."""
+
+    name = "tpu-zfp"
+
+    def __init__(self, reshape_1d: bool = True, backend: str = "auto",
+                 device: str | torch.device | None = None):
+        if backend not in ("auto", "core", "kernel"):
+            raise ValueError(f"unknown ZFP backend {backend!r}; want auto|core|kernel")
+        self.reshape_1d = reshape_1d
+        self.backend = backend
+        self.device = resolve_device(device)
+
+    def _use_kernel(self) -> bool:
+        if self.backend == "kernel":
+            return True
+        return self.backend == "auto" and self.device.type == "cuda"
+
+    def _canonical(self, x: torch.Tensor) -> tuple[list[torch.Tensor], dict]:
+        if x.ndim == 1:
+            # cuZFP on HACC uses (N/64) x 8 x 8 partitions; the coder is
+            # 3-D only, so the reshape is mandatory and ``reshape_1d=False``
+            # only skips the HACC partitioning
+            parts = transforms.partition_1d(x) if self.reshape_1d else [x]
+            shaped = [transforms.to_3d(p, (-(-p.shape[0] // 64), 8, 8)) for p in parts]
+            return shaped, {"orig_len": x.shape[0], "was_1d": True}
+        if x.ndim == 2:
+            x = x[:, :, None]
+        return [x], {"orig_len": math.prod(x.shape), "was_1d": False}
+
+    def compress(self, x, rate: int | None = None, **_: Any) -> CompressionResult:
+        if rate is None:
+            raise ValueError("ZFP requires rate= (bits/value)")
+        x = torch.as_tensor(x, dtype=torch.float32, device=self.device)
+        raw = math.prod(x.shape) * 4  # original count: padding not charged
+        orig_shape = tuple(x.shape)
+        parts, shape_meta = self._canonical(x)
+        backend = "kernel" if self._use_kernel() else "core"
+        if backend == "kernel":
+            from repro_torch.kernels import ops as kops
+
+            comp = [kops.zfp_compress_kernel(p, rate) for p in parts]
+        else:
+            comp = [zfp.compress(p, rate) for p in parts]
+        nbytes = sum(zfp.compressed_nbytes(c) for c in comp)
+        payload = {"parts": comp, "orig_shape": orig_shape, **shape_meta}
+        return CompressionResult(payload, nbytes, raw,
+                                 {"mode": "rate", "rate": rate, "backend": backend,
+                                  **shape_meta})
+
+    def decompress(self, r: CompressionResult) -> torch.Tensor:
+        _check_payload_device(r.payload["parts"][0].words, self.device)
+        if self._use_kernel():
+            from repro_torch.kernels import ops as kops
+
+            parts = [kops.zfp_decompress_kernel(c) for c in r.payload["parts"]]
+        else:
+            parts = [zfp.decompress(c) for c in r.payload["parts"]]
+        orig = r.payload["orig_shape"]
+        if r.payload["was_1d"]:
+            return torch.cat([p.reshape(-1) for p in parts])[: orig[0]]
+        x = parts[0]
+        if len(orig) == 2:
+            return x[:, :, 0]
+        return x
+
+
 _REGISTRY: dict[str, Callable[..., Any]] = {
     "tpu-sz": SZCompressor,
+    "tpu-zfp": ZFPCompressor,
 }
 
 

@@ -5,12 +5,16 @@ side decodes the other's payloads once they cross.  They cross as a
 *record*: the ``CompressionResult`` fields with every array as numpy.  The
 JAX side builds or reads a record with ``np.asarray`` on its arrays; this
 module turns a record into the port's :class:`CompressionResult` on a device
-and back.  Both payload layouts are covered:
+and back.  The payload layouts covered:
 
-* core (``parts``): ``{"parts": [part...], "signs", "shape", "orig_len",
+* SZ core (``parts``): ``{"parts": [part...], "signs", "shape", "orig_len",
   "was_1d"}`` with ``part = {"packed", "eb", "shape", "block_size"}``;
-* kernel: ``{"kernel": True, "kpacked", "padded_shape", "eb_i", "signs",
+* SZ kernel: ``{"kernel": True, "kpacked", "padded_shape", "eb_i", "signs",
   "shape", "orig_len", "was_1d"}``;
+* ZFP, either backend (``meta["mode"] == "rate"``): ``{"parts": [part...],
+  "orig_shape", "orig_len", "was_1d"}`` with ``part = {"words":
+  uint32[nb, wpb], "emax": uint8[nb], "gtops": uint8[nb, 10], "shape",
+  "rate"}``;
 
 where a packed stream is ``{"words": uint32[n + 2], "widths": uint8[nb],
 "total_bits": int, "n": int}``, bounds are float32 scalars and ``signs`` is
@@ -24,7 +28,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from repro_torch.core import bitpack, sz
+from repro_torch.core import bitpack, sz, zfp
 from repro_torch.core.api import CompressionResult
 from repro_torch.device import resolve_device
 
@@ -43,8 +47,31 @@ def _signs_from(v, device):
     return None if v is None else torch.from_numpy(np.array(v, np.int8)).to(device)
 
 
+def _zfp_to_record(r: CompressionResult) -> dict[str, Any]:
+    p = r.payload
+    parts = [{"words": bitpack.to_numpy(c.words), "emax": bitpack.to_numpy(c.emax),
+              "gtops": bitpack.to_numpy(c.gtops), "shape": tuple(c.shape), "rate": int(c.rate)}
+             for c in p["parts"]]
+    payload = {"parts": parts, "orig_shape": tuple(p["orig_shape"]),
+               "orig_len": int(p["orig_len"]), "was_1d": bool(p["was_1d"])}
+    return {"payload": payload, "nbytes": int(r.nbytes), "raw_nbytes": int(r.raw_nbytes),
+            "meta": dict(r.meta)}
+
+
+def _zfp_from_record(rec: dict[str, Any], device: torch.device) -> CompressionResult:
+    p = rec["payload"]
+    parts = [zfp.from_words(c["words"], c["emax"], c["gtops"], c["shape"], int(c["rate"]),
+                            device=device) for c in p["parts"]]
+    payload = {"parts": parts, "orig_shape": tuple(p["orig_shape"]),
+               "orig_len": int(p["orig_len"]), "was_1d": bool(p["was_1d"])}
+    return CompressionResult(payload, int(rec["nbytes"]), int(rec["raw_nbytes"]),
+                             dict(rec["meta"]))
+
+
 def to_record(r: CompressionResult) -> dict[str, Any]:
     """The port's result -> a numpy record the JAX package can rebuild."""
+    if r.meta["mode"] == "rate":
+        return _zfp_to_record(r)
     p = r.payload
     signs = None if p["signs"] is None else bitpack.to_numpy(p["signs"])
     common = {"signs": signs, "shape": tuple(p["shape"]), "orig_len": int(p["orig_len"]),
@@ -67,6 +94,8 @@ def from_record(rec: dict[str, Any],
     """A numpy record (from either package) -> the port's result on ``device``
     (CUDA unless ``"cpu"``, :func:`repro_torch.device.resolve_device`)."""
     device = resolve_device(device)
+    if rec["meta"]["mode"] == "rate":
+        return _zfp_from_record(rec, device)
     p = rec["payload"]
     common = {"signs": _signs_from(p["signs"], device), "shape": tuple(p["shape"]),
               "orig_len": int(p["orig_len"]), "was_1d": bool(p["was_1d"])}

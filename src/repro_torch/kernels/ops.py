@@ -1,12 +1,14 @@
-"""Public wrappers around the SZ kernels (the SZ half of
-``repro.kernels.ops``): padding to tile multiples, path dispatch, and the
-bitstream layer.
+"""Public wrappers around the kernels (the port of ``repro.kernels.ops``):
+padding and block carving, path dispatch, and the bitstream layer.
 
-``path`` picks the engine: ``fused`` is the single-pass K3/K4 pipeline,
-``xla`` is K1/K2 around the word-level ``bitpack`` coder (the name is kept
-from the reference, where that path is XLA), and ``auto`` is ``fused`` on a
-CUDA tensor and ``xla`` on a CPU one, as the reference picks ``fused`` on
-the TPU.  Both emit the same tile-major stream.
+``path`` picks the engine, for either compressor: ``fused`` is the
+single-pass kernel pipeline (K3/K4 for SZ, K6/K7 for ZFP), ``xla`` is the
+unfused kernel around the word-level coder in PyTorch (K1/K2 with
+``bitpack`` for SZ; K5 with ``core.zfp.encode_words`` for ZFP, whose decode
+is ``core.zfp.decompress``, as in the reference); the name is kept from the
+reference, where that path is XLA.  ``auto`` is ``fused`` on a CUDA tensor
+and ``xla`` on a CPU one, as the reference picks ``fused`` on the TPU.  All
+paths of a compressor emit the same stream.
 """
 
 from __future__ import annotations
@@ -17,16 +19,22 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import bitpack
+from repro_torch.core import zfp as zfp_core
 from repro_torch.kernels import lorenzo3d as _lor
 from repro_torch.kernels import sz_fused as _szf
+from repro_torch.kernels import zfp3d as _zfp
+from repro_torch.kernels import zfp_fused as _zfpf
 
 
-def _resolve_sz_path(path: str, device: torch.device) -> str:
+def _resolve_path(what: str, path: str, device: torch.device) -> str:
     if path == "auto":
         return "fused" if device.type == "cuda" else "xla"
     if path not in ("fused", "xla"):
-        raise ValueError(f"unknown SZ kernel path {path!r}; want fused|xla|auto")
+        raise ValueError(f"unknown {what} kernel path {path!r}; want fused|xla|auto")
     return path
+
+
+# ------------------------------------------------------------- TPU-SZ -----
 
 
 def sz_compress_kernel(x: torch.Tensor, eb: float, path: str = "auto", eb_i=None):
@@ -36,7 +44,7 @@ def sz_compress_kernel(x: torch.Tensor, eb: float, path: str = "auto", eb_i=None
 
     ``eb_i`` overrides the guarded bound derived from ``max|x|`` (a sharded
     caller passes the bound of the global maximum)."""
-    path = _resolve_sz_path(path, x.device)
+    path = _resolve_path("SZ", path, x.device)
     padded = tuple(s + (-s) % t for s, t in zip(x.shape, _lor.TILE))
     # refuse an oversized field before anything is allocated
     bitpack.check_fits("fused_compress" if path == "fused" else "pack_codes", math.prod(padded))
@@ -59,9 +67,45 @@ def sz_decompress_kernel(packed: bitpack.PackedCodes, padded_shape, orig_shape, 
                          path: str = "auto") -> torch.Tensor:
     device = packed.words.device
     eb_i = torch.as_tensor(eb_i, dtype=torch.float32, device=device)
-    if _resolve_sz_path(path, device) == "fused":
+    if _resolve_path("SZ", path, device) == "fused":
         xr = _szf.fused_decompress(packed, tuple(padded_shape), eb_i)
     else:
         delta = _szf.tile_major_unflatten(bitpack.unpack_codes(packed), tuple(padded_shape))
         xr = _lor.lorenzo3d_reconstruct(delta, eb_i)
     return xr[tuple(slice(0, s) for s in orig_shape)]
+
+
+# ------------------------------------------------------------ TPU-ZFP -----
+
+
+def zfp_transform_kernel(x: torch.Tensor):
+    """Kernel-path ZFP stages 1-4 on a 3-D field: (u uint32[NB, 64] in
+    sequency order, emax uint8[NB], gtops uint8[NB, 10]), the values of
+    :func:`repro_torch.core.zfp.block_transform`."""
+    u, emax, gtops = _zfp.zfp3d_transform(zfp_core._carve_blocks(x.to(torch.float32)))
+    u = u.view(torch.int32)[:, zfp_core._index(zfp_core.PERM, u.device)].view(torch.uint32)
+    return u, emax, gtops
+
+
+def zfp_compress_kernel(x: torch.Tensor, rate: int, path: str = "auto") -> zfp_core.ZFPCompressed:
+    """Kernel-path fixed-rate ZFP compress of a 3-D field: the same
+    ``words``/``emax``/``gtops`` as :func:`repro_torch.core.zfp.compress`
+    on every path."""
+    path = _resolve_path("ZFP", path, x.device)
+    zfp_core.payload_words(rate)  # validates the rate before any work
+    if path == "fused":
+        blocks = zfp_core._carve_blocks(x.to(torch.float32))
+        words, emax, gtops = _zfpf.fused_compress_blocks(blocks, rate)
+    else:
+        u, emax, gtops = zfp_transform_kernel(x)
+        words = zfp_core.encode_words(u.view(torch.int32), gtops, rate)
+    return zfp_core.ZFPCompressed(words, emax, gtops, tuple(x.shape), rate)
+
+
+def zfp_decompress_kernel(c: zfp_core.ZFPCompressed, path: str = "auto") -> torch.Tensor:
+    """Kernel-path decode of :func:`zfp_compress_kernel` output (it also
+    reads :func:`repro_torch.core.zfp.compress` streams: same layout)."""
+    if _resolve_path("ZFP", path, c.words.device) == "fused":
+        blocks = _zfpf.fused_decompress_blocks(c.words, c.emax, c.gtops, c.rate)
+        return zfp_core._uncarve_blocks(blocks, c.shape)
+    return zfp_core.decompress(c)

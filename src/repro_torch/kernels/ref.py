@@ -1,5 +1,4 @@
-"""Plain PyTorch oracles for the SZ kernels (the port of the SZ half of
-``repro.kernels.ref``).
+"""Plain PyTorch oracles for the kernels (the port of ``repro.kernels.ref``).
 
 Each mirrors its kernel's semantics, tile-blocked prediction included, with
 padding and concatenation instead of the shared tile helpers, so the tests
@@ -8,11 +7,18 @@ cross-check two independent formulations.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
+from repro_torch.core import zfp as zfp_core
+from repro_torch.core.bitpack import i64_to_u32
 from repro_torch.kernels.lorenzo3d import TILE, guarded_eb
 
 _2P31 = 1 << 31
+
+# sequency group of each coefficient in x-fastest index order
+GROUP_OF_INDEX = np.asarray(
+    [(c % 4) + ((c // 4) % 4) + (c // 16) for c in range(64)], np.int64)
 
 
 def _tiles(a: torch.Tensor) -> torch.Tensor:
@@ -45,3 +51,24 @@ def lorenzo3d_reconstruct_ref(delta: torch.Tensor, eb_i) -> torch.Tensor:
     q = _untile(dt, delta.shape).to(torch.int32)
     eb = torch.as_tensor(eb_i, dtype=torch.float32, device=delta.device)
     return q.to(torch.float32) * (2.0 * eb)
+
+
+def zfp3d_transform_ref(blocks: torch.Tensor):
+    """(NB, 4, 4, 4) -> (u index-order uint32, emax int32, gtops int32) via
+    :mod:`repro_torch.core.zfp`: ``frexp`` exponent and an index-order
+    group map, against the kernel's exponent bits and iota groups."""
+    b = blocks.to(torch.float32)
+    maxabs = b.abs().amax(dim=(1, 2, 3))
+    _, e = torch.frexp(maxabs)
+    e = torch.clamp(e, -100, 127).to(torch.int32)
+    nonzero = maxabs >= zfp_core._FLT_MIN
+    scale = zfp_core.exact_exp2(zfp_core.Q - e)
+    ints = torch.round(b * scale[:, None, None, None]).to(torch.int32)
+    u = zfp_core.negabinary(zfp_core._lift3d(ints).reshape(-1, 64))  # index order (no PERM)
+    lens = zfp_core._bitlength32(u)
+    groups = torch.as_tensor(GROUP_OF_INDEX, device=u.device).expand_as(lens)
+    gtops = torch.zeros(u.shape[0], zfp_core.N_GROUPS, dtype=torch.int64, device=u.device)
+    gtops = gtops.scatter_reduce(1, groups, lens, "amax")
+    gtops = gtops * nonzero[:, None]
+    emax = torch.where(nonzero, e + 128, 0)
+    return i64_to_u32(u), emax, gtops.to(torch.int32)

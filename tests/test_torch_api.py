@@ -1,6 +1,7 @@
-"""The slice as a whole: ``get_compressor("tpu-sz")`` of the port against the
-JAX package's on the six Nyx fields, payload interchange both ways, and the
-size limit.
+"""The slices as a whole: ``get_compressor("tpu-sz")`` and
+``get_compressor("tpu-zfp")`` of the port against the JAX package's on the
+six Nyx fields (and, for ZFP, on HACC 1-D and 2-D input), payload
+interchange both ways, and the size limit.
 
 Both sides run the same backend on the CPU (the JAX kernel backend in Pallas
 interpret mode, the port's through its plain versions): payload streams,
@@ -20,6 +21,8 @@ from repro.analysis import metrics as jmetrics
 from repro.analysis import spectrum as jspectrum
 from repro.core import bitpack as jbp
 from repro.core import sz as jsz
+from repro.core import transforms as jtransforms
+from repro.core import zfp as jzfp
 from repro.core.api import CompressionResult as JaxResult
 from repro.core.api import get_compressor as jax_compressor
 from repro.data import cosmo as jcosmo
@@ -28,6 +31,8 @@ from repro_torch.analysis import spectrum as tspectrum
 from repro_torch.core import bitpack as tbp
 from repro_torch.core import interop
 from repro_torch.core import sz as tsz
+from repro_torch.core import transforms as ttransforms
+from repro_torch.core import zfp as tzfp
 from repro_torch.core.api import available
 from repro_torch.core.api import get_compressor as torch_compressor
 from repro_torch.data import cosmo as tcosmo
@@ -231,17 +236,156 @@ def test_oversized_field_refused_like_reference(backend):
 
 
 def test_registry_matches_reference_where_ported():
-    assert available() == ["tpu-sz"]
-    with pytest.raises(KeyError) as ek:
-        torch_compressor("tpu-zfp", device="cpu")
+    assert available() == ["tpu-sz", "tpu-zfp"]
+    with pytest.raises(KeyError) as ej:
+        jax_compressor("no-such")
     with pytest.raises(KeyError) as eu:
         torch_compressor("no-such", device="cpu")
-    assert str(ek.value) == "\"unknown compressor 'tpu-zfp'; have ['tpu-sz']\""
-    assert str(eu.value).startswith("\"unknown compressor 'no-such'")
-    with pytest.raises(ValueError) as ej:
-        jax_compressor("tpu-sz", backend="gpu")
-    with pytest.raises(ValueError) as et:
-        torch_compressor("tpu-sz", backend="gpu", device="cpu")
-    assert str(et.value) == str(ej.value)
+    assert str(eu.value) == str(ej.value)
+    assert str(eu.value) == "\"unknown compressor 'no-such'; have ['tpu-sz', 'tpu-zfp']\""
+    for name in ("tpu-sz", "tpu-zfp"):
+        with pytest.raises(ValueError) as ej:
+            jax_compressor(name, backend="gpu")
+        with pytest.raises(ValueError) as et:
+            torch_compressor(name, backend="gpu", device="cpu")
+        assert str(et.value) == str(ej.value)
     with pytest.raises(ValueError, match="SZ requires eb"):
         torch_compressor("tpu-sz", device="cpu").compress(np.zeros(8, np.float32))
+    with pytest.raises(ValueError, match="ZFP requires rate"):
+        torch_compressor("tpu-zfp", device="cpu").compress(np.zeros(8, np.float32))
+
+
+# ---------------------------------------------------------------- TPU-ZFP --
+
+
+def _jax_zfp_to_record(r: JaxResult) -> dict:
+    p = r.payload
+    parts = [{"words": np.asarray(c.words), "emax": np.asarray(c.emax),
+              "gtops": np.asarray(c.gtops), "shape": tuple(c.shape), "rate": c.rate}
+             for c in p["parts"]]
+    return {"payload": {"parts": parts, "orig_shape": tuple(p["orig_shape"]),
+                        "orig_len": int(p["orig_len"]), "was_1d": bool(p["was_1d"])},
+            "nbytes": r.nbytes, "raw_nbytes": r.raw_nbytes, "meta": dict(r.meta)}
+
+
+def _zfp_record_to_jax(rec: dict) -> JaxResult:
+    p = rec["payload"]
+    parts = [jzfp.from_words(c["words"], c["emax"], c["gtops"], c["shape"], c["rate"])
+             for c in p["parts"]]
+    return JaxResult({"parts": parts, "orig_shape": tuple(p["orig_shape"]),
+                      "orig_len": p["orig_len"], "was_1d": p["was_1d"]},
+                     rec["nbytes"], rec["raw_nbytes"], dict(rec["meta"]))
+
+
+def _assert_same_zfp_record(a: dict, b: dict):
+    """Two ZFP records hold the same payload (streams bit for bit)."""
+    assert (a["nbytes"], a["raw_nbytes"], a["meta"]) == (b["nbytes"], b["raw_nbytes"], b["meta"])
+    pa, pb = a["payload"], b["payload"]
+    assert (tuple(pa["orig_shape"]), pa["orig_len"], pa["was_1d"]) == (
+        tuple(pb["orig_shape"]), pb["orig_len"], pb["was_1d"])
+    assert len(pa["parts"]) == len(pb["parts"])
+    for ca, cb in zip(pa["parts"], pb["parts"]):
+        for key in ("words", "emax", "gtops"):
+            np.testing.assert_array_equal(ca[key], cb[key])
+        assert tuple(ca["shape"]) == tuple(cb["shape"]) and ca["rate"] == cb["rate"]
+
+
+def _zfp_pair(backend: str, x: np.ndarray, rate: int = 8):
+    jc = jax_compressor("tpu-zfp", backend=backend)
+    tc = torch_compressor("tpu-zfp", backend=backend, device="cpu")
+    rj, rt = jc.compress(jnp.asarray(x), rate=rate), tc.compress(x, rate=rate)
+    _assert_same_zfp_record(_jax_zfp_to_record(rj), interop.to_record(rt))
+    assert (rt.nbytes, rt.raw_nbytes, rt.ratio, rt.bitrate) == (rj.nbytes, rj.raw_nbytes,
+                                                                rj.ratio, rj.bitrate)
+    xj, xt = np.asarray(jc.decompress(rj)), tc.decompress(rt).numpy()
+    assert xt.shape == x.shape
+    np.testing.assert_array_equal(xj.view(np.uint32), xt.view(np.uint32))
+    return rt, xt
+
+
+@pytest.mark.parametrize("field", FIELDS)
+@pytest.mark.parametrize("backend", ["core", "kernel"])
+def test_zfp_slice_matches_reference_on_nyx(backend, field):
+    """The ZFP main path: a Nyx 32^3 field at quickstart's rate through both
+    registries' same backend gives the same payload, size and
+    reconstruction, hence the same Foresight checks; on a 4-aligned 3-D
+    field the ratio is exactly 32 / rate."""
+    x = tcosmo.nyx_fields(n=32)[field]
+    rt, xt = _zfp_pair(backend, x)
+    assert rt.meta == {"mode": "rate", "rate": 8, "backend": backend, "orig_len": x.size,
+                       "was_1d": False}
+    assert rt.ratio == 4.0 and rt.bitrate == 8.0
+    xj = np.asarray(jax_compressor("tpu-zfp", backend=backend).decompress(
+        _zfp_record_to_jax(interop.to_record(rt))))
+    assert dataclasses.asdict(tmetrics.distortion(x, xt)) == dataclasses.asdict(
+        jmetrics.distortion(x, xj))
+    assert tspectrum.pk_gate(x, xt) == jspectrum.pk_gate(x, xj)
+
+
+@pytest.mark.parametrize("kind", ["hacc", "2d", "odd-3d"])
+@pytest.mark.parametrize("backend", ["core", "kernel"])
+def test_zfp_hacc_and_other_shapes_match_reference(backend, kind):
+    """HACC 1-D (partition, then (N/64) x 8 x 8), 2-D (a trailing unit axis)
+    and a ragged 3-D field; the ratio counts the original values."""
+    x = {"hacc": tcosmo.hacc_particles(grid=16).fields["vx"][:4000],
+         "2d": tcosmo.nyx_fields(n=32)["temperature"][3, :30, :29],
+         "odd-3d": tcosmo.nyx_fields(n=32)["vy"][:17, :13, :11]}[kind]
+    rt, _ = _zfp_pair(backend, x)
+    assert rt.raw_nbytes == x.size * 4
+    nb = sum(c.words.shape[0] for c in rt.payload["parts"])
+    assert rt.nbytes == nb * 8 * 64 // 8 and rt.ratio == x.size * 4 / rt.nbytes
+    assert rt.meta["was_1d"] == (kind == "hacc")
+
+
+def test_zfp_multi_partition_matches_reference(monkeypatch):
+    """A 1-D field of several partitions (the partition shrunk in both
+    packages): the reference batches them with vmap, the port runs them one
+    after another, and the payloads and reconstructions are equal."""
+    part = 4096
+    for mod in (jtransforms, ttransforms):
+        orig = mod.partition_1d
+        monkeypatch.setattr(mod, "partition_1d", lambda x, p=part, orig=orig: orig(x, p))
+    rng = np.random.default_rng(29)
+    x = np.cumsum(rng.normal(size=3 * part + 33)).astype(np.float32)
+    rt, _ = _zfp_pair("core", x)
+    assert len(rt.payload["parts"]) == 4
+
+
+@pytest.mark.parametrize("backend", ["core", "kernel"])
+def test_zfp_cross_decode_both_ways(backend):
+    """A JAX ZFP payload decodes in the port and a port payload in the JAX
+    package, through numpy records (core.interop), for 3-D and HACC 1-D."""
+    for x in (tcosmo.nyx_fields(n=32)["dark_matter_density"][:, :30, :31],
+              tcosmo.hacc_particles(grid=16).fields["x"]):
+        jc = jax_compressor("tpu-zfp", backend=backend)
+        tc = torch_compressor("tpu-zfp", backend=backend, device="cpu")
+        rj, rt = jc.compress(jnp.asarray(x), rate=4), tc.compress(x, rate=4)
+        from_jax = tc.decompress(interop.from_record(_jax_zfp_to_record(rj), device="cpu"))
+        np.testing.assert_array_equal(from_jax.numpy().view(np.uint32),
+                                      np.asarray(jc.decompress(rj)).view(np.uint32))
+        to_jax = np.asarray(jc.decompress(_zfp_record_to_jax(interop.to_record(rt))))
+        np.testing.assert_array_equal(to_jax.view(np.uint32),
+                                      tc.decompress(rt).numpy().view(np.uint32))
+        _assert_same_zfp_record(
+            interop.to_record(interop.from_record(interop.to_record(rt), device="cpu")),
+            interop.to_record(rt))
+
+
+def test_zfp_payload_device_rules(monkeypatch):
+    """A ZFP record rebuilt without a device means CUDA (raising without it),
+    and a compressor refuses a payload on another device."""
+    x = tcosmo.nyx_fields(n=32)["vx"][:8, :8, :8]
+    tc = torch_compressor("tpu-zfp", backend="core", device="cpu")
+    r = tc.compress(x, rate=8)
+    rec = interop.to_record(r)
+    c = r.payload["parts"][0]
+    moved = dataclasses.replace(r, payload={**r.payload, "parts": [
+        dataclasses.replace(c, words=c.words.to("meta"))]})
+    with pytest.raises(ValueError, match="payload on meta"):
+        tc.decompress(moved)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        interop.from_record(rec)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        torch_compressor("tpu-zfp")
+    assert interop.from_record(rec, device="cpu").payload["parts"][0].words.device.type == "cpu"

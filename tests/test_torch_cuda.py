@@ -5,8 +5,9 @@ so that it also runs on a machine that has a card and no JAX.
   ``csrc/*.cu`` into a library named by a hash of its sources, reused while
   they are unchanged, and an error when the compiler fails.
 * On a card (marked ``cuda``, skipped without one): each kernel bitwise
-  against its plain version, the default compressor against the plain CPU
-  path, and a wrapper that raises when its kernel library cannot be built.
+  against its plain version, the default compressors against the plain CPU
+  path, and wrappers that raise when their kernel library cannot be built
+  or loaded.
 
 The card's cases run with
 ``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py``.
@@ -19,12 +20,16 @@ import pytest
 import torch
 import torch.nn.functional as F
 
+from repro_torch import kernels
 from repro_torch.core import interop
+from repro_torch.core import zfp as tzfp
 from repro_torch.core.api import get_compressor
 from repro_torch.data import cosmo
 from repro_torch.kernels import _build
 from repro_torch.kernels import lorenzo3d as tlor
 from repro_torch.kernels import sz_fused as tszf
+from repro_torch.kernels import zfp3d as tzfp3d
+from repro_torch.kernels import zfp_fused as tzfpf
 
 # Writes the file named after -o, or fails when FAKE_NVCC_FAIL is set.
 FAKE_NVCC = """#!/bin/sh
@@ -60,7 +65,7 @@ def fake_toolchain(tmp_path, monkeypatch):
 def test_build_compiles_each_source_once_and_again_when_edited(fake_toolchain):
     csrc = fake_toolchain
     names = {p.stem for p in csrc.glob("*.cu")}
-    assert names == {"lorenzo3d", "sz_fused"}
+    assert names == {"lorenzo3d", "sz_fused", "zfp3d", "zfp_fused"}
     logs = _build.build(verbose=True)
     assert set(logs) == names and all("registers" in log for log in logs.values())
     libs = {name: _build.library_path(name) for name in names}
@@ -180,3 +185,71 @@ def test_cuda_wrapper_raises_when_the_library_cannot_be_built(cuda_device, fake_
     with pytest.raises(RuntimeError, match="nvcc failed"):
         tlor.lorenzo3d_quantize(x, torch.tensor(0.1, device=cuda_device))
     assert tlor.launches == before
+
+
+def _zfp_blocks(nb: int, seed: int) -> torch.Tensor:
+    """Blocks of wide dynamic range, a zero block and a subnormal block."""
+    rng = np.random.default_rng(seed)
+    b = (rng.normal(size=(nb, 4, 4, 4)) * 10 ** rng.uniform(-6, 6, size=(nb, 1, 1, 1)))
+    b = b.astype(np.float32)
+    b[0] = 0.0
+    b[1] = 1e-39
+    return torch.from_numpy(b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [1, 2, 8, 32])
+def test_cuda_zfp_kernels_match_plain(cuda_device, rate):
+    """K5, K6 and K7 on the card against their plain versions on the same
+    CUDA inputs, at a block count that is no multiple of a CTA's: bitwise."""
+    blocks = _zfp_blocks(1003, seed=rate).to(cuda_device)
+    for got, want in zip(tzfp3d.zfp3d_transform(blocks), tzfp3d.zfp3d_transform_plain(blocks)):
+        assert _same(got, want)
+    enc = tzfpf.fused_compress_blocks(blocks, rate)
+    for got, want in zip(enc, tzfpf.fused_compress_blocks_plain(blocks, rate)):
+        assert _same(got, want)
+    assert _same(tzfpf.fused_decompress_blocks(*enc, rate),
+                 tzfpf.fused_decompress_blocks_plain(*enc, rate))
+
+
+@pytest.mark.cuda
+def test_cuda_zfp_wrapper_raises_when_the_library_cannot_be_loaded(cuda_device, monkeypatch):
+    """No fallback: a CUDA tensor whose kernel library cannot be loaded
+    raises and never runs the plain version."""
+
+    def refuse(name):
+        raise OSError(f"cannot load {name}")
+
+    def plain(*args):
+        raise AssertionError("the plain version ran for a CUDA tensor")
+
+    monkeypatch.setattr(_build, "library", refuse)
+    monkeypatch.setattr(tzfpf, "fused_compress_blocks_plain", plain)
+    before = dict(tzfpf.launches)
+    with pytest.raises(OSError, match="cannot load zfp_fused"):
+        tzfpf.fused_compress_blocks(torch.zeros(16, 4, 4, 4, device=cuda_device), 8)
+    assert tzfpf.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("field", ["baryon_density", "vx"])
+def test_cuda_zfp_compressor_launches_k6_k7_and_matches_plain_cpu(cuda_device, field):
+    """``tpu-zfp`` on the card goes through K6 and K7 and gives the stream
+    and reconstruction of the plain versions on the CPU."""
+    x = cosmo.nyx_fields(n=64)[field][:, :61, :62]  # two ragged axes
+    gpu = get_compressor("tpu-zfp")
+    cpu = get_compressor("tpu-zfp", backend="kernel", device="cpu")
+    kernels.reset_launch_counts()
+    rg = gpu.compress(x, rate=8)
+    xg = gpu.decompress(rg)
+    counts = kernels.launch_counts()
+    assert counts["fused_compress_blocks"] == 1 and counts["fused_decompress_blocks"] == 1
+    rc = cpu.compress(x, rate=8)
+    assert rg.meta["backend"] == "kernel" and rg.nbytes == rc.nbytes
+    for name in ("words", "emax", "gtops"):
+        assert _same(getattr(rg.payload["parts"][0], name), getattr(rc.payload["parts"][0], name))
+    assert xg.is_cuda and _same(xg, cpu.decompress(rc))
+    assert xg.shape == x.shape
+    rec = interop.to_record(rc)
+    assert _same(gpu.decompress(interop.from_record(rec)), xg)
+    assert tzfp.compression_ratio(rg.payload["parts"][0], n_values=x.size) == rg.ratio
