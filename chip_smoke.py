@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port of TPU-SZ and TPU-ZFP on one GPU and check
-every result.
+"""Drive the PyTorch/CUDA port of TPU-SZ, TPU-ZFP and the in-situ snapshot
+path on one GPU and check every result.
 
     python3 chip_smoke.py
 
@@ -41,10 +41,33 @@ Needs one CUDA card and ``nvcc``; it builds the hand-written kernels from
 9. checks the card's ZFP streams against the plain versions on the CPU for
    the six 64^3 fields, and drives HACC ``x`` and ``vx`` (2^21 particles,
    one (32768, 8, 8) partition each) through ``tpu-zfp``;
-10. prints the ZFP stage times and one JSON line of per-kernel numbers for
-    K1-K7 (launches, max difference from the plain version, median ms at
-    256^3, the plain version's ms, the bound) and, last, ``{"ok": true,
-    "device": {...}}``.
+10. holds K8 and K9 (the arena-batched SZ kernels) against their plain
+    versions on the card, bitwise, on four of the 256^3 fields (one bucket)
+    and on three (16, 128, 256) rows with three different bounds; each
+    row's arena slice must be the one-field fused stream and K9's rows K4's;
+11. drives the snapshot path: a state of the six 256^3 Nyx fields, the six
+    HACC arrays (2^21 particles), the ragged vx slice and a 64^3 bfloat16
+    baryon density, planned with ``plan_kernel_buckets`` then
+    ``plan_buckets`` (the Nyx fields make two kernel buckets, 4 + 2 rows),
+    compressed with ``szk_compress_bucket`` (K8) and
+    ``sz_compress_bucket(staged=True)``, handed to
+    ``CheckpointManager(async_save=True).save`` through ``to_host_async``,
+    drained with ``wait()`` and restored on the card; the launch counts are
+    reset just before and read just after (K8 exactly 2, K9 exactly 2 from
+    ``szk_decompress_bucket``).  Each leaf's bound is 1e-4 x its own value
+    range, passed to the bucket coders as one bound per row.  Every row must
+    hold codes (a nonzero
+    block width), every row's stream must equal the one-field coder's, every
+    restored leaf must lie within its bound in its dtype, and K9 must equal
+    K4 per field.  Prints the ratio, the stall until
+    ``save()`` returns, the wall and MB/s through ``wait()``, the restore
+    MB/s, the peak device memory per kernel bucket, the snapshot stages and
+    the files written; at small size the card's payload files must equal
+    the plain CPU versions' byte for byte;
+12. prints the ZFP stage times and one JSON line of per-kernel numbers for
+    K1-K9 (launches, max difference from the plain version, median ms at
+    the main path's shapes, the plain version's ms, the bound) and, last,
+    ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero; so does a machine without CUDA, and a
 directory without the rest of the repository.
@@ -53,6 +76,7 @@ directory without the rest of the repository.
 from __future__ import annotations
 
 import json
+import shutil
 import statistics
 import subprocess
 import sys
@@ -66,11 +90,16 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 # These fail, and the script exits non-zero, outside a checkout of the repository.
 from repro_torch import kernels  # noqa: E402
+from repro_torch import tree as tree_util  # noqa: E402
 from repro_torch.analysis import metrics, spectrum  # noqa: E402
+from repro_torch.checkpoint import manager as ckpt  # noqa: E402
+from repro_torch.core import arena  # noqa: E402
 from repro_torch.core import bitpack  # noqa: E402
+from repro_torch.core import sz as sz_core  # noqa: E402
 from repro_torch.core import zfp as zfp_core  # noqa: E402
 from repro_torch.core.api import get_compressor  # noqa: E402
 from repro_torch.data import cosmo  # noqa: E402
+from repro_torch.dist import insitu  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels import lorenzo3d as lor  # noqa: E402
 from repro_torch.kernels import sz_fused as szf  # noqa: E402
@@ -87,6 +116,8 @@ ZFP_RATE = 8  # quickstart's rate
 ZFP_CHECK_RATES = (2, 4, 8, 16)  # rates of the kernel-vs-plain checks
 TIMING_ITERS = 20  # CUDA-event-timed calls per kernel, stage and field
 PLAIN_ITERS = 3
+SNAPSHOT_DIR = Path(__file__).resolve().parent / ".chip_smoke_snapshots"  # gitignored
+K_ROWS = 4  # rows of the first kernel bucket: 4 x 2^24 points fill ROW_ELEM_BUDGET
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
 # H100 SXM INT32 rate: an SM has 64 INT32 lanes beside its 128 FP32 lanes, so
 # half the data sheet's 67 TFLOP/s FP32 rate.  The kernels' work is integer.
@@ -95,8 +126,10 @@ INT32_OPS_PER_S = 67e12 / 2
 # Integer operations per point (quantize 2, Lorenzo 7; zigzag 2, bit length
 # 1, block max 1, packing 6; prefix sums 3, dequantize 2; unpacking 6,
 # unzigzag 3).
+# K8 and K9 do K3's and K4's work per point.
 OPS_PER_POINT = {"lorenzo3d_quantize": 9, "lorenzo3d_reconstruct": 5,
-                 "fused_encode": 19, "fused_decode": 14}
+                 "fused_encode": 19, "fused_decode": 14,
+                 "fused_encode_batched": 19, "fused_decode_batched": 14}
 
 # Scalar operations the ZFP functions need per 64-point block, whatever a
 # kernel's own instruction count: no idle lanes, no loop or address work,
@@ -153,6 +186,10 @@ KERNELS = {
                               "src/repro/kernels/zfp_fused.py:84"),
     "fused_decompress_blocks": ("K7", "src/repro_torch/kernels/csrc/zfp_fused.cu",
                                 "src/repro/kernels/zfp_fused.py:161"),
+    "fused_encode_batched": ("K8", "src/repro_torch/kernels/csrc/sz_fused.cu",
+                             "src/repro/kernels/sz_fused.py:238"),
+    "fused_decode_batched": ("K9", "src/repro_torch/kernels/csrc/sz_fused.cu",
+                             "src/repro/kernels/sz_fused.py:361"),
 }
 SZ_KERNELS = ("lorenzo3d_quantize", "lorenzo3d_reconstruct", "fused_encode", "fused_decode")
 
@@ -529,6 +566,301 @@ def zfp_stage_times(x) -> dict[str, float]:
     return out
 
 
+# ------------------------------------------------ K8 / K9 and snapshots ----
+
+
+def same_stream(h, i: int, packed) -> bool:
+    """Row ``i`` of host arena ``h`` is ``packed``'s stored stream."""
+    ref = bitpack.to_storage(packed)
+    ls = arena.leaf_stream(h, i)
+    return (ls["words"].shape == ref["words"].shape and bool((ls["words"] == ref["words"]).all())
+            and bool((ls["widths"] == ref["widths"]).all())
+            and ls["total_bits"] == int(packed.total_bits))
+
+
+def batched_vs_plain(inputs: dict) -> dict[str, float]:
+    """K8 and K9 against their plain versions on the same CUDA inputs,
+    bitwise; each row's arena slice against the one-field fused stream
+    (K3 path) and K9's rows against K4's."""
+    worst = {"fused_encode_batched": 0.0, "fused_decode_batched": 0.0}
+    for label, (x, eb_i) in inputs.items():
+        shape = tuple(x.shape[1:])
+        words, widths = szf.fused_encode_batched(x, eb_i)
+        words_p, widths_p = szf.fused_encode_batched_plain(x, eb_i)
+        check(same(widths, widths_p), f"K8 widths differ from plain at {label}")
+        err = max_abs_diff(words, words_p)
+        check(same(words, words_p), f"K8 differs from plain at {label} (max |diff| {err})")
+        worst["fused_encode_batched"] = max(worst["fused_encode_batched"], err)
+        out = szf.fused_decode_batched(words, widths, shape, eb_i)
+        out_p = szf.fused_decode_batched_plain(words, widths, shape, eb_i)
+        err = max_abs_diff(out, out_p)
+        check(same(out, out_p), f"K9 differs from plain at {label} (max |diff| {err})")
+        worst["fused_decode_batched"] = max(worst["fused_decode_batched"], err)
+        del words_p, widths_p, out_p
+
+        ar, wrows, offs, counts, tbits, used = szf.fused_compress_batched(x, eb_i)
+        rows = szf.fused_decompress_batched(ar, wrows, shape, eb_i)
+        check(same(rows, out), f"fused_decompress_batched differs from K9 at {label}")
+        pos = 0
+        for b in range(x.shape[0]):
+            packed = szf.fused_compress(x[b], eb_i[b])
+            ref = bitpack.to_storage(packed)
+            cnt = int(counts[b])
+            check(int(offs[b]) == pos and cnt == ref["words"].shape[0]
+                  and same(ar[pos:pos + cnt], torch.from_numpy(ref["words"].view("int32")))
+                  and same(wrows[b], packed.widths) and int(tbits[b]) == int(packed.total_bits),
+                  f"row {b} of the K8 arena is not the fused one-field stream at {label}")
+            check(same(rows[b], szf.fused_decompress(packed, shape, eb_i[b])),
+                  f"row {b} of K9 differs from K4 at {label}")
+            pos += cnt
+        check(int(used) == pos, f"K8 arena used {int(used)} != {pos} at {label}")
+        print(f"K8/K9 vs plain at {label} {tuple(x.shape)}: bitwise equal; rows equal the "
+              "one-field K3/K4 streams")
+    return worst
+
+
+def snapshot_state(fields: dict, hacc, small: dict, device) -> dict:
+    """The in-situ snapshot's state: six Nyx fields, six HACC arrays, the
+    ragged vx slice (flat route) and a 64^3 bfloat16 baryon density."""
+    vx = torch.from_numpy(fields["vx"]).to(device)
+    return {"nyx": {k: torch.from_numpy(v).to(device) for k, v in fields.items()},
+            "hacc": {k: torch.from_numpy(hacc.fields[k]).to(device) for k in cosmo.HACC_FIELDS},
+            "vx_ragged": vx[:200, :130, :250].contiguous(),
+            "baryon64_bf16": torch.from_numpy(small["baryon_density"]).to(device).to(torch.bfloat16)}
+
+
+def plan_snapshot(state: dict):
+    """Kernel buckets first (``plan_kernel_buckets``), the rest flat.  Each
+    leaf's absolute bound is 1e-4 x its own value range (range / eb = 1e4,
+    inside the guarded regime), as the one-field phases set it; a bucket's
+    bounds are one float32 tensor [rows] on the leaves' device, so the
+    snapshot makes no host-to-device copy for them.  Returns the leaves,
+    the kernel and flat buckets, and each bucket's bounds."""
+    leaves = dict(tree_util.tree_flatten_with_path(state)[0])
+    entries = [(name, tuple(x.shape), x.dtype) for name, x in leaves.items()
+               if arena.is_float_leaf(x)]
+    kbuckets, rest = insitu.plan_kernel_buckets(entries)
+    fbuckets = arena.plan_buckets(rest)
+
+    def bucket_eb(b):
+        ebs = [REL_EB * float(leaves[n].float().max() - leaves[n].float().min())
+               for n in b.names]
+        return torch.tensor(ebs, dtype=torch.float32, device=leaves[b.names[0]].device)
+
+    return (leaves, kbuckets, fbuckets, [bucket_eb(b) for b in kbuckets],
+            [bucket_eb(b) for b in fbuckets])
+
+
+def snapshot(leaves: dict, kbuckets, fbuckets, keb: list, feb: list, mgr, step: int,
+             device=None):
+    """One in-situ snapshot: every bucket compressed on ``device`` (one K8
+    launch per kernel bucket on the card), its D2H deferred, and the whole
+    snapshot handed to the manager's drain thread.  Returns the state
+    handed to ``save`` and the device arenas."""
+    snap, arenas = {}, {}
+    for k, (b, eb) in enumerate(zip(kbuckets, keb)):
+        a = arena.szk_compress_bucket([leaves[n] for n in b.names], b, eb, device=device)
+        snap[f"karena{k:03d}"] = arena.to_host_async(a, b, codec=arena.CODEC_SZK)
+        arenas[f"karena{k:03d}"] = (a, b)
+    for k, (b, eb) in enumerate(zip(fbuckets, feb)):
+        a = arena.sz_compress_bucket([leaves[n] for n in b.names], b, eb, staged=True,
+                                     device=device)
+        snap[f"farena{k:03d}"] = arena.to_host_async(a, b)
+        arenas[f"farena{k:03d}"] = (a, b)
+    mgr.save(step, snap)
+    return snap, arenas
+
+
+def snapshot_path(fields: dict, hacc, small: dict, device) -> dict[str, int]:
+    """The snapshot main path at full size (module docstring, phase 11);
+    returns K8's and K9's launches in its run."""
+    state = snapshot_state(fields, hacc, small, device)
+    leaves, kbuckets, fbuckets, keb, feb = plan_snapshot(state)
+    check([b.rows for b in kbuckets] == [K_ROWS, 6 - K_ROWS]
+          and all(n.startswith("['nyx']") for b in kbuckets for n in b.names),
+          f"kernel buckets {[b.names for b in kbuckets]}")
+    check(sum(b.rows for b in fbuckets) == 8, f"flat buckets {[b.names for b in fbuckets]}")
+    raw = sum(b.nbytes_raw for b in kbuckets + fbuckets)
+    print(f"snapshot plan: kernel buckets {[b.rows for b in kbuckets]}, flat buckets "
+          f"{[(b.rows, b.padded) for b in fbuckets]} (rows, P), eb per row "
+          f"{[[float(f'{e:.6g}') for e in eb.tolist()] for eb in keb + feb]}, "
+          f"{raw / 2**20:.1f} MiB raw; zstd {'on' if ckpt._zstd is not None else 'off'}")
+    shutil.rmtree(SNAPSHOT_DIR, ignore_errors=True)
+    mgr = ckpt.CheckpointManager(SNAPSHOT_DIR, keep_last=3, async_save=True)
+    like = {f"{p}arena{k:03d}": 0 for p, bs in (("k", kbuckets), ("f", fbuckets))
+            for k in range(len(bs))}
+
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    snap, arenas = snapshot(leaves, kbuckets, fbuckets, keb, feb, mgr, 1)
+    ebs = {f"{p}arena{k:03d}": eb for p, eb_list in (("k", keb), ("f", feb))
+           for k, eb in enumerate(eb_list)}
+    res = mgr.wait()
+    out, _ = mgr.restore(step=1, state_like=like)
+    decoded = {k: arena.szk_decompress_bucket(*arenas[k]) for k in arenas if k[0] == "k"}
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    launches = {k: counts[k] for k in ("fused_encode_batched", "fused_decode_batched")}
+    print("snapshot path launches: " + json.dumps({k: v for k, v in counts.items() if v}))
+    check(launches == {"fused_encode_batched": 2, "fused_decode_batched": 2},
+          f"K8/K9 launches per snapshot {launches}, want 2 and 2")
+    check(res.step == 1 and res.nbytes_raw == raw, f"save result {res}")
+
+    worst = {"arena-szk": 0.0, "arena-sz": 0.0}
+    for key, (a, b) in arenas.items():
+        h = snap[key].result()  # resolved on the drain thread; cached
+        codec = arena.CODEC_SZK if key[0] == "k" else arena.CODEC_SZ
+        check(h.codec == codec, f"{key}: codec {h.codec}")
+        flat_rows = None if key[0] == "k" else arena.sz_decode_rows(
+            a.arena, a.widths, a.offsets, a.counts, a.eb_i)
+        for i, name in enumerate(b.names):
+            x = leaves[name]
+            eb = float(ebs[key][i])  # the row's float32 bound
+            got = out[key][name]
+            check(got.dtype == x.dtype and tuple(got.shape) == tuple(x.shape) and not got.is_cuda,
+                  f"{name}: restored {got.dtype} {tuple(got.shape)}")
+            check(bool(a.widths[i].any()), f"{name}: every block width is 0 at eb {eb}")
+            if key[0] == "k":
+                packed, padded, eb_i = ops.sz_compress_kernel(x, eb)
+                check(same_stream(h, i, packed), f"{name}: arena row != fused one-field stream")
+                k4 = ops.sz_decompress_kernel(packed, padded, x.shape, eb_i, path="fused")
+                check(same(decoded[key][i], k4), f"{name}: K9 differs from K4")
+                check(same(got, k4), f"{name}: restored (K2 path) differs from K4")
+                xf = x
+            else:
+                xf = x.float().reshape(-1)
+                check(same_stream(h, i, sz_core.compress(xf, eb).packed),
+                      f"{name}: arena row != sz.compress on the flat leaf")
+                dec = flat_rows[i, :xf.numel()].reshape(x.shape)
+                check(same(got, dec.to(x.dtype)), f"{name}: restored leaf != its decoded row")
+                got, xf = dec, x.float()  # the bound holds before a bf16 cast
+            err = float((got.to(device).float() - xf.float()).abs().max())
+            check(bool(torch.isfinite(got).all()) and err <= eb * (1 + 1e-5),
+                  f"{name}: max |x^ - x| = {err} > eb = {eb}")
+            worst[codec] = max(worst[codec], err / eb)
+    print(f"snapshot step 1: every row holds codes and equals its one-field stream; restored "
+          f"leaves within eb (max err/eb: {json.dumps(worst)}); K9 == K4 == restore per Nyx "
+          "field")
+    del out, decoded, snap, arenas
+
+    # timed snapshot (allocator and pinned pools warm), then timed restore
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    snap, arenas = snapshot(leaves, kbuckets, fbuckets, keb, feb, mgr, 2)
+    stall = time.perf_counter() - t0
+    res = mgr.wait()
+    wall = time.perf_counter() - t0
+    del snap, arenas
+    t0 = time.perf_counter()
+    out, _ = mgr.restore(step=2, state_like=like)
+    restore_s = time.perf_counter() - t0
+    files = {p.name: p.stat().st_size for p in sorted((SNAPSHOT_DIR / "step_000000002").iterdir())}
+    print(f"snapshot step 2: ratio={res.ratio:.4f} raw={res.nbytes_raw} stored={res.nbytes_stored} "
+          f"save_returns_ms={stall * 1e3:.3f} wall_ms={wall * 1e3:.3f} "
+          f"MB/s={res.nbytes_raw / 1e6 / wall:.1f} restore_ms={restore_s * 1e3:.3f} "
+          f"restore_MB/s={res.nbytes_raw / 1e6 / restore_s:.1f}")
+    print("snapshot files (bytes): " + json.dumps(files))
+    del out
+
+    for k, (b, eb) in enumerate(zip(kbuckets, keb)):
+        xs = [leaves[n] for n in b.names]
+        pc = peak_mib(lambda: arena.szk_compress_bucket(xs, b, eb))
+        a = arena.szk_compress_bucket(xs, b, eb)
+        pd = peak_mib(lambda: arena.szk_decompress_bucket(a, b))
+        print(f"kernel bucket {k} ({b.rows} x {b.shapes[0]}): peak_mib compress={pc:.1f} "
+              f"decompress={pd:.1f}")
+    print("snapshot stages (median ms): " + json.dumps(
+        snapshot_stages(leaves, kbuckets[0], fbuckets, keb[0], feb)))
+    return launches
+
+
+def snapshot_stages(leaves: dict, kb, fbuckets, eb_k, feb: list) -> dict[str, float]:
+    """Median ms of the stages of one kernel bucket's compress and decode
+    (stack + bounds, K8, compaction; disassembly, K9) and of each flat
+    bucket's compress, CUDA-event timed."""
+    xs = [leaves[n] for n in kb.names]
+    x = torch.stack([t.float() for t in xs])
+    eb_i = sz_core.internal_bound(x.abs().amax(dim=(1, 2, 3)), eb_k)
+    words, widths = szf.fused_encode_batched(x, eb_i)
+    n = x[0].numel()
+    a = arena.szk_compress_bucket(xs, kb, eb_k)
+    rows, rwidths = szf._disassemble(a.arena, a.widths)
+    stages = {
+        f"szk_compress_bucket[{kb.rows}]": lambda: arena.szk_compress_bucket(xs, kb, eb_k),
+        "szk.stack+bounds": lambda: sz_core.internal_bound(
+            torch.stack([t.float() for t in xs]).abs().amax(dim=(1, 2, 3)), eb_k),
+        "szk.K8": lambda: szf.fused_encode_batched(x, eb_i),
+        "szk.compact_streams": lambda: bitpack.compact_streams(words, 2 * widths,
+                                                               kb.rows * (n + 2)),
+        f"szk_decompress_bucket[{kb.rows}]": lambda: arena.szk_decompress_bucket(a, kb),
+        "szk.disassemble": lambda: szf._disassemble(a.arena, a.widths),
+        "szk.K9": lambda: szf.fused_decode_batched(rows, rwidths, kb.shapes[0], a.eb_i),
+    }
+    for b, eb in zip(fbuckets, feb):
+        fx = [leaves[nm] for nm in b.names]
+        stages[f"sz_compress_bucket[{b.rows}x{b.padded}]"] = (
+            lambda fx=fx, b=b, eb=eb: arena.sz_compress_bucket(fx, b, eb, staged=True))
+    return {name: cuda_ms(fn, TIMING_ITERS // 2) for name, fn in stages.items()}
+
+
+def snapshot_agrees_with_cpu(fields: dict, hacc, device) -> None:
+    """At small size the card's snapshot payload files equal the plain CPU
+    versions' byte for byte (kernel and flat routes)."""
+    state = {"f": {k: torch.from_numpy(fields[k][:16, :64, :128].copy())
+                   for k in ("baryon_density", "temperature")},
+             "h": torch.from_numpy(hacc.fields["vx"][:5000].copy()),
+             "g": torch.from_numpy(fields["vy"][:3, :50, :7].copy()).to(torch.bfloat16)}
+    dirs = {}
+    for dev in (device, torch.device("cpu")):
+        on = {"f": {k: v.to(dev) for k, v in state["f"].items()}, "h": state["h"].to(dev),
+              "g": state["g"].to(dev)}
+        d = SNAPSHOT_DIR / f"small_{dev.type}"
+        mgr = ckpt.CheckpointManager(d, async_save=True, policy=ckpt.CodecPolicy(zstd_level=0),
+                                     device=dev)
+        snapshot(*plan_snapshot(on), mgr, 1, device=dev)
+        mgr.wait()
+        dirs[dev.type] = d / "step_000000001"
+    names = sorted(p.name for p in dirs["cuda"].glob("*.bin"))
+    check(names == sorted(p.name for p in dirs["cpu"].glob("*.bin")) and len(names) >= 2,
+          f"small snapshot files differ: {names}")
+    for nm in names + ["MANIFEST.json"]:
+        check((dirs["cuda"] / nm).read_bytes() == (dirs["cpu"] / nm).read_bytes(),
+              f"small snapshot: {nm} differs between the card and the CPU")
+    print(f"snapshot card == plain CPU versions at small size: {len(names)} payload files and "
+          "the manifest byte for byte")
+
+
+def batched_kernel_times(xb, eb_i) -> dict[str, dict]:
+    """Median ms of K8 and K9 and their plain versions at the snapshot's
+    (4, 256, 256, 256) bucket, beside the bound from this run's bytes
+    (K9 reads the payload words this data needs) and operations."""
+    shape = tuple(xb.shape[1:])
+    n = xb.numel()
+    nb = n // 64
+    words, widths = szf.fused_encode_batched(xb, eb_i)
+    payload_words = 2 * int(widths.sum())
+    runs = {
+        "fused_encode_batched": (lambda: szf.fused_encode_batched(xb, eb_i),
+                                 lambda: szf.fused_encode_batched_plain(xb, eb_i),
+                                 4 * n + 4 * 64 * nb + 4 * nb + 4 * xb.shape[0]),
+        "fused_decode_batched": (lambda: szf.fused_decode_batched(words, widths, shape, eb_i),
+                                 lambda: szf.fused_decode_batched_plain(words, widths, shape, eb_i),
+                                 4 * payload_words + 4 * nb + 4 * n + 4 * xb.shape[0]),
+    }
+    return {name: timed(kernel, plain, nbytes, OPS_PER_POINT[name] * n)
+            for name, (kernel, plain, nbytes) in runs.items()}
+
+
+def timed(kernel, plain, nbytes: int, ops: int) -> dict:
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / INT32_OPS_PER_S * 1e3
+    return {"ms": cuda_ms(kernel, TIMING_ITERS), "plain_ms": cuda_ms(plain, PLAIN_ITERS),
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bytes_ms": bytes_ms, "ops_ms": ops_ms}
+
+
+
 def kernel_times(x, eb: float) -> dict[str, dict]:
     """Median ms of each kernel and of its plain version at the main path's
     256^3 shape, beside the bound from this run's bytes and operations (for
@@ -570,15 +902,8 @@ def kernel_times(x, eb: float) -> dict[str, dict]:
                                     lambda: zff.fused_decompress_blocks_plain(*enc, ZFP_RATE),
                                     stream_bytes + 4 * zn),
     })
-    out = {}
-    for name, (kernel, plain, nbytes) in runs.items():
-        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        ops_ms = ops[name] / INT32_OPS_PER_S * 1e3
-        out[name] = {"ms": cuda_ms(kernel, TIMING_ITERS), "plain_ms": cuda_ms(plain, PLAIN_ITERS),
-                     "bound_ms": max(bytes_ms, ops_ms),
-                     "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-                     "bytes_ms": bytes_ms, "ops_ms": ops_ms}
-    return out
+    return {name: timed(kernel, plain, nbytes, ops[name])
+            for name, (kernel, plain, nbytes) in runs.items()}
 
 
 def stage_times(x, eb: float) -> dict[str, float]:
@@ -591,7 +916,7 @@ def stage_times(x, eb: float) -> dict[str, float]:
     eb_i = lor.guarded_eb(xp, eb)
     words, widths = szf.fused_encode(xp, eb_i)
     packed = szf._assemble_stream(words, widths, n)
-    rows, rwidths = szf._disassemble_stream(packed)
+    rows, rwidths = szf._disassemble(packed.words, packed.widths)
     delta = lor.lorenzo3d_quantize(xp, eb_i)
     r = comp.compress(x, eb=eb)
     stages = {
@@ -601,7 +926,8 @@ def stage_times(x, eb: float) -> dict[str, float]:
         "fused.compress.assemble_stream": lambda: szf._assemble_stream(words, widths, n),
         "fused.compress.total_bits_readback": lambda: int(packed.total_bits),
         "fused.decompress": lambda: comp.decompress(r),
-        "fused.decompress.disassemble_stream": lambda: szf._disassemble_stream(packed),
+        "fused.decompress.disassemble_stream": lambda: szf._disassemble(packed.words,
+                                                                       packed.widths),
         "fused.decompress.K4": lambda: szf.fused_decode(rows, rwidths, shape, eb_i),
         "xla.compress.K1": lambda: lor.lorenzo3d_quantize(xp, eb_i),
         "xla.compress.pack_codes": lambda: bitpack.pack_codes(szf.tile_major_flatten(delta)),
@@ -646,12 +972,30 @@ def run(device) -> dict:
     zfp_agrees_with_cpu(cosmo.nyx_fields(n=SMALL_N, seed=SEED), device)
     zfp_hacc(hacc, device)
 
+    names = list(fields)
+    xb = torch.stack([torch.from_numpy(fields[k]).to(device) for k in names[:K_ROWS]])
+    eb_rows = sz_core.internal_bound(xb.abs().amax(dim=(1, 2, 3)),
+                                     torch.tensor([ebs[k] for k in names[:K_ROWS]], device=device))
+    small3 = torch.stack([torch.from_numpy(fields[k][:16, :128, :256].copy()).to(device)
+                          for k in ("vx", "vy", "vz")])
+    eb3 = sz_core.internal_bound(small3.abs().amax(dim=(1, 2, 3)), torch.tensor(
+        [REL_EB * 2e8, 1e-3 * 2e8, 1e-2 * 2e8], device=device))
+    worst.update(batched_vs_plain({f"{K_ROWS} x {N}^3 Nyx": (xb, eb_rows),
+                                   "3 x (16, 128, 256) vx/vy/vz": (small3, eb3)}))
+    small = cosmo.nyx_fields(n=SMALL_N, seed=SEED)
+    try:
+        launches.update(snapshot_path(fields, hacc, small, device))
+        snapshot_agrees_with_cpu(fields, hacc, device)
+    finally:
+        shutil.rmtree(SNAPSHOT_DIR, ignore_errors=True)
+
     stages = stage_times(base, ebs["baryon_density"])
     print(f"stages at {N}^3 baryon_density (median ms; peak MiB): " + json.dumps(stages))
     stages = zfp_stage_times(base)
     print(f"ZFP stages at {N}^3 baryon_density, rate {ZFP_RATE} (median ms; peak MiB): "
           + json.dumps(stages))
     times = kernel_times(base, ebs["baryon_density"])
+    times.update(batched_kernel_times(xb, eb_rows))
     print("kernel bounds (ms: bytes, operations): " + json.dumps(
         {name: [t["bytes_ms"], t["ops_ms"]] for name, t in times.items()}))
     rows = []

@@ -183,6 +183,67 @@ def unpack_codes(packed: PackedCodes, block: int = BLOCK) -> torch.Tensor:
     return unzigzag(u[:n])
 
 
+def _row_positions(width: torch.Tensor, block: int):
+    """Per-row bit position of bit 0 of every code, and each code's width
+    (int64 [B, P]), for block widths ``width`` [B, P // block]."""
+    width = width.to(torch.int64)
+    base = exclusive_cumsum(width * block, dim=1)
+    idx_in_block = torch.arange(width.shape[1] * block, dtype=torch.int64,
+                                device=width.device) % block
+    w_per = torch.repeat_interleave(width, block, dim=1)
+    return torch.repeat_interleave(base, block, dim=1) + idx_in_block[None, :] * w_per, w_per
+
+
+def pack_codes_rows(codes: torch.Tensor, n, block: int = BLOCK):
+    """Batched :func:`pack_codes` over ``codes: int32[B, P]`` rows (P a
+    ``block`` multiple): row ``b`` holds ``n[b]`` real codes left-justified,
+    zeros past them, so its stream equals ``pack_codes(codes[b, :n[b]])``.
+
+    Returns ``(rows, counts, widths, total_bits)``: uint32 [B, P + 2]
+    buffers dense from word 0, int32 [B] stored words ``min(2 * sum(width),
+    n + 2)``, uint8 [B, P // block] widths and int32 [B] bits with headers
+    charged for ``ceil(n[b] / block)`` blocks only — the reference's
+    accounting exactly.  The reference scatters with ``mode="drop"``; no
+    index can drop here, since the last code's high word is at most ``P``.
+    """
+    bsz, padded = codes.shape
+    if padded % block:
+        raise ValueError(f"pack_codes_rows: row length {padded} not a {block} multiple")
+    if padded * 32 >= 2**31:
+        raise ValueError(f"pack_codes_rows: P={padded} too large for int32 bit offsets")
+    n = torch.as_tensor(n, dtype=torch.int64, device=codes.device)
+    u = zigzag(codes)
+    width = bitlength(u.view(bsz, padded // block, block)).amax(dim=2)  # int32 [B, nb]
+    pos0, _ = _row_positions(width, block)
+    off = pos0 & 31
+    word0 = pos0 >> 5
+    lo = (u << off) & MASK32
+    hi = (u >> 1) >> (31 - off)  # u >> (32 - off), 0 at off == 0
+    buf = torch.zeros(bsz, padded + 2, dtype=torch.int64, device=codes.device)
+    buf.scatter_add_(1, word0, lo)  # codes never share a bit: add == OR
+    buf.scatter_add_(1, word0 + 1, hi)
+
+    wsum = width.to(torch.int64).sum(dim=1)
+    counts = torch.minimum(2 * wsum, n + 2)
+    total_bits = wsum * block + (n + block - 1) // block * _WIDTH_BITS
+    return (i64_to_u32(buf), counts.to(torch.int32), width.to(torch.uint8),
+            total_bits.to(torch.int32))
+
+
+def unpack_codes_rows(rows: torch.Tensor, widths: torch.Tensor, block: int = BLOCK) -> torch.Tensor:
+    """Inverse of :func:`pack_codes_rows`: uint32 [B, cap] payload buffers +
+    uint8 [B, nb] widths -> int32 [B, nb * block] codes (zeros past each
+    row's real length)."""
+    words = u32_to_i64(rows)
+    cap = words.shape[1]
+    pos0, w_per = _row_positions(widths, block)
+    off = pos0 & 31
+    lo = torch.gather(words, 1, (pos0 >> 5).clamp(0, cap - 1)) >> off
+    # words[word1] << (32 - off); two-step shift so off == 0 yields 0
+    hi = ((torch.gather(words, 1, ((pos0 >> 5) + 1).clamp(0, cap - 1)) << 1) << (31 - off)) & MASK32
+    return unzigzag((lo | hi) & code_mask(w_per))
+
+
 def packed_nbytes(packed: PackedCodes) -> torch.Tensor:
     """True storage bytes of the stream (payload + block headers)."""
     return (packed.total_bits + 7) // 8
@@ -208,6 +269,11 @@ def from_storage(words, widths, n: int, total_bits=None,
     device = resolve_device(device)
     words = np.asarray(words, np.uint32)
     widths = np.array(widths, np.uint8)  # a writable copy for torch.from_numpy
+    # a descriptor that disagrees with its payload is refused here, before
+    # any device work, as a ValueError
+    if widths.shape != (-(-n // BLOCK),) or len(words) > n + 2 or (widths > 32).any():
+        raise ValueError(f"stream of {n} codes: {widths.shape} widths (max "
+                         f"{int(widths.max(initial=0))}), {len(words)} words")
     if total_bits is None:
         total_bits = int(np.sum(widths.astype(np.int64)) * BLOCK
                          + widths.shape[0] * _WIDTH_BITS)

@@ -1,5 +1,5 @@
-"""K3 and K4: single-pass fused TPU-SZ encode/decode (the port of
-``repro.kernels.sz_fused``).
+"""K3, K4, K8 and K9: single-pass fused TPU-SZ encode/decode, for one field
+and for a batch of same-shape fields (the port of ``repro.kernels.sz_fused``).
 
 K3 fuses dual quantization + 3-D Lorenzo residual + zigzag + per-block
 width + word-level packing: per 64-code block it emits a 64-word payload row
@@ -16,9 +16,20 @@ tile-major flattening of the residual field (tiles in raster order, each
 (8, 64, 128) tile flattened C-order), so the ``fused`` and ``xla`` paths of
 :mod:`repro_torch.kernels.ops` emit the same stream and decode each other's.
 
-On a CUDA tensor ``fused_encode``/``fused_decode`` launch the kernels in
-``csrc/sz_fused.cu`` (or raise); on a CPU tensor they run the plain versions
-beside them.  ``launches`` counts kernel launches, nothing else.
+K8 and K9 are the arena-batched forms (the snapshot path's kernel buckets):
+(B, Z, Y, X) TILE-aligned rows with a per-row bound ``eb_i[B]`` go through
+one launch, row ``b``'s blocks following row ``b - 1``'s, so K8 is K3 over
+the (B*Z, Y, X) field with the bound of each block's row (no tile spans two
+rows, since prediction resets at tile edges and Z % 8 == 0).  All rows'
+streams then compact into one word arena with a single
+:func:`bitpack.compact_streams`, which stays plain PyTorch as the reference
+keeps it outside Pallas; K9 disassembles the whole arena at once, then
+decodes every row in one launch.
+
+On a CUDA tensor ``fused_encode``/``fused_decode`` and their ``_batched``
+forms launch the kernels in ``csrc/sz_fused.cu`` (or raise); on a CPU tensor
+they run the plain versions beside them.  ``launches`` counts kernel
+launches, nothing else.
 """
 
 from __future__ import annotations
@@ -36,7 +47,8 @@ CODES_PER_TILE = TILE[0] * TILE[1] * TILE[2]  # 65536
 BLOCKS_PER_TILE = CODES_PER_TILE // bitpack.BLOCK  # 1024
 WORDS_PER_BLOCK = 64  # a block's payload is at most 2 * 32 words
 
-launches = {"fused_encode": 0, "fused_decode": 0}
+launches = {"fused_encode": 0, "fused_decode": 0, "fused_encode_batched": 0,
+            "fused_decode_batched": 0}
 
 
 def tile_major_flatten(a: torch.Tensor) -> torch.Tensor:
@@ -136,15 +148,17 @@ def fused_compress(x: torch.Tensor, eb_i) -> bitpack.PackedCodes:
 # ------------------------------------------------------------- decode -----
 
 
-def _disassemble_stream(packed: bitpack.PackedCodes):
-    """Dense global stream -> per-block payload rows (uint32 [nb, 64], zero
-    past ``2*w``) and int32 widths: the inverse of :func:`_assemble_stream`."""
-    width = packed.widths.to(torch.int32)
+def _disassemble(words: torch.Tensor, widths: torch.Tensor):
+    """The inverse of :func:`_assemble_stream`.  Dense stream(s) -> per-block
+    payload rows (uint32 [nb, 64], zero past ``2*w``) and int32 widths:
+    block payloads lie back to back, so the exclusive scan of ``2*w`` is
+    the offset table (one gather)."""
+    width = widths.reshape(-1).to(torch.int32)
     wcount = 2 * width.to(torch.int64)
     base = bitpack.exclusive_cumsum(wcount)
     j = torch.arange(WORDS_PER_BLOCK, dtype=torch.int64, device=width.device)
     idx = base[:, None] + j[None, :]
-    words = packed.words.view(torch.int32)
+    words = words.view(torch.int32)
     vals = words[idx.clamp(0, words.shape[0] - 1)]
     rows = torch.where(j[None, :] < wcount[:, None], vals, torch.zeros((), dtype=torch.int32,
                                                                          device=vals.device))
@@ -186,5 +200,117 @@ def fused_decode(block_words: torch.Tensor, width: torch.Tensor, padded_shape, e
 def fused_decompress(packed: bitpack.PackedCodes, padded_shape, eb_i) -> torch.Tensor:
     """Fused SZ decode: disassemble the stream, then K4 (unpack + unzigzag +
     3-fold prefix sum + dequantize in one pass)."""
-    block_words, width = _disassemble_stream(packed)
+    block_words, width = _disassemble(packed.words, packed.widths)
     return fused_decode(block_words, width, tuple(padded_shape), eb_i)
+
+
+# ----------------------------------------------------- batched / arena -----
+
+
+def _eb_rows(eb_i, like: torch.Tensor, bsz: int) -> torch.Tensor:
+    eb = torch.as_tensor(eb_i, dtype=torch.float32, device=like.device).reshape(-1)
+    if eb.numel() != bsz:
+        raise ValueError(f"eb_i must hold one bound per row: want {bsz}, got {eb.numel()}")
+    return eb.contiguous()
+
+
+def fused_encode_batched_plain(x: torch.Tensor, eb_i):
+    """Plain version of K8: K3's plain version on each row, blocks of row 0
+    first (uint32 [B * nb, 64] rows, int32 [B * nb] widths)."""
+    eb = _eb_rows(eb_i, x, x.shape[0])
+    parts = [fused_encode_plain(x[b], eb[b]) for b in range(x.shape[0])]
+    return torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts])
+
+
+def fused_encode_batched(x: torch.Tensor, eb_i):
+    """K8: f32 (B, Z, Y, X) TILE-padded rows + per-row bounds ``eb_i[B]`` ->
+    every row's per-block payload rows and widths in one launch."""
+    if x.device.type == "cpu":
+        return fused_encode_batched_plain(x, eb_i)
+    if x.ndim != 4:
+        raise ValueError(f"fused_encode_batched: want (B, Z, Y, X) rows, got {tuple(x.shape)}")
+    _lor.tile_grid(x.shape[1:])
+    bsz, z, y, w = x.shape
+    eb = _eb_rows(eb_i, x, bsz)
+    _build.check_cuda(x, torch.float32, "fused_encode_batched x")
+    nb = x.numel() // bitpack.BLOCK
+    words = torch.empty(nb, WORDS_PER_BLOCK, dtype=torch.int32, device=x.device)
+    widths = torch.empty(nb, dtype=torch.int32, device=x.device)
+    P, I = _build.P, _build.I
+    _build.launch("sz_fused", "sz_fused_encode_batched", [P, P, P, P, I, I, I, I],
+                  x.data_ptr(), eb.data_ptr(), words.data_ptr(), widths.data_ptr(),
+                  bsz, z, y, w, device=x.device)
+    launches["fused_encode_batched"] += 1
+    return words.view(torch.uint32), widths
+
+
+def fused_compress_batched(x: torch.Tensor, eb_i):
+    """Arena-batched fused SZ encode: (B, Z, Y, X) rows -> one contiguous
+    uint32 word arena holding every row's stream back to back.
+
+    Returns ``(arena, widths, offsets, counts, total_bits, used)`` (uint32
+    [B * (n + 2)], uint8 [B, nb], int32 [B] three times, int32 []) with
+    ``arena[offsets[b] : offsets[b] + counts[b]]`` equal to
+    ``fused_compress(x[b], eb_i[b])``'s stored words.  Rows hold only full
+    blocks, so ``2 * sum(width) <= n`` and nothing is cut at ``n + 2``."""
+    bsz = x.shape[0]
+    n = math.prod(x.shape[1:])
+    if n * 32 >= 2**31:
+        raise ValueError(f"fused_compress_batched: row n={n} too large; chunk the field")
+    block_words, width = fused_encode_batched(x, eb_i)
+    nb = n // bitpack.BLOCK
+    arena, block_offsets, used = bitpack.compact_streams(block_words, 2 * width, bsz * (n + 2))
+    width_rows = width.view(bsz, nb)
+    wsum = width_rows.to(torch.int64).sum(dim=1)
+    offsets = block_offsets.view(bsz, nb)[:, 0]
+    total_bits = wsum * bitpack.BLOCK + nb * bitpack._WIDTH_BITS
+    return (arena, width_rows.to(torch.uint8), offsets.to(torch.int32),
+            (2 * wsum).to(torch.int32), total_bits.to(torch.int32), used.to(torch.int32))
+
+
+def fused_decode_batched_plain(block_words: torch.Tensor, width: torch.Tensor, padded_shape,
+                               eb_i) -> torch.Tensor:
+    """Plain version of K9: K4's plain version on each row's blocks."""
+    nb = math.prod(padded_shape) // bitpack.BLOCK
+    bsz = width.numel() // nb
+    eb = _eb_rows(eb_i, block_words, bsz)
+    return torch.stack([fused_decode_plain(block_words[b * nb:(b + 1) * nb],
+                                           width[b * nb:(b + 1) * nb], padded_shape, eb[b])
+                        for b in range(bsz)])
+
+
+def fused_decode_batched(block_words: torch.Tensor, width: torch.Tensor, padded_shape,
+                         eb_i) -> torch.Tensor:
+    """K9: every row's per-block payload rows + widths (row 0's blocks
+    first) -> f32 (B, *padded_shape) in one launch."""
+    if block_words.device.type == "cpu":
+        return fused_decode_batched_plain(block_words, width, padded_shape, eb_i)
+    z, y, w = padded_shape
+    _lor.tile_grid(padded_shape)
+    nb = math.prod(padded_shape) // bitpack.BLOCK
+    bsz = width.numel() // nb
+    if (bsz * nb != width.numel() or tuple(block_words.shape) != (bsz * nb, WORDS_PER_BLOCK)
+            or tuple(width.shape) != (bsz * nb,)):
+        raise ValueError(f"fused_decode_batched: want (B * {nb}, {WORDS_PER_BLOCK}) rows and "
+                         f"(B * {nb},) widths for rows of {tuple(padded_shape)}, got "
+                         f"{tuple(block_words.shape)} and {tuple(width.shape)}")
+    block_words = block_words.view(torch.int32)
+    _build.check_cuda(block_words, torch.int32, "fused_decode_batched block_words")
+    _build.check_cuda(width, torch.int32, "fused_decode_batched width")
+    eb = _eb_rows(eb_i, block_words, bsz)
+    out = torch.empty((bsz, *padded_shape), dtype=torch.float32, device=block_words.device)
+    P, I = _build.P, _build.I
+    _build.launch("sz_fused", "sz_fused_decode_batched", [P, P, P, P, I, I, I, I],
+                  block_words.data_ptr(), width.data_ptr(), eb.data_ptr(), out.data_ptr(),
+                  bsz, z, y, w, device=block_words.device)
+    launches["fused_decode_batched"] += 1
+    return out
+
+
+def fused_decompress_batched(arena: torch.Tensor, widths: torch.Tensor, padded_shape,
+                             eb_i) -> torch.Tensor:
+    """Inverse of :func:`fused_compress_batched`: the word arena + per-row
+    widths uint8 [B, nb] -> f32 (B, *padded_shape).  Rows lie back to back,
+    so one global disassembly of the arena feeds one K9 launch."""
+    block_words, width = _disassemble(arena, widths)
+    return fused_decode_batched(block_words, width, tuple(padded_shape), eb_i)

@@ -253,3 +253,125 @@ def test_cuda_zfp_compressor_launches_k6_k7_and_matches_plain_cpu(cuda_device, f
     rec = interop.to_record(rc)
     assert _same(gpu.decompress(interop.from_record(rec)), xg)
     assert tzfp.compression_ratio(rg.payload["parts"][0], n_values=x.size) == rg.ratio
+
+
+# ------------------------------------------------ K8 / K9 and snapshots ----
+
+
+@pytest.mark.cuda
+def test_cuda_k8_k9_match_plain_one_launch_per_bucket(cuda_device):
+    """K8 and K9 on the card against their plain versions on the same CUDA
+    inputs (three rows, three bounds): bitwise, one launch each; the
+    arena and sidecars equal the plain CPU versions'."""
+    rng = np.random.default_rng(13)
+    x = torch.from_numpy((rng.normal(size=(3, 16, 64, 128)) * 20).astype(np.float32))
+    x[0] = torch.cumsum(x[0], dim=2)
+    eb = torch.tensor([1e-3, 0.2, 7.0])
+    xg, ebg = x.to(cuda_device), eb.to(cuda_device)
+    kernels.reset_launch_counts()
+    words, widths = tszf.fused_encode_batched(xg, ebg)
+    out = tszf.fused_decode_batched(words, widths, (16, 64, 128), ebg)
+    counts = kernels.launch_counts()
+    assert counts["fused_encode_batched"] == 1 and counts["fused_decode_batched"] == 1
+    words_p, widths_p = tszf.fused_encode_batched_plain(xg, ebg)
+    assert _same(words, words_p) and _same(widths, widths_p)
+    assert _same(out, tszf.fused_decode_batched_plain(words, widths, (16, 64, 128), ebg))
+    for got, want in zip(tszf.fused_compress_batched(xg, ebg), tszf.fused_compress_batched(x, eb)):
+        assert _same(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["encode", "decode"])
+def test_cuda_batched_wrappers_raise_when_the_library_cannot_be_loaded(cuda_device, monkeypatch,
+                                                                      which):
+    def refuse(name):
+        raise OSError(f"cannot load {name}")
+
+    def plain(*args):
+        raise AssertionError("the plain version ran for a CUDA tensor")
+
+    monkeypatch.setattr(_build, "library", refuse)
+    monkeypatch.setattr(tszf, f"fused_{which}_batched_plain", plain)
+    before = dict(tszf.launches)
+    eb = torch.ones(2, device=cuda_device)
+    with pytest.raises(OSError, match="cannot load sz_fused"):
+        if which == "encode":
+            tszf.fused_encode_batched(torch.zeros(2, 8, 64, 128, device=cuda_device), eb)
+        else:
+            tszf.fused_decode_batched(torch.zeros(2 * 1024, 64, dtype=torch.int32,
+                                                  device=cuda_device),
+                                      torch.zeros(2 * 1024, dtype=torch.int32, device=cuda_device),
+                                      (8, 64, 128), eb)
+    assert tszf.launches == before
+
+
+@pytest.mark.cuda
+def test_cuda_snapshot_writes_the_cpu_files_and_restores(cuda_device, tmp_path):
+    """A snapshot through the card (K8 for two tile fields, the flat route,
+    pinned deferred fetches, the drain thread) writes the payload files
+    and manifest the plain CPU versions write, byte for byte, and restores
+    on the card to the CPU restore's values."""
+    from repro_torch.checkpoint import manager as tman
+    from repro_torch.core import arena as ta
+
+    rng = np.random.default_rng(21)
+    n = 8 * 64 * 128
+    tiles = [torch.from_numpy((rng.normal(size=(8, 64, 128)) * 9).astype(np.float32))
+             for _ in range(2)]
+    flat = {"w": torch.from_numpy(rng.normal(size=(40, 50)).astype(np.float32)),
+            "g": torch.from_numpy(rng.normal(size=(3000,)).astype(np.float32)).to(torch.bfloat16)}
+    kb = ta.Bucket(n, ("t0", "t1"), ((8, 64, 128),) * 2, ("float32",) * 2, (n, n))
+    fbs = ta.plan_buckets([(k, tuple(v.shape), v.dtype) for k, v in flat.items()])
+    dirs, restored = {}, {}
+    for dev in (cuda_device, torch.device("cpu")):
+        a = ta.szk_compress_bucket([t.to(dev) for t in tiles], kb, 1e-2, device=dev)
+        snap = {"karena": ta.to_host_async(a, kb, codec=ta.CODEC_SZK)}
+        for k, b in enumerate(fbs):
+            fa = ta.sz_compress_bucket([flat[nm].to(dev) for nm in b.names], b, 1e-3,
+                                       staged=True, device=dev)
+            snap[f"farena{k}"] = ta.to_host_async(fa, b)
+        mgr = tman.CheckpointManager(tmp_path / dev.type, async_save=True,
+                                     policy=tman.CodecPolicy(zstd_level=0), device=dev)
+        mgr.save(1, snap)
+        mgr.wait()
+        dirs[dev.type] = tmp_path / dev.type / "step_000000001"
+        restored[dev.type], _ = mgr.restore(state_like={k: 0 for k in snap})
+    names = sorted(p.name for p in dirs["cpu"].iterdir() if not p.name.startswith("obs_"))
+    for nm in names:
+        assert (dirs["cuda"] / nm).read_bytes() == (dirs["cpu"] / nm).read_bytes(), nm
+    for key, leaves in restored["cpu"].items():
+        for nm, want in leaves.items():
+            got = restored["cuda"][key][nm]
+            assert not got.is_cuda and got.dtype == want.dtype and torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_cuda_restore_propagates_a_library_failure_and_quarantines_nothing(
+        cuda_device, tmp_path, monkeypatch):
+    """A kernel library that cannot be loaded during restore is no
+    corruption: ``restore_latest_valid`` raises the ``OSError`` unchanged
+    and leaves every step where it was (no fallback to an older one)."""
+    from repro_torch.checkpoint import manager as tman
+    from repro_torch.core import arena as ta
+
+    rng = np.random.default_rng(22)
+    n = 8 * 64 * 128
+    tiles = [torch.from_numpy(rng.normal(size=(8, 64, 128)).astype(np.float32)).to(cuda_device)
+             for _ in range(2)]
+    kb = ta.Bucket(n, ("t0", "t1"), ((8, 64, 128),) * 2, ("float32",) * 2, (n, n))
+    mgr = tman.CheckpointManager(tmp_path, async_save=True,
+                                 policy=tman.CodecPolicy(zstd_level=0), device=cuda_device)
+    for step in (1, 2):
+        a = ta.szk_compress_bucket(tiles, kb, 1e-2, device=cuda_device)
+        mgr.save(step, {"karena": ta.to_host_async(a, kb, codec=ta.CODEC_SZK)})
+        mgr.wait()
+
+    def refuse(name):
+        raise OSError(f"cannot load {name}")
+
+    monkeypatch.setattr(_build, "library", refuse)
+    with pytest.raises(OSError, match="cannot load") as ei:
+        mgr.restore_latest_valid(state_like={"karena": 0})
+    assert not isinstance(ei.value, tman.SnapshotCorruptionError)
+    assert mgr.available_steps() == [2, 1]
+    assert not (tmp_path / "quarantine").exists()

@@ -105,7 +105,7 @@ def test_k3_k4_plain_match_sz_fused(case):
     pt = tszf.fused_compress(xt, ebt)
     _assert_same_stream(pj, pt)
     bj, bwj = jszf._disassemble_stream(pj)
-    bt, bwt = tszf._disassemble_stream(pt)
+    bt, bwt = tszf._disassemble(pt.words, pt.widths)
     np.testing.assert_array_equal(np.asarray(bj), tbp.to_numpy(bt))
     np.testing.assert_array_equal(np.asarray(bwj), bwt.numpy())
     rj = jszf.fused_decompress(pj, x.shape, ebj)
