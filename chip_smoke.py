@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port of TPU-SZ, TPU-ZFP and the in-situ snapshot
-path on one GPU and check every result.
+"""Drive the PyTorch/CUDA port of TPU-SZ, TPU-ZFP, the in-situ snapshot
+path and blockfloat8 serving on one GPU and check every result.
 
     python3 chip_smoke.py
 
@@ -64,9 +64,36 @@ Needs one CUDA card and ``nvcc``; it builds the hand-written kernels from
     MB/s, the peak device memory per kernel bucket, the snapshot stages and
     the files written; at small size the card's payload files must equal
     the plain CPU versions' byte for byte;
-12. prints the ZFP stage times and one JSON line of per-kernel numbers for
-    K1-K9 (launches, max difference from the plain version, median ms at
-    the main path's shapes, the plain version's ms, the bound) and, last,
+12. holds K10 (decode attention over the blockfloat8 KV cache) against its
+    plain version on the card at the reference tests' shapes (f32 query,
+    rtol 2e-5 / atol 2e-6), at the serving shape (B=8, S=2048, H=24,
+    Hkv=2, D=128, bf16 query, one lane at index -1, which must be exactly
+    0; the others within one bf16 ulp plus 2e-6, and the same query in f32
+    within the f32 tolerance) and at S=32768 (``decode_32k``);
+13. serves starcoder2-3b at full width (random bf16 weights drawn on the
+    card from a seeded ``torch.Generator``) through ``ServingEngine``:
+    8 slots, max_len 2048, paged blockfloat8 pool of 16-token pages,
+    greedy, ``attention="auto"``; 12 requests of 256-1024 prompt tokens
+    (numpy seed) and 32 new tokens each, so 4 recycle a slot.  The launch
+    counts are reset just before and read just after: K10 must launch 30
+    times per decode step, every request must get 32 tokens and the pool
+    must be clean (``check_kv_integrity``).  A second run must repeat the
+    tokens, and an ``attention="xla"`` run (plain attention) must give the
+    same first token for every request (it comes from prefill).  Prints
+    prefill ms, the median tick, decode tokens/s, K10's share of a tick,
+    the pool's bytes and peak device memory.  TF32 is off throughout;
+14. runs the SMOKE config on the card (K10) and on the CPU (K10's plain
+    version, ``attention="fused"``) with the same parameters and prompts:
+    greedy tokens agree in at least 6 of 8 per request
+    (``tests/test_serving.py``'s bar).  The CPU's ``xla`` path is another
+    function in bfloat16 (it rounds attention logits and probabilities to
+    bfloat16, as the reference's does), so its agreement is printed only;
+15. prints the ZFP stage times and one JSON line of per-kernel numbers for
+    K1-K10 (launches, max difference from the plain version (K10's at the
+    serving shape with its bf16 query), median ms at the main path's
+    shapes, the plain version's ms, the bound, and for K10
+    ``library_ms``: one ``F.scaled_dot_product_attention`` call over K/V
+    dequantized to bf16 beforehand, the GQA repeat included) and, last,
     ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero; so does a machine without CUDA, and a
@@ -83,6 +110,7 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -93,6 +121,7 @@ from repro_torch import kernels  # noqa: E402
 from repro_torch import tree as tree_util  # noqa: E402
 from repro_torch.analysis import metrics, spectrum  # noqa: E402
 from repro_torch.checkpoint import manager as ckpt  # noqa: E402
+from repro_torch.configs import registry  # noqa: E402
 from repro_torch.core import arena  # noqa: E402
 from repro_torch.core import bitpack  # noqa: E402
 from repro_torch.core import sz as sz_core  # noqa: E402
@@ -101,10 +130,15 @@ from repro_torch.core.api import get_compressor  # noqa: E402
 from repro_torch.data import cosmo  # noqa: E402
 from repro_torch.dist import insitu  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
+from repro_torch.kernels import kvc_attention as k10  # noqa: E402
 from repro_torch.kernels import lorenzo3d as lor  # noqa: E402
 from repro_torch.kernels import sz_fused as szf  # noqa: E402
 from repro_torch.kernels import zfp3d as k5  # noqa: E402
+from repro_torch.kernels import ref as kref  # noqa: E402
 from repro_torch.kernels import zfp_fused as zff  # noqa: E402
+from repro_torch.models.spec import init_params, param_count  # noqa: E402
+from repro_torch.obs import metrics as obs_metrics  # noqa: E402
+from repro_torch.serving.engine import EngineConfig, Request, ServingEngine  # noqa: E402
 
 N = 256  # Nyx grid side of the main path
 HACC_GRID = 128  # HACC particles per side of the core-backend check
@@ -122,6 +156,15 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
 # H100 SXM INT32 rate: an SM has 64 INT32 lanes beside its 128 FP32 lanes, so
 # half the data sheet's 67 TFLOP/s FP32 rate.  The kernels' work is integer.
 INT32_OPS_PER_S = 67e12 / 2
+F32_OPS_PER_S = 67e12  # H100 SXM FP32 outside the tensor cores (data sheet)
+BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 on the tensor cores (data sheet)
+
+ARCH = "starcoder2-3b"  # the JAX launcher's example (repro/launch/serve.py:8)
+SERVE = dict(batch_slots=8, max_len=2048, page_size=16, codec="blockfloat8", paged=True)
+SERVE_REQUESTS, SERVE_NEW, PROMPT_LEN = 12, 32, (256, 1024)
+KVC_SERVE_SHAPE = (8, 2048, 24, 2, 128)  # B, S, H, Hkv, D at starcoder2-3b's serving
+KVC_LONG_S = registry.SHAPES["decode_32k"].seq_len
+SMOKE_REQUESTS, SMOKE_NEW = 4, 8
 
 # Integer operations per point (quantize 2, Lorenzo 7; zigzag 2, bit length
 # 1, block max 1, packing 6; prefix sums 3, dequantize 2; unpacking 6,
@@ -190,6 +233,8 @@ KERNELS = {
                              "src/repro/kernels/sz_fused.py:238"),
     "fused_decode_batched": ("K9", "src/repro_torch/kernels/csrc/sz_fused.cu",
                              "src/repro/kernels/sz_fused.py:361"),
+    "kvc_decode_attention": ("K10", "src/repro_torch/kernels/csrc/kvc_attention.cu",
+                             "src/repro/kernels/kvc_attention.py:68"),
 }
 SZ_KERNELS = ("lorenzo3d_quantize", "lorenzo3d_reconstruct", "fused_encode", "fused_decode")
 
@@ -245,6 +290,31 @@ def cuda_times(fn, iters: int) -> list[float]:
 
 def cuda_ms(fn, iters: int) -> float:
     return statistics.median(cuda_times(fn, iters))
+
+
+def graph_ms(fn, iters: int = TIMING_ITERS, rounds: int = 5) -> float:
+    """Device milliseconds of one ``fn()``: its launches captured in a CUDA
+    graph, ``iters`` replays back to back between two events (so the card
+    never waits for the host), median of ``rounds``."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # warm-up outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    out = []
+    for _ in range(rounds):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        out.append(start.elapsed_time(end) / iters)
+    del graph
+    return statistics.median(out)
 
 
 def pad_to_tile(x):
@@ -941,6 +1011,318 @@ def stage_times(x, eb: float) -> dict[str, float]:
     return out
 
 
+# ------------------------------------------------------------ serving ----
+
+
+def bf16_check(got, want, atol: float = 2e-6) -> int:
+    """|got - want| <= one bf16 ulp of want plus ``atol`` (an element near 0,
+    a sum that cancels, differs by several of its own tiny ulps at the f32
+    rounding error of another summation order).  Returns the largest
+    distance in ulps, for the record."""
+    w = want.float()
+    ulp = torch.ldexp(torch.ones_like(w), torch.frexp(w.abs())[1] - 8)
+    diff = (got.float() - w).abs()
+    check(bool((diff <= torch.where(w == 0, 0.0, ulp) + atol).all()),
+          f"K10 bf16 output beyond one ulp (+{atol}) of the plain version")
+    return int(((diff / ulp.clamp_min(2.0 ** -133)).ceil()).max())
+
+
+def kvc_inputs(b, s, h, hkv, d, qdtype, index, device, seed=SEED):
+    g = torch.Generator(device=device).manual_seed(seed)
+    q = torch.randn(b, h, d, generator=g, device=device).to(qdtype)
+    kc, vc = (torch.randint(-127, 128, (b, s, hkv, d), generator=g, device=device,
+                            dtype=torch.int8) for _ in range(2))
+    ks, vs = (torch.rand(b, s, hkv, generator=g, device=device) * 1.9e-2 + 1e-3
+              for _ in range(2))
+    idx = torch.as_tensor(np.asarray(index, np.int32)).to(device)
+    return q, kc, ks, vc, vs, idx
+
+
+def serving_index(b: int, s: int, seed: int = SEED) -> list[int]:
+    """Per-lane positions like a decode tick of phase 13: prompts of 256-1024
+    tokens part-way through their 32 new ones; lane 0 is free (-1)."""
+    rng = np.random.default_rng(seed)
+    idx = rng.integers(PROMPT_LEN[0], PROMPT_LEN[1] + 1, size=b) + rng.integers(0, SERVE_NEW,
+                                                                                  size=b)
+    idx = np.minimum(idx, s - 1)
+    idx[0] = -1
+    return [int(i) for i in idx]
+
+
+def long_index(b: int, s: int, seed: int = SEED) -> list[int]:
+    rng = np.random.default_rng(seed + 1)
+    idx = rng.integers(s // 2, s, size=b)
+    idx[0], idx[-1] = -1, s - 1
+    return [int(i) for i in idx]
+
+
+def k10_vs_plain(device) -> float:
+    """K10 against its plain version on the card (phase 12).  Returns the
+    largest |kernel - plain| at the serving shape with the bf16 query the
+    main path gives it (the report row's ``max_abs_err``); the largest in
+    float32 over every case is printed beside it."""
+    worst, serving_err = 0.0, 0.0
+
+    def hold_f32(label, b, s, h, hkv, d, index):
+        nonlocal worst
+        args = kvc_inputs(b, s, h, hkv, d, torch.float32, index, device)
+        got, want = k10.kvc_decode_attention(*args), kref.kvc_decode_attention_ref(*args)
+        torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-6, msg=f"K10 at {label}")
+        dead = [i for i, n in enumerate(np.atleast_1d(index)) if n < 0]
+        for i in dead:
+            check(bool((got[i] == 0).all()), f"K10 lane {i} at index -1 is not exactly 0 ({label})")
+        worst = max(worst, float((got - want).abs().max()))
+
+    for b, s, h, d in ((1, 128, 4, 64), (2, 256, 8, 64), (2, 384, 2, 128)):
+        hold_f32(f"({b}, {s}, {h}, {d}) index {s - 5}", b, s, h, h, d, s - 5)
+    hold_f32("(4, 256, 4, 64) per-lane index", 4, 256, 4, 4, 64, [3, 100, 251, 17])
+    hold_f32("(2, 128, 4, 64) dead lane", 2, 128, 4, 4, 64, [-1, 64])
+    print("K10 vs plain at the reference tests' shapes (f32 q): within rtol 2e-5 / atol 2e-6")
+
+    for label, s, index in (("serving", KVC_SERVE_SHAPE[1], serving_index),
+                            ("decode_32k", KVC_LONG_S, long_index)):
+        b, _, h, hkv, d = KVC_SERVE_SHAPE
+        idx = index(b, s)
+        q, kc, ks, vc, vs, ix = kvc_inputs(b, s, h, hkv, d, torch.bfloat16, idx, device)
+        got = k10.kvc_decode_attention(q, kc, ks, vc, vs, ix)
+        want = kref.kvc_decode_attention_ref(q, kc, ks, vc, vs, ix)
+        check(bool((got[0] == 0).all()), f"K10 free lane not exactly 0 at {label}")
+        ulps = bf16_check(got, want)
+        q32 = q.float()
+        got32 = k10.kvc_decode_attention(q32, kc, ks, vc, vs, ix)
+        want32 = kref.kvc_decode_attention_ref(q32, kc, ks, vc, vs, ix)
+        torch.testing.assert_close(got32, want32, rtol=2e-5, atol=2e-6, msg=f"K10 f32 at {label}")
+        err = float((got32 - want32).abs().max())
+        worst = max(worst, err)
+        err16 = float((got.float() - want.float()).abs().max())
+        if label == "serving":
+            serving_err = err16
+        print(f"K10 vs plain at {label} (B={b}, S={s}, H={h}, Hkv={hkv}, D={d}, bf16 q, "
+              f"index {idx}): free lane exactly 0, largest distance {ulps} bf16 ulps "
+              f"(max |diff| {err16:.3g}); f32 q max |diff| {err:.3g}")
+        del q, kc, ks, vc, vs, got, want, got32, want32
+    torch.cuda.synchronize()
+    print(f"K10 vs plain, largest |diff| with an f32 query over every case: {worst:.3g}")
+    return serving_err
+
+
+def prompts(n: int, vocab: int, lo: int, hi: int, seed: int = SEED) -> list[list[int]]:
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, vocab, size=int(rng.integers(lo, hi + 1))).tolist()
+            for _ in range(n)]
+
+
+def serve(model, params, ecfg: EngineConfig, reqs_in, new: int):
+    """Submit ``reqs_in`` (prompts) to a fresh engine and drain it; the
+    launch counts and the serving histograms are reset just before.
+    Returns (engine, requests, kernel launches, prefill and tick stats, wall s)."""
+    obs_metrics.reset()
+    eng = ServingEngine(model, params, ecfg)
+    reqs = [Request(uid=i, prompt=list(p), max_new_tokens=new) for i, p in enumerate(reqs_in)]
+    for r in reqs:
+        eng.submit(r)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    done = eng.run_until_drained()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    check(done.drained, f"serving ({ecfg.attention}) did not drain")
+    check(all(len(r.out_tokens) == new for r in reqs),
+          f"serving ({ecfg.attention}): a request ended short of {new} tokens")
+    stats = {"prefill": obs_metrics.histogram("serving.prefill_s").percentiles(),
+             "tick": obs_metrics.histogram("serving.tick_s").percentiles()}
+    return eng, reqs, counts, stats, wall
+
+
+def serving_full_width(device) -> dict:
+    """Phase 13: starcoder2-3b at its published widths through the engine."""
+    cfg = registry.get_config(ARCH)
+    model = registry.build_model(cfg)
+    check(model.device.type == "cuda", "the default model device is not CUDA")
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    params = init_params(model.specs(), gen, device, torch.bfloat16)
+    torch.cuda.synchronize()
+    n_params = param_count(model.specs())
+    print(f"{ARCH}: {n_params} parameters ({n_params * 2 / 1e9:.3f} GB bf16), "
+          f"{cfg.n_layers} layers, d_model {cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads}, "
+          f"init on the card {time.perf_counter() - t0:.2f} s")
+    ps = prompts(SERVE_REQUESTS, cfg.vocab, *PROMPT_LEN)
+    obs_metrics.enable()
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        eng, reqs, counts, stats, wall = serve(model, params, EngineConfig(**SERVE), ps, SERVE_NEW)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        check(eng._fused, "attention='auto' did not pick K10 on the card")
+        k10_n = counts["kvc_decode_attention"]
+        check(k10_n == cfg.n_layers * eng.steps and k10_n > 0,
+              f"K10 launched {k10_n} times in {eng.steps} decode steps of {cfg.n_layers} layers")
+        check(eng.check_kv_integrity(), "the KV pool is not clean after the drain")
+        toks = [r.out_tokens for r in reqs]
+        _, again, _, _, _ = serve(model, params, EngineConfig(**SERVE), ps, SERVE_NEW)
+        check([r.out_tokens for r in again] == toks, "a second identical run gave other tokens")
+        _, plain, plain_counts, plain_stats, plain_wall = serve(
+            model, params, EngineConfig(**SERVE, attention="xla"), ps, SERVE_NEW)
+        check(plain_counts["kvc_decode_attention"] == 0, "attention='xla' launched K10")
+        check(all(a.out_tokens[0] == b[0] for a, b in zip(plain, toks)),
+              "first tokens (from prefill) differ between attention auto and xla")
+        rest = [(a, b) for r, tk in zip(plain, toks) for a, b in zip(r.out_tokens[1:], tk[1:])]
+        agree = sum(a == b for a, b in rest) / len(rest)
+        profiled = tick_profile(model, params, ps)
+    finally:
+        obs_metrics.disable()
+        obs_metrics.reset()
+    pre, tick = stats["prefill"], stats["tick"]
+    decode_s = tick["mean"] * tick["count"] - pre["mean"] * pre["count"]
+    decode_tokens = SERVE_REQUESTS * (SERVE_NEW - 1)
+    out = {"steps": eng.steps, "ticks": eng.ticks, "k10_launches": k10_n,
+           "prefill_calls": pre["count"], "prefill_ms_mean": pre["mean"] * 1e3,
+           "prefill_ms_max": pre["max"] * 1e3, "tick_ms_median": tick["p50"] * 1e3,
+           "decode_tokens_per_s": decode_tokens / decode_s, "wall_s": wall,
+           "pool_bytes": eng.pool.nbytes(), "pool_pages": eng.pool.n_pages,
+           "peak_gib": peak, "xla_tick_ms_median": plain_stats["tick"]["p50"] * 1e3,
+           "xla_wall_s": plain_wall, "xla_agree_after_first": agree,
+           "prompt_tokens": sum(len(p) for p in ps)}
+    print(f"serving {ARCH} full width (auto = K10): " + json.dumps(out))
+    print("decode tick profile (8 live lanes): " + json.dumps(profiled))
+    del params, eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def on_device(tree, device):
+    if isinstance(tree, dict):
+        return {k: on_device(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+def tick_profile(model, params, ps, ticks: int = 5) -> dict:
+    """Where a decode tick's time goes: ``torch.profiler`` over ``ticks``
+    decode ticks of 8 live lanes (after the prompts' prefill), with the
+    device's busy share (kernel time over wall) and the top kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    eng = ServingEngine(model, params, EngineConfig(**SERVE))
+    for i, p in enumerate(ps[:SERVE["batch_slots"]]):
+        eng.submit(Request(uid=i, prompt=list(p), max_new_tokens=SERVE_NEW))
+    eng.tick()  # admission, prefill and the first decode step
+    eng.tick()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(ticks):
+            eng.tick()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = [e for e in prof.key_averages() if e.device_time_total > 0
+              and e.device_type == torch.autograd.DeviceType.CUDA]
+    device_us = sum(e.device_time_total for e in events)
+    top = sorted(events, key=lambda e: -e.device_time_total)[:10]
+    out = {"tick_ms": wall / ticks * 1e3, "device_ms_per_tick": device_us / ticks / 1e3,
+           "device_busy_share": device_us / 1e6 / wall,
+           "kernel_launches_per_tick": sum(e.count for e in events) / ticks,
+           "top_kernels_ms_per_tick": {e.key[:60]: e.device_time_total / ticks / 1e3 for e in top}}
+    eng.drain_requests()
+    return out
+
+
+def serving_card_vs_cpu(device) -> None:
+    """Phase 14: SMOKE config, same parameters and prompts, card (K10)
+    against the CPU (K10's plain version)."""
+    cfg = registry.get_config(ARCH, smoke=True)
+    specs = registry.build_model(cfg, device="cpu").specs()
+    params = init_params(specs, torch.Generator().manual_seed(SEED), "cpu", torch.bfloat16)
+    ps = prompts(SMOKE_REQUESTS, cfg.vocab, 3, 20)
+    toks = {}
+    for dev, attention in ((device, "auto"), (torch.device("cpu"), "fused"),
+                           (torch.device("cpu"), "xla")):
+        model = registry.build_model(cfg, device=dev)
+        eng = ServingEngine(model, on_device(params, dev), EngineConfig(
+            batch_slots=2, max_len=64, codec="blockfloat8", paged=True, attention=attention))
+        reqs = [Request(uid=i, prompt=list(p), max_new_tokens=SMOKE_NEW) for i, p in enumerate(ps)]
+        for r in reqs:
+            eng.submit(r)
+        kernels.reset_launch_counts()
+        check(eng.run_until_drained().drained, f"SMOKE serving on {dev.type} did not drain")
+        n = kernels.launch_counts()["kvc_decode_attention"]
+        check(n == (cfg.n_layers * eng.steps if dev.type == "cuda" else 0),
+              f"SMOKE serving on {dev.type}: K10 launched {n} times")
+        toks[f"{dev.type}-{attention}"] = [r.out_tokens for r in reqs]
+
+    def agree(a, b):
+        return [sum(x == y for x, y in zip(g, c)) for g, c in zip(toks[a], toks[b])]
+
+    kernel_vs_plain = agree("cuda-auto", "cpu-fused")
+    check(all(a >= 6 for a in kernel_vs_plain),
+          f"card (K10) and CPU (plain K10) greedy tokens agree in {kernel_vs_plain} of 8")
+    print(f"SMOKE serving card (K10) vs CPU (K10's plain version): tokens agree "
+          f"{kernel_vs_plain} of {SMOKE_NEW}; vs the CPU's xla attention "
+          f"{agree('cuda-auto', 'cpu-xla')} (bf16 attention logits there)")
+
+
+def k10_times(device, serving: dict) -> tuple[dict, dict]:
+    """K10, its plain version and the library yardstick at the serving shape
+    (the row of the report) and at S=32768, with the bound from this run's
+    positions (and at full capacity).  Each is timed on the device from a
+    CUDA graph (:func:`graph_ms`): K10's wrapper spends more host time per
+    call than the kernel spends on the card, so an event pair around one
+    direct call (``call_ms``, also printed) times the host."""
+    rows = {}
+    b, s0, h, hkv, d = KVC_SERVE_SHAPE
+    n_rep = h // hkv
+    for label, s, index in (("serving", s0, serving_index), ("decode_32k", KVC_LONG_S, long_index)):
+        idx = index(b, s)
+        q, kc, ks, vc, vs, ix = kvc_inputs(b, s, h, hkv, d, torch.bfloat16, idx, device)
+        kd = (kc.float() * ks[..., None]).to(torch.bfloat16)  # dequantized beforehand, not timed
+        vd = (vc.float() * vs[..., None]).to(torch.bfloat16)
+        mask = (torch.arange(s, device=device)[None, :] <= ix[:, None])[:, None, None, :]
+
+        def library():
+            kr = kd.repeat_interleave(n_rep, dim=2).transpose(1, 2)
+            vr = vd.repeat_interleave(n_rep, dim=2).transpose(1, 2)
+            return F.scaled_dot_product_attention(q[:, :, None, :], kr, vr, attn_mask=mask)
+
+        live = sum(min(i + 1, s) for i in idx if i >= 0)
+        qo_bytes = 2 * 2 * b * h * d + 4 * b  # q and out in bf16, index
+        nbytes = live * hkv * (2 * d + 8) + qo_bytes
+
+        def ops_ms(positions: int) -> float:
+            """The function's arithmetic: the one scale per position and KV head
+            factors out of q.k and p.v, so no dequantize pass; q.k of a bf16
+            query with int8 codes is exact in bf16 (the tensor cores' rate),
+            p.v stays f32; 2 D flops each per position and query head."""
+            flops = positions * h * 2 * d
+            return (flops / BF16_OPS_PER_S + flops / F32_OPS_PER_S) * 1e3
+
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+
+        def kernel():
+            return k10.kvc_decode_attention(q, kc, ks, vc, vs, ix)
+
+        t = {"ms": graph_ms(kernel),
+             "plain_ms": graph_ms(lambda: kref.kvc_decode_attention_ref(q, kc, ks, vc, vs, ix),
+                                  iters=PLAIN_ITERS),
+             "library_ms": graph_ms(library), "call_ms": cuda_ms(kernel, TIMING_ITERS)}
+        t.update(bytes_ms=bytes_ms, ops_ms=ops_ms(live), bound_ms=max(bytes_ms, ops_ms(live)),
+                 bound_by="bytes" if bytes_ms >= ops_ms(live) else "operations", positions=live,
+                 full_bytes_ms=(b * s * hkv * (2 * d + 8) + qo_bytes) / HBM_BYTES_PER_S * 1e3,
+                 full_ops_ms=ops_ms(b * s),
+                 splits=k10.split_plan(b, hkv, s, torch.cuda.get_device_properties(
+                     device).multi_processor_count)[0])
+        rows[label] = t
+        del q, kc, ks, vc, vs, kd, vd
+    torch.cuda.empty_cache()
+    row = rows["serving"]
+    row["tick_share"] = row["ms"] * registry.get_config(ARCH).n_layers / serving["tick_ms_median"]
+    print("K10 times (ms; bound from this run's positions and at full capacity): "
+          + json.dumps(rows))
+    print(f"K10 share of a decode tick: {row['ms']:.4f} ms x 30 / "
+          f"{serving['tick_ms_median']:.3f} ms = {row['tick_share']:.4f}")
+    return row, rows["decode_32k"]
+
+
 def run(device) -> dict:
     t0 = time.perf_counter()
     logs = _build.build(verbose=True)
@@ -989,6 +1371,16 @@ def run(device) -> dict:
     finally:
         shutil.rmtree(SNAPSHOT_DIR, ignore_errors=True)
 
+    torch.backends.cuda.matmul.allow_tf32 = False  # the comparison phases run in full f32
+    torch.backends.cudnn.allow_tf32 = False
+    print("TF32 off from here: torch.backends.cuda.matmul.allow_tf32 = "
+          f"{torch.backends.cuda.matmul.allow_tf32}, torch.backends.cudnn.allow_tf32 = "
+          f"{torch.backends.cudnn.allow_tf32}")
+    worst["kvc_decode_attention"] = k10_vs_plain(device)
+    serving = serving_full_width(device)
+    launches["kvc_decode_attention"] = serving["k10_launches"]
+    serving_card_vs_cpu(device)
+
     stages = stage_times(base, ebs["baryon_density"])
     print(f"stages at {N}^3 baryon_density (median ms; peak MiB): " + json.dumps(stages))
     stages = zfp_stage_times(base)
@@ -996,6 +1388,7 @@ def run(device) -> dict:
           + json.dumps(stages))
     times = kernel_times(base, ebs["baryon_density"])
     times.update(batched_kernel_times(xb, eb_rows))
+    times["kvc_decode_attention"], _ = k10_times(device, serving)
     print("kernel bounds (ms: bytes, operations): " + json.dumps(
         {name: [t["bytes_ms"], t["ops_ms"]] for name, t in times.items()}))
     rows = []
@@ -1004,7 +1397,8 @@ def run(device) -> dict:
         rows.append({"name": f"{kid} {name}", "route": "cuda", "source": source,
                      "replaces": replaces, "launches": launches[name],
                      "max_abs_err": worst[name], "ms": t["ms"], "plain_ms": t["plain_ms"],
-                     "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": None})
+                     "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                     "library_ms": t.get("library_ms")})
     return {"kernels": rows}
 
 

@@ -1,4 +1,5 @@
-"""repro_torch — the PyTorch/CUDA port of the TPU lossy compressors in ``repro``.
+"""repro_torch — the PyTorch/CUDA port of ``repro``: the TPU lossy compressors,
+their snapshot path, and the LM serving stack whose KV cache they compress.
 
 The JAX package ``repro`` is the reference; this package mirrors its module
 names and emits the same streams.  It imports ``torch`` and numpy, never

@@ -1,0 +1,72 @@
+"""Architecture registry: ``--arch <id>`` resolution, model construction and
+the shape cells (the port of ``repro.configs.registry``).
+
+Every arch's config resolves; :func:`build_model` builds the dense family
+(``dense`` and ``vlm``).  The other families wait for their port (ROADMAP
+Queue 1 item 11) and raise ``NotImplementedError``.  The reference's
+``input_specs`` and ``supports`` serve its compile-only dry run and wait for
+it (Queue 1 item 14).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import importlib
+
+from repro_torch.models.config import ArchConfig
+
+_MODULES = {
+    "whisper-base": "whisper_base",
+    "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
+    "phi3.5-moe-42b-a6.6b": "phi35_moe_42b",
+    "hymba-1.5b": "hymba_1p5b",
+    "qwen1.5-110b": "qwen15_110b",
+    "starcoder2-3b": "starcoder2_3b",
+    "phi3-medium-14b": "phi3_medium_14b",
+    "minicpm-2b": "minicpm_2b",
+    "internvl2-76b": "internvl2_76b",
+    "rwkv6-1.6b": "rwkv6_1p6b",
+}
+
+ARCH_IDS = tuple(_MODULES)
+
+# families whose model module is not ported yet, and the model each needs
+_WAITING = {"moe": "MoELM (models/moe.py)", "ssm": "RWKV6LM (models/rwkv6.py)",
+            "hybrid": "HymbaLM (models/hybrid.py)", "audio": "EncDecLM (models/encdec.py)",
+            "encdec": "EncDecLM (models/encdec.py)"}
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeCell:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+SHAPES = {
+    "train_4k": ShapeCell("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeCell("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeCell("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeCell("long_500k", 524_288, 1, "decode"),
+}
+
+
+def get_config(arch: str, smoke: bool = False) -> ArchConfig:
+    if arch not in _MODULES:
+        raise KeyError(f"unknown arch {arch!r}; have {sorted(_MODULES)}")
+    mod = importlib.import_module(f"repro_torch.configs.{_MODULES[arch]}")
+    return mod.SMOKE if smoke else mod.CONFIG
+
+
+def build_model(cfg: ArchConfig, device=None):
+    """The model of ``cfg``'s family on ``device`` (CUDA unless ``"cpu"``)."""
+    if cfg.family in ("dense", "vlm"):
+        from repro_torch.models.transformer import DenseLM
+
+        return DenseLM(cfg, device=device)
+    if cfg.family in _WAITING:
+        raise NotImplementedError(
+            f"{cfg.name}: family {cfg.family!r} needs {_WAITING[cfg.family]}, not ported "
+            "yet (ROADMAP Queue 1 item 11)")
+    raise ValueError(f"unknown family {cfg.family}")

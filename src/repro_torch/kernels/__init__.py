@@ -7,9 +7,10 @@ nothing else: the plain versions on the CPU do not count).  Sources live in
 
 from __future__ import annotations
 
-from repro_torch.kernels import lorenzo3d, sz_fused, zfp3d, zfp_fused
+from repro_torch.kernels import kvc_attention, lorenzo3d, sz_fused, zfp3d, zfp_fused
 
-_COUNTERS = (lorenzo3d.launches, sz_fused.launches, zfp3d.launches, zfp_fused.launches)
+_COUNTERS = (lorenzo3d.launches, sz_fused.launches, zfp3d.launches, zfp_fused.launches,
+             kvc_attention.launches)
 
 
 def launch_counts() -> dict[str, int]:

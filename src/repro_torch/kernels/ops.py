@@ -1,5 +1,6 @@
 """Public wrappers around the kernels (the port of ``repro.kernels.ops``):
-padding and block carving, path dispatch, and the bitstream layer.
+padding and block carving, path dispatch, the bitstream layer, and the
+compressed-KV decode attention (K10).
 
 ``path`` picks the engine, for either compressor: ``fused`` is the
 single-pass kernel pipeline (K3/K4 for SZ, K6/K7 for ZFP), ``xla`` is the
@@ -20,6 +21,7 @@ import torch.nn.functional as F
 
 from repro_torch.core import bitpack
 from repro_torch.core import zfp as zfp_core
+from repro_torch.kernels import kvc_attention as _kvc
 from repro_torch.kernels import lorenzo3d as _lor
 from repro_torch.kernels import sz_fused as _szf
 from repro_torch.kernels import zfp3d as _zfp
@@ -109,3 +111,16 @@ def zfp_decompress_kernel(c: zfp_core.ZFPCompressed, path: str = "auto") -> torc
         blocks = _zfpf.fused_decompress_blocks(c.words, c.emax, c.gtops, c.rate)
         return zfp_core._uncarve_blocks(blocks, c.shape)
     return zfp_core.decompress(c)
+
+
+# ---------------------------------------------- compressed-KV attention ----
+
+
+def kvc_attention(q: torch.Tensor, k_codes, k_scale, v_codes, v_scale, index) -> torch.Tensor:
+    """Fused dequant+attention decode step (K10), dispatched by the device of
+    its tensors: the kernel on CUDA, the plain version on the CPU.  q:
+    (B, H, D); codes (B, S, Hkv, D) with Hkv dividing H (un-repeated GQA);
+    ``index`` is a scalar shared position or a (B,) per-slot position
+    vector.  Any S: the reference's padding to its chunk has no
+    counterpart."""
+    return _kvc.kvc_decode_attention(q, k_codes, k_scale, v_codes, v_scale, index)

@@ -72,3 +72,27 @@ def zfp3d_transform_ref(blocks: torch.Tensor):
     gtops = gtops * nonzero[:, None]
     emax = torch.where(nonzero, e + 128, 0)
     return i64_to_u32(u), emax, gtops.to(torch.int32)
+
+
+def kvc_decode_attention_ref(q, k_codes, k_scale, v_codes, v_scale, index):
+    """Dequantize-then-attend (the unfused two-pass baseline; the plain
+    version of K10).  q: (B, H, D); codes (B, S, Hkv, D) int8 and scales
+    (B, S, Hkv) f32 with Hkv dividing H: they are repeated H / Hkv times
+    first, as the reference's caller does.  ``index``: () shared position
+    or (B,) per-slot positions."""
+    n_rep = q.shape[1] // k_codes.shape[2]
+    if n_rep > 1:
+        k_codes, v_codes = (torch.repeat_interleave(t, n_rep, dim=2) for t in (k_codes, v_codes))
+        k_scale, v_scale = (torch.repeat_interleave(t, n_rep, dim=2) for t in (k_scale, v_scale))
+    k = k_codes.to(torch.float32) * k_scale[..., None]  # (B,S,H,D)
+    v = v_codes.to(torch.float32) * v_scale[..., None]
+    scale = q.shape[-1] ** -0.5
+    logits = torch.einsum("bhd,bshd->bhs", q.to(torch.float32), k) * scale
+    s = k.shape[1]
+    idx = torch.as_tensor(index, dtype=torch.int32, device=q.device).reshape(-1, 1, 1)
+    mask = torch.arange(s, device=q.device)[None, None, :] <= idx
+    logits = torch.where(mask, logits, -1e30)
+    # fully-masked lanes (index -1 = free slot) output exactly 0 instead of
+    # a uniform average over stale cache rows, as the kernel does
+    p = torch.softmax(logits, dim=-1) * mask
+    return torch.einsum("bhs,bshd->bhd", p, v).to(q.dtype)

@@ -1,0 +1,94 @@
+"""Serving launcher: continuous-batched requests against a registered arch
+(the port of ``repro.launch.serve``, single engine).
+
+Slots admit work through a saxml-style batch-size ladder; each slot decodes
+at its own position, prompts prefill in one chunked call, and the KV cache
+can run as a paged compressed pool (``--pool-pages`` / ``--pool-bytes``).
+Parameters are random, drawn from ``--seed`` on the device.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch starcoder2-3b --smoke \\
+        --device cpu --requests 8 --max-new 16 --codec blockfloat8
+
+``--device`` defaults to CUDA; on a CUDA device blockfloat8 decode attention
+runs through K10.  The reference's router flags (``--replicas``,
+``--fault-seed``, ``--deadline-ms``, ``--retries``) wait for the port of
+the router.
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+
+import torch
+
+from repro_torch.configs import registry
+from repro_torch.device import resolve_device
+from repro_torch.models.spec import init_params, param_count
+from repro_torch.models.transformer import torch_dtype
+from repro_torch.serving.engine import EngineConfig, Request, ServingEngine
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", choices=list(registry.ARCH_IDS), required=True)
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--max-new", type=int, default=16)
+    ap.add_argument("--slots", type=int, default=4)
+    ap.add_argument("--max-len", type=int, default=128)
+    ap.add_argument("--codec", choices=["none", "blockfloat8"], default="none")
+    ap.add_argument("--paged", choices=["auto", "on", "off"], default="auto",
+                    help="paged KV pool (auto: on for models that support it)")
+    ap.add_argument("--page-size", type=int, default=16)
+    ap.add_argument("--pool-pages", type=int, default=None,
+                    help="KV pool size in pages (default: slots * max_len)")
+    ap.add_argument("--pool-bytes", type=int, default=None,
+                    help="KV pool size in bytes (overrides --pool-pages)")
+    ap.add_argument("--ladder", type=str, default="",
+                    help="comma-separated admission batch-size ladder, e.g. 1,2,4")
+    ap.add_argument("--temperature", type=float, default=0.0,
+                    help="> 0 enables seeded sampling instead of greedy")
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+
+    device = resolve_device(args.device)
+    cfg = registry.get_config(args.arch, smoke=args.smoke)
+    model = registry.build_model(cfg, device=device)
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    params = init_params(model.specs(), gen, device, torch_dtype(cfg.dtype))
+    print(f"{cfg.name}: {param_count(model.specs())/1e6:.1f}M params, codec={args.codec}, "
+          f"device={device}")
+
+    ladder = tuple(int(x) for x in args.ladder.split(",") if x) if args.ladder else ()
+    ecfg = EngineConfig(
+        batch_slots=args.slots, max_len=args.max_len, codec=args.codec,
+        paged={"auto": "auto", "on": True, "off": False}[args.paged],
+        page_size=args.page_size, pool_pages=args.pool_pages,
+        pool_bytes=args.pool_bytes, ladder=ladder,
+        greedy=args.temperature <= 0,
+        temperature=args.temperature if args.temperature > 0 else 1.0,
+        sample_seed=args.seed)
+
+    eng = ServingEngine(model, params, ecfg)
+    if eng.paged:
+        print(f"paged KV: {eng.pool.n_pages - 1} pages x {eng.pool.page_size} tokens "
+              f"({eng.pool.nbytes()/1e6:.2f} MB pool)")
+    for uid in range(args.requests):
+        eng.submit(Request(uid=uid, prompt=[1 + uid % 7, 2, 3], max_new_tokens=args.max_new))
+    t0 = time.time()
+    done = eng.run_until_drained()
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    dt = time.time() - t0
+    if not done.drained:
+        print("WARNING: drain exhausted max_ticks with requests still live")
+    toks = sum(len(r.out_tokens) for r in done)
+    print(f"{len(done)} requests, {toks} tokens in {dt:.2f}s ({toks/dt:.1f} tok/s); "
+          f"KV cache {eng.cache_nbytes()/1e6:.2f} MB; attention={eng._attention}")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

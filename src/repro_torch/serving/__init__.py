@@ -1,0 +1,2 @@
+"""Continuous-batched serving over a paged, compressed KV pool (the port of
+``repro.serving``: engine, page pool and admission)."""

@@ -5,9 +5,11 @@ so that it also runs on a machine that has a card and no JAX.
   ``csrc/*.cu`` into a library named by a hash of its sources, reused while
   they are unchanged, and an error when the compiler fails.
 * On a card (marked ``cuda``, skipped without one): each kernel bitwise
-  against its plain version, the default compressors against the plain CPU
-  path, and wrappers that raise when their kernel library cannot be built
-  or loaded.
+  against its plain version (K10, whose output is float attention, within
+  the reference's tolerance), the default compressors against the plain
+  CPU path, wrappers that raise when their kernel library cannot be built
+  or loaded or their inputs are not what the kernel takes, and a serving
+  engine at the SMOKE size whose decode goes through K10.
 
 The card's cases run with
 ``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py``.
@@ -65,7 +67,7 @@ def fake_toolchain(tmp_path, monkeypatch):
 def test_build_compiles_each_source_once_and_again_when_edited(fake_toolchain):
     csrc = fake_toolchain
     names = {p.stem for p in csrc.glob("*.cu")}
-    assert names == {"lorenzo3d", "sz_fused", "zfp3d", "zfp_fused"}
+    assert names == {"kvc_attention", "lorenzo3d", "sz_fused", "zfp3d", "zfp_fused"}
     logs = _build.build(verbose=True)
     assert set(logs) == names and all("registers" in log for log in logs.values())
     libs = {name: _build.library_path(name) for name in names}
@@ -375,3 +377,157 @@ def test_cuda_restore_propagates_a_library_failure_and_quarantines_nothing(
     assert not isinstance(ei.value, tman.SnapshotCorruptionError)
     assert mgr.available_steps() == [2, 1]
     assert not (tmp_path / "quarantine").exists()
+
+
+# ------------------------------------------------------------------ K10 ----
+
+
+def _kvc_inputs(seed, b, s, h, hkv, d, device, qdtype=torch.float32):
+    rng = np.random.default_rng(seed)
+    q = torch.from_numpy(rng.normal(size=(b, h, d)).astype(np.float32)).to(qdtype)
+    codes = [torch.from_numpy(rng.integers(-127, 128, size=(b, s, hkv, d)).astype(np.int8))
+             for _ in range(2)]
+    scales = [torch.from_numpy(rng.uniform(1e-3, 2e-2, size=(b, s, hkv)).astype(np.float32))
+              for _ in range(2)]
+    return [t.to(device) for t in (q, codes[0], scales[0], codes[1], scales[1])]
+
+
+def _bf16_close(got: torch.Tensor, want: torch.Tensor, atol: float = 2e-6) -> bool:
+    """|got - want| <= one bf16 ulp of want, plus the f32 case's atol: an
+    element near 0 (a sum that cancels) differs by several of its own tiny
+    ulps at the f32 rounding error of a different summation order."""
+    w = want.float()
+    ulp = torch.ldexp(torch.ones_like(w), torch.frexp(w.abs())[1] - 8)
+    return bool(((got.float() - w).abs() <= torch.where(w == 0, 0.0, ulp) + atol).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,hkv,d,qdtype", [
+    (1, 128, 4, 4, 64, torch.float32), (2, 256, 8, 8, 64, torch.float32),
+    (2, 384, 2, 2, 128, torch.float32), (4, 200, 4, 2, 16, torch.float32),
+    (8, 2048, 24, 2, 128, torch.bfloat16), (3, 1000, 8, 1, 64, torch.bfloat16)])
+def test_cuda_kvc_matches_plain(cuda_device, b, s, h, hkv, d, qdtype):
+    """K10 on the card against its plain version on the same CUDA inputs:
+    f32 within rtol 2e-5 / atol 2e-6 (``tests/test_kernels.py:189``), bf16
+    within 1 ulp after the cast (plus that atol, :func:`_bf16_close`) and
+    with the bf16 query's values in f32 within the f32 tolerance; a lane
+    with index -1 is exactly 0."""
+    from repro_torch.kernels import kvc_attention as tkvc
+    from repro_torch.kernels import ref as tref
+
+    q, kc, ks, vc, vs = _kvc_inputs(b * s + h, b, s, h, hkv, d, cuda_device, qdtype)
+    idx = torch.from_numpy(np.random.default_rng(s).integers(0, s, size=b).astype(np.int32))
+    idx[-1] = s - 1
+    if b > 1:
+        idx[0] = -1  # a free lane
+    idx = idx.to(cuda_device)
+    before = tkvc.launches["kvc_decode_attention"]
+    got = tkvc.kvc_decode_attention(q, kc, ks, vc, vs, idx)
+    torch.cuda.synchronize()
+    assert tkvc.launches["kvc_decode_attention"] == before + 1
+    want = tref.kvc_decode_attention_ref(q, kc, ks, vc, vs, idx)
+    assert got.dtype == q.dtype and got.shape == q.shape
+    if b > 1:
+        assert torch.equal(got[0], torch.zeros_like(got[0]))
+    if qdtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-6)
+    else:
+        assert _bf16_close(got, want)
+        q32 = q.float()
+        torch.testing.assert_close(tkvc.kvc_decode_attention(q32, kc, ks, vc, vs, idx),
+                                   tref.kvc_decode_attention_ref(q32, kc, ks, vc, vs, idx),
+                                   rtol=2e-5, atol=2e-6)
+    scalar = tkvc.kvc_decode_attention(q, kc, ks, vc, vs, torch.tensor(s // 2, dtype=torch.int32,
+                                                                          device=cuda_device))
+    want = tref.kvc_decode_attention_ref(q, kc, ks, vc, vs, s // 2)
+    if qdtype == torch.float32:
+        torch.testing.assert_close(scalar, want, rtol=2e-5, atol=2e-6)
+    else:
+        assert _bf16_close(scalar, want)
+
+
+@pytest.mark.cuda
+def test_cuda_kvc_wrapper_refuses_what_the_kernel_does_not_take(cuda_device):
+    """A CPU/CUDA mix, a wrong dtype, a non-contiguous input or a head
+    count the kernel does not map raise before any launch."""
+    from repro_torch.kernels import kvc_attention as tkvc
+
+    q, kc, ks, vc, vs = _kvc_inputs(5, 2, 64, 4, 2, 16, cuda_device)
+    idx = torch.tensor([3, 10], dtype=torch.int32, device=cuda_device)
+    before = dict(tkvc.launches)
+    bad = [
+        (q.cpu(), kc, ks, vc, vs, idx), (q, kc.cpu(), ks, vc, vs, idx),
+        (q, kc, ks, vc, vs, idx.cpu()), (q.double(), kc, ks, vc, vs, idx),
+        (q, kc.to(torch.int16), ks, vc, vs, idx), (q, kc, ks.half(), vc, vs, idx),
+        (q, kc, ks, vc, vs, idx.long()),
+        (q.transpose(1, 2).contiguous().transpose(1, 2), kc, ks, vc, vs, idx),
+        (q, kc.transpose(0, 1).contiguous().transpose(0, 1), ks, vc, vs, idx),
+        (q[:, :3].contiguous(), kc, ks, vc, vs, idx),
+    ]
+    for args in bad:
+        with pytest.raises(ValueError):
+            tkvc.kvc_decode_attention(*args)
+    assert tkvc.launches == before
+
+
+@pytest.mark.cuda
+def test_cuda_kvc_wrapper_raises_when_the_library_cannot_be_loaded(cuda_device, monkeypatch):
+    from repro_torch.kernels import kvc_attention as tkvc
+    from repro_torch.kernels import ref as tref
+
+    def refuse(name):
+        raise OSError(f"cannot load {name}")
+
+    def plain(*args):
+        raise AssertionError("the plain version ran for a CUDA tensor")
+
+    monkeypatch.setattr(_build, "library", refuse)
+    monkeypatch.setattr(tref, "kvc_decode_attention_ref", plain)
+    q, kc, ks, vc, vs = _kvc_inputs(6, 1, 64, 2, 2, 16, cuda_device)
+    before = dict(tkvc.launches)
+    with pytest.raises(OSError, match="cannot load kvc_attention"):
+        tkvc.kvc_decode_attention(q, kc, ks, vc, vs, torch.tensor(5, dtype=torch.int32,
+                                                                  device=cuda_device))
+    assert tkvc.launches == before
+
+
+@pytest.mark.cuda
+def test_cuda_engine_smoke_decodes_through_k10(cuda_device):
+    """One request through ``ServingEngine`` at starcoder2-3b's SMOKE size
+    on the card (paged blockfloat8, ``attention="auto"``): K10 launches once
+    per layer and decode step, the pool is clean after the drain, and the
+    greedy tokens agree with K10's plain version on the CPU
+    (``attention="fused"``) in at least 6 of 8 (``tests/test_serving.py``'s
+    bar)."""
+    from repro_torch.configs import registry
+    from repro_torch.models.spec import init_params
+    from repro_torch.serving.engine import EngineConfig, Request, ServingEngine
+
+    cfg = registry.get_config("starcoder2-3b", smoke=True)
+    params = init_params(registry.build_model(cfg, device="cpu").specs(),
+                         torch.Generator().manual_seed(0), "cpu", torch.bfloat16)
+    toks = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        model = registry.build_model(cfg, device=dev)
+        on = _to_device(params, dev)
+        eng = ServingEngine(model, on, EngineConfig(
+            batch_slots=2, max_len=64, codec="blockfloat8", paged=True,
+            attention="auto" if dev.type == "cuda" else "fused"))
+        assert eng._fused
+        kernels.reset_launch_counts()
+        req = Request(uid=0, prompt=[3, 1, 4, 1, 5], max_new_tokens=8)
+        eng.submit(req)
+        done = eng.run_until_drained()
+        assert done.drained and len(req.out_tokens) == 8
+        launches = kernels.launch_counts()["kvc_decode_attention"]
+        assert launches == (cfg.n_layers * eng.steps if dev.type == "cuda" else 0)
+        assert eng.check_kv_integrity()
+        toks[dev.type] = req.out_tokens
+    agree = sum(a == b for a, b in zip(toks["cuda"], toks["cpu"]))
+    assert agree >= 6, toks
+
+
+def _to_device(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to_device(v, device) for k, v in tree.items()}
+    return tree.to(device)

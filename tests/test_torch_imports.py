@@ -30,6 +30,10 @@ def _imports(path: Path) -> list[tuple[int, str]]:
 def test_the_walk_sees_the_port():
     names = {p.relative_to(ROOT).as_posix() for p in FILES}
     assert "src/repro_torch/core/api.py" in names and "chip_smoke.py" in names
+    for module in ("configs/registry.py", "configs/starcoder2_3b.py", "models/layers.py",
+                   "models/transformer.py", "models/interop.py", "kernels/kvc_attention.py",
+                   "serving/engine.py", "serving/kv_pages.py", "launch/serve.py"):
+        assert f"src/repro_torch/{module}" in names, module
     assert _forbidden("jax.numpy") and _forbidden("repro.core") and not _forbidden("repro_torch.core")
 
 
