@@ -25,8 +25,10 @@ Needs one CUDA card and ``nvcc``; it builds the hand-written kernels from
    ``vx`` (``hacc_particles(grid=128)``) in PW_REL 1e-2 mode, each held to
    its bound;
 6. holds each ZFP kernel (K5-K7) against its plain version on the card, at
-   the 256^3 baryon density and the ragged vx slice, at rates 2, 4, 8 and
-   16, requiring bitwise equality;
+   the 256^3 baryon density and the ragged vx slice, and on hard blocks
+   (+-inf, NaN, 3e38, saturated, zero, subnormal; 1, 31 and 1003 of them)
+   at rates 1, 2, 4, 8, 16, 32 and 40, K7 also on streams whose every plane
+   carries a full payload, requiring bitwise equality;
 7. drives the ZFP main path: the six 256^3 fields through
    ``get_compressor("tpu-zfp")`` at rate 8 (CUDA, ``kernel`` backend,
    ``fused`` path: K6 then K7), then through the ``xla`` path (K5) and the
@@ -90,8 +92,12 @@ Needs one CUDA card and ``nvcc``; it builds the hand-written kernels from
     bfloat16, as the reference's does), so its agreement is printed only;
 15. prints the ZFP stage times and one JSON line of per-kernel numbers for
     K1-K10 (launches, max difference from the plain version (K10's at the
-    serving shape with its bf16 query), median ms at the main path's
-    shapes, the plain version's ms, the bound, and for K10
+    serving shape with its bf16 query), device ms at the main path's
+    shapes from CUDA-graph replays (every wrapper captures), the plain
+    version's ms, the bound (bytes at 3.35 TB/s, or the operations of the
+    pipe that takes longest: 32-bit integer at 16.7 T/s, conversions and
+    leading-zero counts at 4.2 T/s, float32 multiplies at 33.5 T/s), and
+    for K10
     ``library_ms``: one ``F.scaled_dot_product_attention`` call over K/V
     dequantized to bf16 beforehand, the GQA repeat included) and, last,
     ``{"ok": true, "device": {...}}``.
@@ -115,6 +121,7 @@ import torch
 import torch.nn.functional as F
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+sys.path.insert(0, str(Path(__file__).resolve().parent / "tools"))
 
 # These fail, and the script exits non-zero, outside a checkout of the repository.
 from repro_torch import kernels  # noqa: E402
@@ -127,7 +134,7 @@ from repro_torch.core import bitpack  # noqa: E402
 from repro_torch.core import sz as sz_core  # noqa: E402
 from repro_torch.core import zfp as zfp_core  # noqa: E402
 from repro_torch.core.api import get_compressor  # noqa: E402
-from repro_torch.data import cosmo  # noqa: E402
+from repro_torch.data import cosmo, zfp_cases  # noqa: E402
 from repro_torch.dist import insitu  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels import kvc_attention as k10  # noqa: E402
@@ -140,6 +147,8 @@ from repro_torch.models.spec import init_params, param_count  # noqa: E402
 from repro_torch.obs import metrics as obs_metrics  # noqa: E402
 from repro_torch.serving.engine import EngineConfig, Request, ServingEngine  # noqa: E402
 
+from cuda_timing import cuda_ms, cuda_times, graph_ms  # noqa: E402  (tools/)
+
 N = 256  # Nyx grid side of the main path
 HACC_GRID = 128  # HACC particles per side of the core-backend check
 SMALL_N = 64  # grid side of the CPU agreement check
@@ -147,16 +156,25 @@ SEED = 42
 REL_EB = 1e-4  # eb = REL_EB x value range (10.0 on baryon density, as in quickstart)
 PW_REL = 1e-2
 ZFP_RATE = 8  # quickstart's rate
-ZFP_CHECK_RATES = (2, 4, 8, 16)  # rates of the kernel-vs-plain checks
-TIMING_ITERS = 20  # CUDA-event-timed calls per kernel, stage and field
+ZFP_CHECK_RATES = (1, 2, 4, 8, 16, 32, 40)  # rates of the kernel-vs-plain checks (one above 32)
+ZFP_HARD_COUNTS = (1, 31, 1003)  # block counts of the hard-block checks: no multiple of a CTA's
+TIMING_ITERS = 20  # timed calls (or CUDA-graph replays per round) per kernel, stage and field
 PLAIN_ITERS = 3
 SNAPSHOT_DIR = Path(__file__).resolve().parent / ".chip_smoke_snapshots"  # gitignored
 K_ROWS = 4  # rows of the first kernel bucket: 4 x 2^24 points fill ROW_ELEM_BUDGET
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
-# H100 SXM INT32 rate: an SM has 64 INT32 lanes beside its 128 FP32 lanes, so
-# half the data sheet's 67 TFLOP/s FP32 rate.  The kernels' work is integer.
-INT32_OPS_PER_S = 67e12 / 2
-F32_OPS_PER_S = 67e12  # H100 SXM FP32 outside the tensor cores (data sheet)
+# Peak operation rates per pipe: 132 SMs at the 1.98 GHz boost clock, times
+# the per-SM throughputs of compute capability 9.0 (CUDA C++ Programming
+# Guide, arithmetic instructions): 64 32-bit integer operations a clock
+# (add, shift, logic, min/max), 16 conversions between float32 and int32 or
+# leading-zero counts, 128 float32 multiplies.  The data sheet's 67 TFLOP/s
+# FP32 counts an FMA as two operations on those 128 lanes; half of it is
+# twice the INT32 pipe.
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+CVT_OPS_PER_S = 132 * 16 * 1.98e9
+F32_OPS_PER_S = 67e12  # H100 SXM FP32 outside the tensor cores, an FMA as two (data sheet)
+PIPE_OPS_PER_S = {"int32": INT32_OPS_PER_S, "cvt": CVT_OPS_PER_S,
+                  "f32": F32_OPS_PER_S / 2}  # a multiply takes an FMA's slot
 BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 on the tensor cores (data sheet)
 
 ARCH = "starcoder2-3b"  # the JAX launcher's example (repro/launch/serve.py:8)
@@ -166,52 +184,78 @@ KVC_SERVE_SHAPE = (8, 2048, 24, 2, 128)  # B, S, H, Hkv, D at starcoder2-3b's se
 KVC_LONG_S = registry.SHAPES["decode_32k"].seq_len
 SMOKE_REQUESTS, SMOKE_NEW = 4, 8
 
-# Integer operations per point (quantize 2, Lorenzo 7; zigzag 2, bit length
-# 1, block max 1, packing 6; prefix sums 3, dequantize 2; unpacking 6,
-# unzigzag 3).
+# Operations per point, by pipe.  int32: Lorenzo 7; zigzag 2, block max 1,
+# packing 6; prefix sums 3; unpacking 6, unzigzag 3.  f32 and cvt: the
+# quantizer's multiply and rounding conversion (the dequantizer's conversion
+# and multiply), and the bit length's leading-zero count.
 # K8 and K9 do K3's and K4's work per point.
-OPS_PER_POINT = {"lorenzo3d_quantize": 9, "lorenzo3d_reconstruct": 5,
-                 "fused_encode": 19, "fused_decode": 14,
-                 "fused_encode_batched": 19, "fused_decode_batched": 14}
+OPS_PER_POINT = {"lorenzo3d_quantize": {"int32": 7, "f32": 1, "cvt": 1},
+                 "lorenzo3d_reconstruct": {"int32": 3, "f32": 1, "cvt": 1},
+                 "fused_encode": {"int32": 16, "f32": 1, "cvt": 2},
+                 "fused_decode": {"int32": 12, "f32": 1, "cvt": 1}}
+OPS_PER_POINT.update(fused_encode_batched=OPS_PER_POINT["fused_encode"],
+                     fused_decode_batched=OPS_PER_POINT["fused_decode"])
 
-# Scalar operations the ZFP functions need per 64-point block, whatever a
-# kernel's own instruction count: no idle lanes, no loop or address work,
-# and data moves (the sequency permutation, loads, stores) count 0.
-# Stages 1-3: |x| 64, block max 63, exponent and scale 6, scale multiply 64,
-# round 64, 48 four-point lifts of 16, negabinary 2 a point.
-ZFP_STAGES_1_3 = 64 + 63 + 6 + 64 + 64 + 48 * 16 + 64 * 2
-# Bit lengths 2 a point, maxima within the 10 groups 64 - 10.
-ZFP_GROUP_MAXIMA = 64 * 2 + (64 - 10)
-# Two 32x32 bit transposes at their scalar cost (Hacker's Delight 7-3, as
-# core.zfp._bit_transpose32: 5 rounds of 16 word pairs, 6 operations a pair).
-ZFP_TRANSPOSE = 2 * 5 * 16 * 6
-# Plane widths and offsets as a prefix over the 32 planes (entry plane of
-# each group 2, then per plane width, offset and kept bits 5).
-ZFP_PLANE_LAYOUT = 10 * 2 + 32 * 5
-# Per plane that keeps bits: two masks 10, its payload placed at (or fetched
-# from) its offset 14.  Per group run in such a plane: slice 2, shift into
-# place 6, advance 1.  Both counts come from this run's headers.
-ZFP_KEPT_PLANE, ZFP_RUN = 24, 9
-# The decoder's inverse: negabinary 2 a point, 48 inverse lifts of 16,
-# scale 4, convert and multiply 2 a point.
-ZFP_INVERSE = 64 * 2 + 48 * 16 + 4 + 64 * 2
+# Operations the ZFP functions need per 64-point block, by pipe, counted as
+# the least work one thread's registers allow, whatever a kernel issues: no
+# idle lanes, no loop or address work; data moves (loads, stores, the
+# sequency permutation) count 0, and a three-input logic function, a funnel
+# shift or a byte permute counts one, as each is one instruction.
+# Stages 1-3 (K5, K6): |x| 64 and their max 63 over the IEEE bits, the
+# exponent, nonzero test and scale bits 6, 48 four-point lifts of 16,
+# negabinary 2 a point; the scale multiply and the rounding, 1 a point each.
+ZFP_FORWARD = {"int32": 64 + 63 + 6 + 48 * 16 + 64 * 2, "f32": 64, "cvt": 64}
+# Group tops: each group's OR by three-input ORs (sizes 1, 3, 6, 10, 12, 12,
+# 10, 6, 3, 1: 30), then its bit length, a leading-zero count and a subtract.
+ZFP_TOPS = {"int32": 30 + 10, "cvt": 10}
+# K7's stages 1-3 inverted: negabinary 2 a point, 48 inverse lifts of 16, the
+# scale bits 4; the conversion and the scale multiply, 1 a point each.
+ZFP_INVERSE = {"int32": 64 * 2 + 48 * 16 + 4, "f32": 64, "cvt": 64}
+# The coder (K6, K7), all int32.  Per block: two 32x32 bit transposes
+# (Hacker's Delight 7-3), each 2 rounds of 32 byte permutes and 3 rounds of
+# 16 word pairs at 4 (two shifts, two three-input selects); the layout: each
+# group's entry plane 10, the first of them 9, the plane width as each group
+# enters 10, and at the plane that spends the budget its kept width 2 and
+# two masks 4.
+ZFP_CODER_BLOCK = 2 * (2 * 32 + 3 * 16 * 4) + (10 + 9 + 10 + 6)
+# Per plane that keeps bits: the budget test, the offset's advance, its word
+# and shift 4; the encoder then places the payload (shift and merge into the
+# word it carries 2, two funnel shifts 2, the next carried word 2), the
+# decoder fetches it (two funnel shifts 2).
+ZFP_ENC_PLANE, ZFP_DEC_PLANE = 4 + 6, 4 + 2
+# Per group absent from such a plane (a present group costs nothing): its
+# test, and squeezing its zero run out (or putting it back), a funnel shift,
+# a shift and a three-input merge.  Plane and run counts come from this
+# run's headers.
+ZFP_ABSENT_RUN = 4
 
 
-def zfp_ops(gtops, rate: int) -> dict[str, int]:
-    """Operations K5, K6 and K7 need on the blocks whose headers are
-    ``gtops`` at ``rate``: the coder's share follows the planes that keep
-    bits and the group runs in them."""
+def add_ops(*parts) -> dict[str, int]:
+    """Sum of ``(count, {pipe: operations})`` parts, per pipe."""
+    out: dict[str, int] = {}
+    for count, ops in parts:
+        for pipe, v in ops.items():
+            out[pipe] = out.get(pipe, 0) + count * v
+    return out
+
+
+def zfp_ops(gtops, rate: int) -> dict[str, dict[str, int]]:
+    """Operations per pipe that K5, K6 and K7 need on the blocks whose
+    headers are ``gtops`` at ``rate``: the coder's share follows the planes
+    that keep bits and the groups absent from them."""
     nb = gtops.shape[0]
     _, keep = zfp_core._plane_offsets(gtops, rate * 64 - zfp_core._HEADER_BITS)
     kept = keep > 0
     planes = torch.arange(32, device=gtops.device)
-    present = gtops.to(torch.int64)[:, None, :] + planes[None, :, None] >= 32
-    runs = int((present & kept[..., None]).sum())
-    coder = (nb * (ZFP_TRANSPOSE + ZFP_PLANE_LAYOUT) + ZFP_KEPT_PLANE * int(kept.sum())
-             + ZFP_RUN * runs)
-    transform = nb * (ZFP_STAGES_1_3 + ZFP_GROUP_MAXIMA)
-    return {"zfp3d_transform": transform, "fused_compress_blocks": transform + coder,
-            "fused_decompress_blocks": coder + nb * ZFP_INVERSE}
+    absent = gtops.to(torch.int64)[:, None, :] + planes[None, :, None] < 32
+    n_kept, n_absent = int(kept.sum()), int((absent & kept[..., None]).sum())
+    transform = [(nb, ZFP_FORWARD), (nb, ZFP_TOPS)]
+    coder = [(nb, {"int32": ZFP_CODER_BLOCK}), (n_absent, {"int32": ZFP_ABSENT_RUN})]
+    return {"zfp3d_transform": add_ops(*transform),
+            "fused_compress_blocks": add_ops(*transform, *coder,
+                                             (n_kept, {"int32": ZFP_ENC_PLANE})),
+            "fused_decompress_blocks": add_ops((nb, ZFP_INVERSE), *coder,
+                                               (n_kept, {"int32": ZFP_DEC_PLANE}))}
 
 
 KERNELS = {
@@ -272,51 +316,6 @@ def same(a, b) -> bool:
     return a.shape == b.shape and bool(torch.equal(a, b))
 
 
-def cuda_times(fn, iters: int) -> list[float]:
-    """Milliseconds of each of ``iters`` CUDA-event-timed runs of ``fn()``,
-    after one warm-up run."""
-    fn()
-    torch.cuda.synchronize()
-    events = []
-    for _ in range(iters):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        events.append((start, end))
-    torch.cuda.synchronize()
-    return [s.elapsed_time(e) for s, e in events]
-
-
-def cuda_ms(fn, iters: int) -> float:
-    return statistics.median(cuda_times(fn, iters))
-
-
-def graph_ms(fn, iters: int = TIMING_ITERS, rounds: int = 5) -> float:
-    """Device milliseconds of one ``fn()``: its launches captured in a CUDA
-    graph, ``iters`` replays back to back between two events (so the card
-    never waits for the host), median of ``rounds``."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        fn()  # warm-up outside the capture
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        fn()
-    out = []
-    for _ in range(rounds):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(iters):
-            graph.replay()
-        end.record()
-        torch.cuda.synchronize()
-        out.append(start.elapsed_time(end) / iters)
-    del graph
-    return statistics.median(out)
-
-
 def pad_to_tile(x):
     pads = [(-s) % t for s, t in zip(x.shape, lor.TILE)]
     return F.pad(x, (0, pads[2], 0, pads[1], 0, pads[0])).contiguous()
@@ -348,9 +347,11 @@ def kernels_vs_plain(inputs: dict) -> dict[str, float]:
     return worst
 
 
-def zfp_kernels_vs_plain(inputs: dict) -> dict[str, float]:
+def zfp_kernels_vs_plain(inputs: dict, device) -> dict[str, float]:
     """K5-K7 against their plain versions on the same CUDA inputs, at every
-    rate of ZFP_CHECK_RATES; bitwise equality required."""
+    rate of ZFP_CHECK_RATES: on each field's blocks, on the hard blocks at
+    ZFP_HARD_COUNTS, and K7 on full-payload streams; bitwise equality
+    required."""
     worst = {"zfp3d_transform": 0.0, "fused_compress_blocks": 0.0,
              "fused_decompress_blocks": 0.0}
 
@@ -360,8 +361,7 @@ def zfp_kernels_vs_plain(inputs: dict) -> dict[str, float]:
             check(same(g, w), f"{name} differs from plain at {label} (max |diff| {err})")
             worst[name] = max(worst[name], err)
 
-    for label, x in inputs.items():
-        blocks = zfp_core._carve_blocks(x)
+    def hold_all(label, blocks):
         hold("zfp3d_transform", k5.zfp3d_transform(blocks), k5.zfp3d_transform_plain(blocks),
              label)
         for rate in ZFP_CHECK_RATES:
@@ -370,8 +370,22 @@ def zfp_kernels_vs_plain(inputs: dict) -> dict[str, float]:
                  f"{label} rate {rate}")
             hold("fused_decompress_blocks", [zff.fused_decompress_blocks(*enc, rate)],
                  [zff.fused_decompress_blocks_plain(*enc, rate)], f"{label} rate {rate}")
+
+    for label, x in inputs.items():
+        hold_all(label, zfp_core._carve_blocks(x))
         print(f"ZFP kernels vs plain at {label} {tuple(x.shape)}, rates {ZFP_CHECK_RATES}: "
               "bitwise equal")
+    for nb in ZFP_HARD_COUNTS:
+        blocks = zfp_cases.hard_blocks(nb, SEED + nb).to(device)
+        hold_all(f"{nb} hard blocks", blocks)
+        for rate in ZFP_CHECK_RATES:
+            full = [t.to(device) for t in zfp_cases.full_streams(nb, rate, SEED + nb + rate)]
+            hold("fused_decompress_blocks", [zff.fused_decompress_blocks(*full, rate)],
+                 [zff.fused_decompress_blocks_plain(*full, rate)],
+                 f"{nb} full-payload streams rate {rate}")
+    print(f"ZFP kernels vs plain on the hard blocks (+-inf, NaN, 3e38, saturated, zero, "
+          f"subnormal) at {ZFP_HARD_COUNTS} blocks and K7 on full-payload streams, rates "
+          f"{ZFP_CHECK_RATES}: bitwise equal")
     return worst
 
 
@@ -608,8 +622,8 @@ def zfp_hacc(hacc, device) -> None:
 
 def zfp_stage_times(x) -> dict[str, float]:
     """Median ms of each stage of one ZFP compress and decompress of ``x``
-    on both paths, beside the whole entry-point calls, and the peak device
-    memory of one entry-point call each."""
+    on both paths (CUDA-graph replays), beside the whole entry-point calls
+    (event pairs), and the peak device memory of one entry-point call each."""
     comp = get_compressor("tpu-zfp")
     r = comp.compress(x, rate=ZFP_RATE)
     c = r.payload["parts"][0]
@@ -617,20 +631,26 @@ def zfp_stage_times(x) -> dict[str, float]:
     dec = zff.fused_decompress_blocks(c.words, c.emax, c.gtops, ZFP_RATE)
     u, _, gtops = k5.zfp3d_transform(blocks)
     perm = zfp_core._index(zfp_core.PERM, x.device)
-    stages = {
+    entry = {
         "zfp.fused.compress": lambda: comp.compress(x, rate=ZFP_RATE),
+        "zfp.fused.decompress": lambda: comp.decompress(r),
+        "zfp.xla.decompress.core_decompress": lambda: zfp_core.decompress(c),
+    }
+    stages = {
         "zfp.fused.compress.carve": lambda: zfp_core._carve_blocks(x),
         "zfp.fused.compress.K6": lambda: zff.fused_compress_blocks(blocks, ZFP_RATE),
-        "zfp.fused.decompress": lambda: comp.decompress(r),
         "zfp.fused.decompress.K7": lambda: zff.fused_decompress_blocks(
             c.words, c.emax, c.gtops, ZFP_RATE),
         "zfp.fused.decompress.uncarve": lambda: zfp_core._uncarve_blocks(dec, c.shape),
         "zfp.xla.compress.K5": lambda: k5.zfp3d_transform(blocks),
         "zfp.xla.compress.permute+encode_words": lambda: zfp_core.encode_words(
             u.view(torch.int32)[:, perm], gtops, ZFP_RATE),
-        "zfp.xla.decompress.core_decompress": lambda: zfp_core.decompress(c),
     }
-    out = {name: cuda_ms(fn, TIMING_ITERS) for name, fn in stages.items()}
+    # the entry points event-timed per call (their host work, index copies
+    # included, is part of them); the stages, which neither sync nor copy
+    # from the host, from CUDA-graph replays
+    out = {name: cuda_ms(fn, TIMING_ITERS) for name, fn in entry.items()}
+    out.update({name: graph_ms(fn) for name, fn in stages.items()})
     out["zfp.fused.compress.peak_mib"] = peak_mib(lambda: comp.compress(x, rate=ZFP_RATE))
     out["zfp.fused.decompress.peak_mib"] = peak_mib(lambda: comp.decompress(r))
     return out
@@ -901,9 +921,10 @@ def snapshot_agrees_with_cpu(fields: dict, hacc, device) -> None:
 
 
 def batched_kernel_times(xb, eb_i) -> dict[str, dict]:
-    """Median ms of K8 and K9 and their plain versions at the snapshot's
-    (4, 256, 256, 256) bucket, beside the bound from this run's bytes
-    (K9 reads the payload words this data needs) and operations."""
+    """Device ms of K8 and K9 (CUDA-graph replays) and their plain versions'
+    event-timed ms at the snapshot's (4, 256, 256, 256) bucket, beside the
+    bound from this run's bytes (K9 reads the payload words this data
+    needs) and operations (:func:`timed`)."""
     shape = tuple(xb.shape[1:])
     n = xb.numel()
     nb = n // 64
@@ -917,24 +938,32 @@ def batched_kernel_times(xb, eb_i) -> dict[str, dict]:
                                  lambda: szf.fused_decode_batched_plain(words, widths, shape, eb_i),
                                  4 * payload_words + 4 * nb + 4 * n + 4 * xb.shape[0]),
     }
-    return {name: timed(kernel, plain, nbytes, OPS_PER_POINT[name] * n)
+    return {name: timed(kernel, plain, nbytes, add_ops((n, OPS_PER_POINT[name])))
             for name, (kernel, plain, nbytes) in runs.items()}
 
 
-def timed(kernel, plain, nbytes: int, ops: int) -> dict:
+def timed(kernel, plain, nbytes: int, ops: dict[str, int]) -> dict:
+    """A kernel's device ms from CUDA-graph replays (``ms``; its wrapper
+    makes no host sync, so it captures) beside an event pair around one
+    direct call (``call_ms``: the ctypes launch's host time included), its
+    plain version's event-timed ms, and the bound: the larger of the bytes
+    over the memory rate and the operations over their pipe's rate, for the
+    pipe that takes longest (``pipes_ms``: each pipe's time)."""
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = ops / INT32_OPS_PER_S * 1e3
-    return {"ms": cuda_ms(kernel, TIMING_ITERS), "plain_ms": cuda_ms(plain, PLAIN_ITERS),
-            "bound_ms": max(bytes_ms, ops_ms),
+    pipes_ms = {pipe: v / PIPE_OPS_PER_S[pipe] * 1e3 for pipe, v in ops.items()}
+    ops_ms = max(pipes_ms.values())
+    return {"ms": graph_ms(kernel), "call_ms": cuda_ms(kernel, TIMING_ITERS),
+            "plain_ms": cuda_ms(plain, PLAIN_ITERS), "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "bytes_ms": bytes_ms, "ops_ms": ops_ms}
+            "bytes_ms": bytes_ms, "ops_ms": ops_ms, "pipes_ms": pipes_ms}
 
 
 
 def kernel_times(x, eb: float) -> dict[str, dict]:
-    """Median ms of each kernel and of its plain version at the main path's
-    256^3 shape, beside the bound from this run's bytes and operations (for
-    K6 and K7 the operations of this run's headers, :func:`zfp_ops`)."""
+    """Device ms of each kernel (CUDA-graph replays) and its plain version's
+    event-timed ms at the main path's 256^3 shape, beside the bound from
+    this run's bytes and operations (for K6 and K7 the operations of this
+    run's headers, :func:`zfp_ops`; :func:`timed`)."""
     xp = pad_to_tile(x)
     shape = tuple(xp.shape)
     n = xp.numel()
@@ -943,7 +972,7 @@ def kernel_times(x, eb: float) -> dict[str, dict]:
     delta = lor.lorenzo3d_quantize(xp, eb_i)
     words, widths = szf.fused_encode(xp, eb_i)
     payload_words = 2 * int(widths.sum())  # the words K4 must read for this data
-    ops = {name: OPS_PER_POINT[name] * n for name in SZ_KERNELS}
+    ops = {name: add_ops((n, OPS_PER_POINT[name])) for name in SZ_KERNELS}
     runs = {
         "lorenzo3d_quantize": (lambda: lor.lorenzo3d_quantize(xp, eb_i),
                                lambda: lor.lorenzo3d_quantize_plain(xp, eb_i), 8 * n),
@@ -1348,7 +1377,8 @@ def run(device) -> dict:
     hacc = cosmo.hacc_particles(grid=HACC_GRID)
     core_backend(fields["baryon_density"], hacc.fields["vx"], device)
 
-    worst.update(zfp_kernels_vs_plain({f"{N}^3 baryon_density": base, "ragged vx": ragged}))
+    worst.update(zfp_kernels_vs_plain({f"{N}^3 baryon_density": base, "ragged vx": ragged},
+                                      device))
     launches.update(zfp_main_path(fields, device))
     zfp_nyx_512(base)
     zfp_agrees_with_cpu(cosmo.nyx_fields(n=SMALL_N, seed=SEED), device)
@@ -1389,8 +1419,9 @@ def run(device) -> dict:
     times = kernel_times(base, ebs["baryon_density"])
     times.update(batched_kernel_times(xb, eb_rows))
     times["kvc_decode_attention"], _ = k10_times(device, serving)
-    print("kernel bounds (ms: bytes, operations): " + json.dumps(
-        {name: [t["bytes_ms"], t["ops_ms"]] for name, t in times.items()}))
+    print("kernel bounds (ms: bytes, operations, per pipe) and event-timed direct calls (ms): "
+          + json.dumps({name: [t["bytes_ms"], t["ops_ms"], t.get("pipes_ms"), t["call_ms"]]
+                        for name, t in times.items()}))
     rows = []
     for name, (kid, source, replaces) in KERNELS.items():
         t = times[name]

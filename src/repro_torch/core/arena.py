@@ -197,7 +197,7 @@ def sz_encode_rows(rows: torch.Tensor, n: torch.Tensor, eb, capacity: int):
     x = torch.where(mask, rows.to(torch.float32), 0.0)
     eb_i = sz_core.internal_bound(x.abs().amax(dim=1), eb)  # [B]
     # divide, as sz.compress does (a reciprocal multiply differs in ulps)
-    q = torch.round(x / (2.0 * eb_i[:, None])).to(torch.int32)
+    q = bitpack.round_i32(x / (2.0 * eb_i[:, None]))
     q = torch.where(mask, q, 0)
     delta = torch.where(mask, sz_core.lorenzo_residual(q, ndim=1), 0)  # zero border per row
     buf, counts, widths, total_bits = bitpack.pack_codes_rows(delta, n)

@@ -61,6 +61,18 @@ def i64_to_u32(v: torch.Tensor) -> torch.Tensor:
     return (v & MASK32).to(torch.int32).view(torch.uint32)
 
 
+def round_i32(x: torch.Tensor) -> torch.Tensor:
+    """float32 -> int32 as the reference's ``jnp.round(x).astype(jnp.int32)``
+    converts on XLA and the card's ``__float2int_rn`` does: round half to
+    even, saturate to [-2**31, 2**31 - 1], NaN to 0.  (``.to(torch.int32)``
+    of an out-of-range float is undefined; on x86 it gives -2**31.)"""
+    r = torch.round(x)
+    # 2**31 - 1 is no float32: clamp below 2**31 (2**31 - 128 is the float32
+    # below it), then select the top value
+    safe = torch.where(torch.isnan(r), 0.0, r).clamp(-2.0**31, 2.0**31 - 128)
+    return torch.where(r >= 2.0**31, 2**31 - 1, safe.to(torch.int32))
+
+
 def to_numpy(t: torch.Tensor) -> np.ndarray:
     """A tensor on any device -> a host numpy array; uint32 stays uint32."""
     if t.dtype == torch.uint32:

@@ -131,7 +131,7 @@ def compress(x: torch.Tensor, eb, block_size: int | None = None) -> SZCompressed
     bitpack.check_fits("pack_codes", n_codes)  # before anything is allocated
     x = x.to(torch.float32)
     eb_i = internal_bound(x.abs().amax(), eb)
-    q = torch.round(x / (2.0 * eb_i)).to(torch.int32)
+    q = bitpack.round_i32(x / (2.0 * eb_i))
     if block_size is None:
         delta = lorenzo_residual(q)
     else:

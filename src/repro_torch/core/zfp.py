@@ -43,7 +43,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.bitpack import MASK32, i64_to_u32, u32_to_i64
+from repro_torch.core.bitpack import MASK32, i64_to_u32, round_i32, u32_to_i64
 from repro_torch.core.bitpack import code_mask as _code_mask
 from repro_torch.device import resolve_device
 
@@ -234,7 +234,7 @@ def blocks_transform(blocks: torch.Tensor):
     e = torch.clamp(e, -100, 127).to(torch.int32)
     nonzero = maxabs >= _FLT_MIN  # a subnormal |x|max is a zero block (module doc)
     scale = exact_exp2(Q - e)
-    ints = torch.round(blocks * scale[:, None, None, None]).to(torch.int32)
+    ints = round_i32(blocks * scale[:, None, None, None])
     coef = _lift3d(ints)
     u = negabinary(coef.reshape(-1, 64))[:, _index(PERM, blocks.device)]
     gtops = _group_tops(_bitlength32(u)) * nonzero[:, None]

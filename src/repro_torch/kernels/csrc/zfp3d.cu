@@ -12,39 +12,51 @@
 //
 // Bound.  It reads 4 B/pt of f32 and writes 4 B/pt of coefficients plus 11
 // header bytes per 64 points: ~8.17 B/pt, ~41 us for a 256^3 field at
-// 3.35 TB/s.  The operations it needs (~21 a point: stages 1-3 and the group
-// maxima, as chip_smoke.py counts them) take ~10 us at the INT32 rate, so
-// the bytes bound it.
+// 3.35 TB/s.  The operations it needs (~16.7 integer operations a point:
+// stages 1-3 and the group tops, as chip_smoke.py counts them) take ~17 us
+// at the INT32 pipe's rate and its conversions ~5 us, so the bytes bound it.
 //
-// Design.  One warp per ZFP block, 8 blocks per CTA: a warp reads its
-// block's 256 contiguous bytes (lane l takes values l and l + 32), so a
-// CTA's loads and stores are contiguous 2 KiB runs.  The shared stages
-// (zfp_block.cuh) take |x|max with a warp max of the |x| bit patterns, lift
-// in a 64-word shared scratch (16 lanes, one 4-line each, per axis), and the
-// group maxima are 10 warp reductions.  Any NB is taken: warps past the last
-// block return (the JAX package pads NB to its 256-block VMEM tile instead).
+// Design.  K6's stages on K6's layout (zfp_block.cuh): one ZFP block per
+// thread, 64 blocks per CTA; the CTA's contiguous span of floats comes in
+// through the swizzled shared tile with 16-byte loads, each thread runs
+// stages 1-3 on its block in registers and writes its 64 coefficients back
+// into its row of the tile, and the tile goes out with 16-byte stores, the
+// headers bytewise.  Any NB is taken: threads past the last block only help
+// move the tile (the JAX package pads NB to its 256-block VMEM tile instead).
 #include "zfp_block.cuh"
 
 namespace {
 
-__global__ void __launch_bounds__(zfp::WARPS * 32)
-zfp3d_transform_kernel(const float* __restrict__ blocks, uint32_t* __restrict__ u,
-                       uint8_t* __restrict__ emax, uint8_t* __restrict__ gtops, long long nb) {
-  __shared__ int32_t scratch[zfp::WARPS][64];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const long long b = static_cast<long long>(blockIdx.x) * zfp::WARPS + warp;
-  if (b >= nb) return;  // whole warps only: every warp op below sees 32 lanes
+using zfp::TILE;
 
-  const zfp::BlockFloat bf = zfp::block_float_negabinary(blocks + b * 64, lane, scratch[warp]);
-  u[b * 64 + lane] = bf.u0;
-  u[b * 64 + lane + 32] = bf.u1;
-  int tops[zfp::N_GROUPS];
-  zfp::group_tops(bf.u0, zfp::degree(lane), bf.u1, zfp::degree(lane + 32), bf.nonzero, tops);
+__global__ void __launch_bounds__(TILE)
+zfp3d_transform_kernel(const float* __restrict__ blocks, uint32_t* __restrict__ u_out,
+                       uint8_t* __restrict__ emax, uint8_t* __restrict__ gtops, long long nb) {
+  __shared__ __align__(16) uint32_t buf[TILE * 64];
+  __shared__ uint8_t hdr[TILE * (zfp::N_GROUPS + 1)];  // gtops rows, then emax
+  const long long b0 = static_cast<long long>(blockIdx.x) * TILE;
+  const int nbc = static_cast<int>(min(static_cast<long long>(TILE), nb - b0));
+  const int t = threadIdx.x;
+
+  zfp::load_tile(buf, reinterpret_cast<const uint32_t*>(blocks + b0 * 64), nbc);
+  __syncthreads();
+  uint32_t u[64];
+  if (t < nbc) {
+    float v[64];
+    zfp::Header h;
+    zfp::read_row(buf, t, v);
+    zfp::forward_block(v, u, h);
 #pragma unroll
-  for (int g = 0; g < zfp::N_GROUPS; ++g)
-    if (lane == g) gtops[b * zfp::N_GROUPS + g] = static_cast<uint8_t>(tops[g]);
-  if (lane == 0) emax[b] = static_cast<uint8_t>(bf.nonzero ? bf.e + zfp::EMAX_BIAS : 0);
+    for (int g = 0; g < zfp::N_GROUPS; ++g)
+      hdr[t * zfp::N_GROUPS + g] = static_cast<uint8_t>(h.tops[g]);
+    hdr[TILE * zfp::N_GROUPS + t] = static_cast<uint8_t>(h.emax);
+  }
+  __syncthreads();  // every row is read: the tile takes the coefficients
+  if (t < nbc) zfp::write_row(buf, t, u);
+  __syncthreads();
+  zfp::store_tile(u_out + b0 * 64, buf, nbc);
+  zfp::store_bytes(gtops + b0 * zfp::N_GROUPS, hdr, nbc * zfp::N_GROUPS);
+  zfp::store_bytes(emax + b0, hdr + TILE * zfp::N_GROUPS, nbc);
 }
 
 }  // namespace
@@ -55,9 +67,9 @@ REPRO_DEFINE_ERROR_STRING()
 // gtops: uint8 (nb, 10).  Launches on ``stream``, returns cudaGetLastError().
 extern "C" int zfp3d_transform(const float* blocks, uint32_t* u, uint8_t* emax, uint8_t* gtops,
                                long long nb, cudaStream_t stream) {
-  const long long grid = (nb + zfp::WARPS - 1) / zfp::WARPS;
+  const long long grid = (nb + TILE - 1) / TILE;
   if (grid > 0)
-    zfp3d_transform_kernel<<<static_cast<unsigned>(grid), zfp::WARPS * 32, 0, stream>>>(
+    zfp3d_transform_kernel<<<static_cast<unsigned>(grid), TILE, 0, stream>>>(
         blocks, u, emax, gtops, nb);
   return static_cast<int>(cudaGetLastError());
 }

@@ -15,226 +15,143 @@
 //
 // Bound.  K6 reads 4 B/pt of f32 and writes (8*rate + 7)/64 B/pt: the
 // stream words plus the uint8 emax and 10 uint8 gtops (11 B per block).
-// K7 moves the same bytes the other way.  At rate 8 that is 5.11 B/pt,
-// ~26 us for a 256^3 field at 3.35 TB/s.  The operations the coder needs
-// (chip_smoke.py zfp_ops): two 32x32 bit transposes at their scalar cost
-// and the plane layout per block, then masks and placement per plane that
-// keeps bits and shifts per group run in it, which the headers fix.  On
-// Nyx at rate 8 that is ~52 operations a point for K6 (stages 1-3
-// included) and ~48 for K7, ~26 and ~24 us at the INT32 rate: the same as
-// the bytes' time.  The warp issues far more than that (64 full-warp
-// ballots each way, lifts on 16 of 32 lanes), which is where its time
-// goes; packing two blocks per warp is later work.
+// K7 moves the same bytes the other way: at rate 8, 5.11 B/pt, ~26 us for a
+// 256^3 field at 3.35 TB/s.  The least integer work the functions need
+// (chip_smoke.py zfp_ops: stages 1-3, the group tops as ORs and a bit
+// length, two 32x32 bit transposes, the layout once per block, and per
+// kept plane (~9 of 32 on Nyx) the payload's placement plus a squeeze per
+// absent group run) is ~27.5 operations a point for K6 and ~24.3 for K7
+// on Nyx at rate 8: ~28 and ~24 us at the INT32 pipe's 16.7 T/s.  The
+// float<->int32 conversions (1 a point, 16 per SM per clock) take ~5 us.
+// So K6's bound is integer issue, a little above the bytes', and K7's is
+// the bytes'; both kernels run at under half of it (PERF.md).
 //
-// Design.  One warp per ZFP block, 8 per CTA, as K5 (zfp_block.cuh gives
-// stages 1-3).  K6: the index-order coefficients go through the warp's
-// shared scratch to sequency order (PERM below), so lane l holds sequency
-// coefficients l and l + 32.  The plane bit-matrix is 64 ballots: W0[j] =
-// ballot of bit 31 - j of coefficients 0..31, bit c = coefficient c, which
-// is what the reference's two 32x32 transposes compute (zfp.py:307-345).
-// Lane j then owns plane j: it computes OFF[j] and keep[j] from the tops,
-// compacts the 10 group runs (static starts, header-derived offsets), masks
-// by keep and ORs its <= 3 words into a 64-word shared row.  No payload bit
-// lies past word 63 (32 planes x 64 bits), so words 64.. of a long row are
-// zero and any rate works.  The row is written out coalesced.  K7: lane j
-// fetches its plane's <= 3 words straight from the block's row (0 past word
-// wpb - 1, never past the tensor), extracts the runs back into the plane
-// matrix, and 64 ballots with a bit reversal transpose it back to
-// coefficients; then the inverse permutation through shared memory, inverse
-// negabinary, inverse lift and x 2^(e - 25) built in exponent bits.
+// Design: one ZFP block per thread, TILE = 64 blocks per CTA, so the work a
+// thread issues is the coder's scalar work with no idle lanes and no warp
+// collectives (a warp per block spends several warp instructions per scalar
+// step: lanes idle in the lifts, a warp reduction per group top, a ballot
+// per bit plane each way).  cuZFP also gives a block a thread.
+//  - The CTA's span of blocks is contiguous in both directions: it moves
+//    between device and shared memory with coalesced 16-byte accesses
+//    (zfp_block.cuh's tile helpers; the float tile is swizzled so that each
+//    thread reads its own 256-byte row with conflict-free 16-byte loads).
+//  - Stages 1-3 run on 64 registers (forward_block); the sequency
+//    permutation is a renaming; a group's top plane is the bit length of
+//    the OR of its members.
+//  - Two 32x32 bit transposes in registers (two byte-permute rounds, three
+//    shift-and-select rounds) turn coefficients into plane rows.
+//  - The plane loop is unrolled over the 32 planes (plane rows stay in
+//    registers) and does work only from the first plane a group enters to
+//    the plane that spends the budget: ~9 of 32 per block on Nyx at rate 8.
+//    A plane's compaction squeezes out the (zero) runs of its absent groups
+//    with constant shifts and masks, a branch per group; absent groups are
+//    ~1.6 of 10 per kept plane there.  The payload goes to OFF in the
+//    thread's own row of shared memory, whose stride is wpb (always odd) or
+//    65, so the rows a warp writes are bank-conflict free and no atomics are
+//    needed; the row's current word is carried in a register, so the row is
+//    written and never read back.
+//  - The CTA's rows are then one contiguous run of its words: stored with
+//    16-byte stores (rates up to 32; above, words 64 on of a row are zero).
+//    emax and gtops go through shared memory the same way, bytewise.
+// K7 mirrors it: rows in, each plane's <= 3 words fetched at OFF (a
+// thread's fetch may read past its row; those bits lie past keep and are
+// masked, as the reference reads 0 past the row), the absent runs put back
+// with no branch (a zero-width insertion where a group is present), the
+// inverse transposes, the inverse permutation by renaming, stages 1-3
+// inverted, the floats through the swizzled tile and out coalesced.
+// Every index into a thread's arrays is a compile-time constant, so nothing
+// goes to local memory: ptxas reports 0 spill bytes for both kernels (K6
+// 110 registers, K7 96; chip_smoke.py prints the report at each build).
 #include "zfp_block.cuh"
 
 namespace {
 
-// Sequency order: PERM[s] is the index-order position of sequency
-// coefficient s (repro_torch.core.zfp.PERM; a CPU test holds the two equal).
-__constant__ uint8_t PERM[64] = {
-    0,  1,  4,  16, 2,  5,  8,  17, 20, 32, 3,  6,  9,  12, 18, 21,
-    24, 33, 36, 48, 7,  10, 13, 19, 22, 25, 28, 34, 37, 40, 49, 52,
-    11, 14, 23, 26, 29, 35, 38, 41, 44, 50, 53, 56, 15, 27, 30, 39,
-    42, 45, 51, 54, 57, 60, 31, 43, 46, 55, 58, 61, 47, 59, 62, 63};
+using zfp::TILE;
 
-// Group sizes and their first sequency coefficient (zfp.GROUP_SIZES,
-// zfp._FIXED_START: 0, 1, 4, 10, 20, 32, 44, 54, 60, 63): groups 0-4 fill
-// coefficients 0..31, groups 5-9 32..63.  Functions, not arrays: device
-// code may not index a host constexpr array; unrolled loops fold these.
-__device__ __forceinline__ constexpr int group_size(int g) {
-  return g == 0 || g == 9 ? 1 : g == 1 || g == 8 ? 3 : g == 2 || g == 7 ? 6
-       : g == 3 || g == 6 ? 10 : 12;
-}
-__device__ __forceinline__ constexpr int group_start(int g) {
-  int s = 0;
-  for (int i = 0; i < g; ++i) s += group_size(i);
-  return s;
-}
-constexpr int ROW_WORDS = 64;  // no payload bit lies past word 63
-
-// Plane j's global bit offset OFF and kept bit count keep (zfp.py:278-299).
-struct PlaneLayout {
-  int off, keep;
-};
-
-__device__ __forceinline__ PlaneLayout plane_layout(const int (&tops)[zfp::N_GROUPS], int j,
-                                                    int budget) {
-  int off = 0, pw = 0;
-#pragma unroll
-  for (int g = 0; g < zfp::N_GROUPS; ++g) {
-    const int t = tops[g] + j - 32;
-    off += group_size(g) * max(t, 0);
-    pw += t >= 0 ? group_size(g) : 0;
-  }
-  return {off, min(max(budget - off, 0), pw)};
-}
-
-__global__ void __launch_bounds__(zfp::WARPS * 32)
+__global__ void __launch_bounds__(TILE)
 zfp_fused_encode_kernel(const float* __restrict__ blocks, uint32_t* __restrict__ words,
                         uint8_t* __restrict__ emax, uint8_t* __restrict__ gtops, long long nb,
                         int wpb, int budget) {
-  __shared__ int32_t scratch[zfp::WARPS][64];
-  __shared__ uint32_t rows[zfp::WARPS][ROW_WORDS];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const long long b = static_cast<long long>(blockIdx.x) * zfp::WARPS + warp;
-  if (b >= nb) return;  // whole warps only: every warp op below sees 32 lanes
-  int32_t* s = scratch[warp];
-  uint32_t* row = rows[warp];
+  __shared__ __align__(16) uint32_t buf[zfp::BUF_WORDS];
+  __shared__ uint8_t hdr[TILE * (zfp::N_GROUPS + 1)];  // gtops rows, then emax
+  const long long b0 = static_cast<long long>(blockIdx.x) * TILE;
+  const int nbc = static_cast<int>(min(static_cast<long long>(TILE), nb - b0));
+  const int t = threadIdx.x;
+  const int cap = min(wpb, zfp::ROW_WORDS), rs = min(wpb, zfp::ROW_WORDS + 1);
 
-  // stages 1-3, then sequency order through the scratch
-  const zfp::BlockFloat bf = zfp::block_float_negabinary(blocks + b * 64, lane, s);
-  __syncwarp();
-  s[lane] = static_cast<int32_t>(bf.u0);
-  s[lane + 32] = static_cast<int32_t>(bf.u1);
-  row[lane] = 0u;
-  row[lane + 32] = 0u;
-  __syncwarp();
-  const int p0 = PERM[lane], p1 = PERM[lane + 32];
-  const uint32_t q0 = static_cast<uint32_t>(s[p0]), q1 = static_cast<uint32_t>(s[p1]);
-  int tops[zfp::N_GROUPS];
-  zfp::group_tops(q0, zfp::degree(p0), q1, zfp::degree(p1), bf.nonzero, tops);
+  zfp::load_tile(buf, reinterpret_cast<const uint32_t*>(blocks + b0 * 64), nbc);
+  __syncthreads();
+  float v[64];
+  if (t < nbc) zfp::read_row(buf, t, v);
+  __syncthreads();  // the float tile is read: its rows become stream rows
+  if (t < nbc) {
+    uint32_t u[64];
+    zfp::Header h;
+    zfp::forward_block(v, u, h);
+    zfp::encode_planes(u, h, budget, cap, rs, buf + t * rs);
+#pragma unroll
+    for (int g = 0; g < zfp::N_GROUPS; ++g)
+      hdr[t * zfp::N_GROUPS + g] = static_cast<uint8_t>(h.tops[g]);
+    hdr[TILE * zfp::N_GROUPS + t] = static_cast<uint8_t>(h.emax);
+  }
+  __syncthreads();
 
-  // plane bit-matrix: lane j keeps W0[j], W1[j]
-  uint32_t w0 = 0u, w1 = 0u;
-#pragma unroll 4
-  for (int j = 0; j < 32; ++j) {
-    const uint32_t m0 = __ballot_sync(zfp::FULL, (q0 >> (31 - j)) & 1u);
-    const uint32_t m1 = __ballot_sync(zfp::FULL, (q1 >> (31 - j)) & 1u);
-    if (lane == j) {
-      w0 = m0;
-      w1 = m1;
+  uint32_t* dst = words + b0 * wpb;
+  if (rs == wpb) {
+    zfp::store_words(dst, buf, nbc * wpb);
+  } else {  // rate > 32: rows of 65 words here; words 64.. of a block are 0
+    for (int i = t; i < nbc * wpb; i += TILE) {
+      const int b = i / wpb, k = i - b * wpb;
+      dst[i] = k < zfp::ROW_WORDS ? buf[b * rs + k] : 0u;
     }
   }
-
-  // lane j: compact plane j's group runs into its <= 64-bit payload
-  const PlaneLayout pl = plane_layout(tops, lane, budget);
-  uint32_t plo = 0u, phi = 0u;
-  int woff = 0;
-#pragma unroll
-  for (int g = 0; g < zfp::N_GROUPS; ++g) {
-    const uint32_t src = group_start(g) < 32 ? w0 : w1;
-    const uint32_t run = (src >> (group_start(g) & 31)) & zfp::code_mask(group_size(g));
-    const uint32_t o1 = static_cast<uint32_t>(woff & 31);
-    const uint32_t lo_c = run << o1;
-    const uint32_t hi_c = (run >> 1) >> (31u - o1);  // run >> (32 - o1); 0 at o1 == 0
-    if (woff >= 32) {
-      phi |= lo_c;
-    } else {
-      plo |= lo_c;
-      phi |= hi_c;
-    }
-    woff += tops[g] + lane >= 32 ? group_size(g) : 0;
-  }
-  plo &= zfp::code_mask(min(pl.keep, 32));
-  phi &= zfp::code_mask(min(max(pl.keep - 32, 0), 32));
-
-  // place the payload at OFF: it touches words OFF >> 5 .. + 2
-  const uint32_t sh = static_cast<uint32_t>(pl.off & 31);
-  const int first = pl.off >> 5;
-  const uint32_t c[3] = {plo << sh, ((plo >> 1) >> (31u - sh)) | (phi << sh),
-                         (phi >> 1) >> (31u - sh)};
-#pragma unroll
-  for (int k = 0; k < 3; ++k)
-    if (c[k] != 0u && first + k < ROW_WORDS) atomicOr(row + first + k, c[k]);
-  __syncwarp();
-
-  uint32_t* dst = words + b * wpb;
-  for (int k = lane; k < wpb; k += 32) dst[k] = k < ROW_WORDS ? row[k] : 0u;
-#pragma unroll
-  for (int g = 0; g < zfp::N_GROUPS; ++g)
-    if (lane == g) gtops[b * zfp::N_GROUPS + g] = static_cast<uint8_t>(tops[g]);
-  if (lane == 0) emax[b] = static_cast<uint8_t>(bf.nonzero ? bf.e + zfp::EMAX_BIAS : 0);
+  zfp::store_bytes(gtops + b0 * zfp::N_GROUPS, hdr, nbc * zfp::N_GROUPS);
+  zfp::store_bytes(emax + b0, hdr + TILE * zfp::N_GROUPS, nbc);
 }
 
-__global__ void __launch_bounds__(zfp::WARPS * 32)
+__global__ void __launch_bounds__(TILE)
 zfp_fused_decode_kernel(const uint32_t* __restrict__ words, const uint8_t* __restrict__ emax,
                         const uint8_t* __restrict__ gtops, float* __restrict__ out, long long nb,
                         int wpb, int budget) {
-  __shared__ int32_t scratch[zfp::WARPS][64];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const long long b = static_cast<long long>(blockIdx.x) * zfp::WARPS + warp;
-  if (b >= nb) return;  // whole warps only
-  int32_t* s = scratch[warp];
+  __shared__ __align__(16) uint32_t buf[zfp::BUF_WORDS];
+  __shared__ uint8_t hdr[TILE * (zfp::N_GROUPS + 1)];
+  const long long b0 = static_cast<long long>(blockIdx.x) * TILE;
+  const int nbc = static_cast<int>(min(static_cast<long long>(TILE), nb - b0));
+  const int t = threadIdx.x;
+  const int rs = min(wpb, zfp::ROW_WORDS + 1);
 
-  const int mine = lane < zfp::N_GROUPS ? __ldg(gtops + b * zfp::N_GROUPS + lane) : 0;
-  int tops[zfp::N_GROUPS];
-#pragma unroll
-  for (int g = 0; g < zfp::N_GROUPS; ++g) tops[g] = __shfl_sync(zfp::FULL, mine, g);
-
-  // lane j: fetch plane j's <= 3 words from the block's row (0 past its end)
-  const PlaneLayout pl = plane_layout(tops, lane, budget);
-  const uint32_t* row = words + b * wpb;
-  const int first = pl.off >> 5;
-  uint32_t g3[3];
-#pragma unroll
-  for (int k = 0; k < 3; ++k) g3[k] = first + k < wpb ? __ldg(row + first + k) : 0u;
-  const uint32_t sh = static_cast<uint32_t>(pl.off & 31);
-  uint32_t plo = (g3[0] >> sh) | ((g3[1] << 1) << (31u - sh));
-  uint32_t phi = (g3[1] >> sh) | ((g3[2] << 1) << (31u - sh));
-  plo &= zfp::code_mask(min(pl.keep, 32));
-  phi &= zfp::code_mask(min(max(pl.keep - 32, 0), 32));
-
-  // the group runs back to their static places in the plane bit-matrix
-  uint32_t w0 = 0u, w1 = 0u;
-  int woff = 0;
-#pragma unroll
-  for (int g = 0; g < zfp::N_GROUPS; ++g) {
-    const uint32_t o1 = static_cast<uint32_t>(woff & 31);
-    const bool in_hi = woff >= 32;
-    const uint32_t base_lo = in_hi ? phi : plo;
-    const uint32_t base_hi = in_hi ? 0u : phi;
-    const int wg = tops[g] + lane >= 32 ? group_size(g) : 0;
-    const uint32_t run =
-        ((base_lo >> o1) | ((base_hi << 1) << (31u - o1))) & zfp::code_mask(wg);
-    if (group_start(g) < 32) {
-      w0 |= run << group_start(g);
-    } else {
-      w1 |= run << (group_start(g) - 32);
-    }
-    woff += wg;
-  }
-
-  // transpose back: coefficient c's bit 31 - j is bit c of plane j's word
-  uint32_t q0 = 0u, q1 = 0u;
-#pragma unroll 4
-  for (int c = 0; c < 32; ++c) {
-    const uint32_t m0 = __ballot_sync(zfp::FULL, (w0 >> c) & 1u);
-    const uint32_t m1 = __ballot_sync(zfp::FULL, (w1 >> c) & 1u);
-    if (lane == c) {
-      q0 = __brev(m0);
-      q1 = __brev(m1);
+  const uint32_t* src = words + b0 * wpb;
+  if (rs == wpb) {
+    zfp::load_words(buf, src, nbc * wpb);
+  } else {  // rate > 32: only words 0..63 of a row can hold payload bits
+    for (int i = t; i < nbc * zfp::ROW_WORDS; i += TILE) {
+      const int b = i >> 6, k = i & 63;
+      buf[b * rs + k] = __ldg(src + static_cast<long long>(b) * wpb + k);
     }
   }
-
-  // inverse permutation, inverse negabinary, inverse lift, scale
-  s[PERM[lane]] = zfp::inv_negabinary(q0);
-  s[PERM[lane + 32]] = zfp::inv_negabinary(q1);
-  __syncwarp();
-  zfp::inv_lift3d(s, lane);
-  const int em = __ldg(emax + b);
-  const int k = min(max(em - zfp::EMAX_BIAS - zfp::Q, -126), 127);
-  const float scale = em > 0 ? __uint_as_float(static_cast<uint32_t>(k + 127) << 23) : 0.0f;
-  out[b * 64 + lane] = static_cast<float>(s[lane]) * scale;
-  out[b * 64 + lane + 32] = static_cast<float>(s[lane + 32]) * scale;
+  if (t < 2) buf[nbc * rs + t] = 0u;  // what the last row's fetch may read past it
+  zfp::load_bytes(hdr, gtops + b0 * zfp::N_GROUPS, nbc * zfp::N_GROUPS);
+  zfp::load_bytes(hdr + TILE * zfp::N_GROUPS, emax + b0, nbc);
+  __syncthreads();
+  float v[64];
+  if (t < nbc) {
+    zfp::Header h;
+#pragma unroll
+    for (int g = 0; g < zfp::N_GROUPS; ++g) h.tops[g] = hdr[t * zfp::N_GROUPS + g];
+    h.emax = hdr[TILE * zfp::N_GROUPS + t];
+    uint32_t u[64];
+    zfp::decode_planes(buf + t * rs, h, budget, u);
+    zfp::inverse_block(u, h.emax, v);
+  }
+  __syncthreads();  // the stream rows are read: the buffer becomes the float tile
+  if (t < nbc) {
+    uint32_t bitsv[64];
+#pragma unroll
+    for (int c = 0; c < 64; ++c) bitsv[c] = __float_as_uint(v[c]);
+    zfp::write_row(buf, t, bitsv);
+  }
+  __syncthreads();
+  zfp::store_tile(reinterpret_cast<uint32_t*>(out + b0 * 64), buf, nbc);
 }
 
 }  // namespace
@@ -246,9 +163,9 @@ REPRO_DEFINE_ERROR_STRING()
 extern "C" int zfp_fused_encode(const float* blocks, uint32_t* words, uint8_t* emax,
                                 uint8_t* gtops, long long nb, int wpb, int budget,
                                 cudaStream_t stream) {
-  const long long grid = (nb + zfp::WARPS - 1) / zfp::WARPS;
+  const long long grid = (nb + TILE - 1) / TILE;
   if (grid > 0)
-    zfp_fused_encode_kernel<<<static_cast<unsigned>(grid), zfp::WARPS * 32, 0, stream>>>(
+    zfp_fused_encode_kernel<<<static_cast<unsigned>(grid), TILE, 0, stream>>>(
         blocks, words, emax, gtops, nb, wpb, budget);
   return static_cast<int>(cudaGetLastError());
 }
@@ -258,9 +175,9 @@ extern "C" int zfp_fused_encode(const float* blocks, uint32_t* words, uint8_t* e
 extern "C" int zfp_fused_decode(const uint32_t* words, const uint8_t* emax, const uint8_t* gtops,
                                 float* blocks, long long nb, int wpb, int budget,
                                 cudaStream_t stream) {
-  const long long grid = (nb + zfp::WARPS - 1) / zfp::WARPS;
+  const long long grid = (nb + TILE - 1) / TILE;
   if (grid > 0)
-    zfp_fused_decode_kernel<<<static_cast<unsigned>(grid), zfp::WARPS * 32, 0, stream>>>(
+    zfp_fused_decode_kernel<<<static_cast<unsigned>(grid), TILE, 0, stream>>>(
         words, emax, gtops, blocks, nb, wpb, budget);
   return static_cast<int>(cudaGetLastError());
 }

@@ -18,6 +18,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import sz
+from repro_torch.core.bitpack import round_i32
 from repro_torch.kernels import _build
 
 TILE = (8, 64, 128)
@@ -67,7 +68,7 @@ def lorenzo3d_quantize_plain(x: torch.Tensor, eb_i) -> torch.Tensor:
     per-tile residual."""
     tile_grid(x.shape)
     eb = _eb_on(eb_i, x)
-    q = torch.round(x.to(torch.float32) * (1.0 / (2.0 * eb))).to(torch.int32)
+    q = round_i32(x.to(torch.float32) * (1.0 / (2.0 * eb)))
     return from_tiles(sz.lorenzo_residual(to_tiles(q), ndim=3))
 
 

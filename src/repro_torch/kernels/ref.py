@@ -11,7 +11,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import zfp as zfp_core
-from repro_torch.core.bitpack import i64_to_u32
+from repro_torch.core.bitpack import i64_to_u32, round_i32
 from repro_torch.kernels.lorenzo3d import TILE, guarded_eb
 
 _2P31 = 1 << 31
@@ -35,7 +35,7 @@ def lorenzo3d_quantize_ref(x: torch.Tensor, eb: float) -> torch.Tensor:
     """Tile-blocked dual-quant Lorenzo residual (int32)."""
     eb_i = guarded_eb(x, eb)
     # reciprocal-multiply, matching the kernel exactly (x/a differs in ulps)
-    q = torch.round(x.to(torch.float32) * (1.0 / (2.0 * eb_i))).to(torch.int64)
+    q = round_i32(x.to(torch.float32) * (1.0 / (2.0 * eb_i))).to(torch.int64)
     d = _tiles(q)
     for axis in (3, 4, 5):
         zero = torch.zeros_like(d.narrow(axis, 0, 1))
@@ -63,7 +63,7 @@ def zfp3d_transform_ref(blocks: torch.Tensor):
     e = torch.clamp(e, -100, 127).to(torch.int32)
     nonzero = maxabs >= zfp_core._FLT_MIN
     scale = zfp_core.exact_exp2(zfp_core.Q - e)
-    ints = torch.round(b * scale[:, None, None, None]).to(torch.int32)
+    ints = round_i32(b * scale[:, None, None, None])
     u = zfp_core.negabinary(zfp_core._lift3d(ints).reshape(-1, 64))  # index order (no PERM)
     lens = zfp_core._bitlength32(u)
     groups = torch.as_tensor(GROUP_OF_INDEX, device=u.device).expand_as(lens)

@@ -18,10 +18,10 @@ the stages never diverging.
 
 On a CUDA tensor :func:`zfp3d_transform` launches the kernel in
 ``csrc/zfp3d.cu`` (or raises); on a CPU tensor it runs the plain version.
-The kernels take any block count: a CTA holds ``WARPS`` blocks (one warp
-each, ``csrc/zfp_block.cuh``) and warps past the last block return, so
-callers do not pad (the JAX package pads the count to a multiple of its
-256-block VMEM tile).
+The kernels take any block count: a CTA holds 64 blocks (one thread each,
+``csrc/zfp_block.cuh``) and threads past the last block only help move the
+CTA's tile, so callers do not pad (the JAX package pads the count to a
+multiple of its 256-block VMEM tile).
 ``launches`` counts kernel launches, nothing else.
 """
 
@@ -30,7 +30,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import zfp as zfp_core
-from repro_torch.core.bitpack import i64_to_u32
+from repro_torch.core.bitpack import i64_to_u32, round_i32
 from repro_torch.kernels import _build
 
 Q = zfp_core.Q
@@ -48,7 +48,7 @@ def block_float_negabinary(blocks: torch.Tensor):
     e = torch.clamp(e_biased - 126, -100, 127)  # frexp convention: maxabs < 2^e
     nonzero = maxabs >= zfp_core._FLT_MIN
     scale = ((Q - e + 127) << 23).view(torch.float32)  # 2^(Q - e), exact
-    ints = torch.round(b * scale[:, None, None, None]).to(torch.int32)
+    ints = round_i32(b * scale[:, None, None, None])
     u = zfp_core.negabinary(zfp_core._lift3d(ints).reshape(-1, 64))
     return u, e, nonzero
 

@@ -185,6 +185,29 @@ def test_cross_decode_both_ways(backend, mode):
         _assert_same_record(_jax_to_record(rj), interop.to_record(rt))
 
 
+@pytest.mark.parametrize("field", FIELDS)
+@pytest.mark.parametrize("backend", ["core", "kernel"])
+def test_pw_rel_streams_match_reference_on_nyx(backend, field):
+    """PW_REL 1e-2 on a Nyx field: the payload (sign channel, stream, bound)
+    is the reference's word for word.  The port's stated exception to
+    stream identity is that ``torch.log``/``torch.exp`` may differ from
+    XLA's by one ulp, which would change a stream only where a quantization
+    code lies on a rounding border; on these fields none does.  The
+    reconstructions are held within one ulp and to the bound."""
+    x = _fields()[field]
+    jc = jax_compressor("tpu-sz", backend=backend)
+    tc = torch_compressor("tpu-sz", backend=backend, device="cpu")
+    rj, rt = jc.compress(jnp.asarray(x), pw_rel=1e-2), tc.compress(x, pw_rel=1e-2)
+    rec_j, rec_t = _jax_to_record(rj), interop.to_record(rt)
+    _assert_same_record(rec_j, rec_t)
+    np.testing.assert_array_equal(rec_j["payload"]["signs"], rec_t["payload"]["signs"])
+    xj, xt = np.asarray(jc.decompress(rj)), tc.decompress(rt).numpy()
+    np.testing.assert_array_max_ulp(xj, xt, maxulp=1)
+    nz = x != 0
+    assert np.abs(xt[nz] / x[nz] - 1.0).max() <= 1e-2 * (1 + 0.05)
+    assert (xt[~nz] == 0).all()
+
+
 def test_payload_rebuild_defaults_to_cuda(monkeypatch):
     """Rebuilding a payload without a device means CUDA: with no CUDA device
     it raises instead of landing on the CPU."""

@@ -26,7 +26,7 @@ from repro_torch import kernels
 from repro_torch.core import interop
 from repro_torch.core import zfp as tzfp
 from repro_torch.core.api import get_compressor
-from repro_torch.data import cosmo
+from repro_torch.data import cosmo, zfp_cases
 from repro_torch.kernels import _build
 from repro_torch.kernels import lorenzo3d as tlor
 from repro_torch.kernels import sz_fused as tszf
@@ -189,29 +189,54 @@ def test_cuda_wrapper_raises_when_the_library_cannot_be_built(cuda_device, fake_
     assert tlor.launches == before
 
 
-def _zfp_blocks(nb: int, seed: int) -> torch.Tensor:
-    """Blocks of wide dynamic range, a zero block and a subnormal block."""
-    rng = np.random.default_rng(seed)
-    b = (rng.normal(size=(nb, 4, 4, 4)) * 10 ** rng.uniform(-6, 6, size=(nb, 1, 1, 1)))
-    b = b.astype(np.float32)
-    b[0] = 0.0
-    b[1] = 1e-39
-    return torch.from_numpy(b)
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [1, 2, 4, 8, 16, 32, 40])
+def test_cuda_zfp_kernels_match_plain(cuda_device, rate):
+    """K5, K6 and K7 on the card against their plain versions on the same
+    CUDA inputs, at block counts that are no multiple of a CTA's (1, 31,
+    1003), on the hard blocks, and K7 on full-payload streams: bitwise."""
+    for nb in (1, 31, 1003):
+        blocks = zfp_cases.hard_blocks(nb, seed=rate).to(cuda_device)
+        for got, want in zip(tzfp3d.zfp3d_transform(blocks), tzfp3d.zfp3d_transform_plain(blocks)):
+            assert _same(got, want)
+        enc = tzfpf.fused_compress_blocks(blocks, rate)
+        for got, want in zip(enc, tzfpf.fused_compress_blocks_plain(blocks, rate)):
+            assert _same(got, want)
+        assert _same(tzfpf.fused_decompress_blocks(*enc, rate),
+                     tzfpf.fused_decompress_blocks_plain(*enc, rate))
+        full = [t.to(cuda_device) for t in zfp_cases.full_streams(nb, rate, seed=nb + rate)]
+        assert _same(tzfpf.fused_decompress_blocks(*full, rate),
+                     tzfpf.fused_decompress_blocks_plain(*full, rate))
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("rate", [1, 2, 8, 32])
-def test_cuda_zfp_kernels_match_plain(cuda_device, rate):
-    """K5, K6 and K7 on the card against their plain versions on the same
-    CUDA inputs, at a block count that is no multiple of a CTA's: bitwise."""
-    blocks = _zfp_blocks(1003, seed=rate).to(cuda_device)
-    for got, want in zip(tzfp3d.zfp3d_transform(blocks), tzfp3d.zfp3d_transform_plain(blocks)):
+def test_cuda_kernels_match_cpu_on_out_of_range_inputs(cuda_device):
+    """K1, K3, K5, K6 and K7 on the card give what the CPU's plain versions
+    give on inputs whose quantized values leave the int32 range (5e6 at eb
+    1e-3, 3e38, +inf) or are NaN: both saturate and map NaN to 0, as the
+    reference does (``test_torch_casts.py`` holds the CPU to it)."""
+    rng = np.random.default_rng(0)
+    base = np.cumsum(rng.normal(size=(8, 64, 128)).astype(np.float32), axis=2)
+    for value in (5e6, np.nan, 3e38, np.inf):
+        x = base.copy()
+        x[1, 2, 3] = value
+        xc = torch.from_numpy(x)
+        eb_i = tlor.guarded_eb(xc, 1e-3)
+        xg, ebg = xc.to(cuda_device), eb_i.to(cuda_device)
+        assert _same(tlor.lorenzo3d_quantize(xg, ebg), tlor.lorenzo3d_quantize(xc, eb_i))
+        for got, want in zip(tszf.fused_encode(xg, ebg), tszf.fused_encode(xc, eb_i)):
+            assert _same(got, want)
+    blocks = zfp_cases.hard_blocks(256, seed=5)
+    bg = blocks.to(cuda_device)
+    for got, want in zip(tzfp3d.zfp3d_transform(bg), tzfp3d.zfp3d_transform(blocks)):
         assert _same(got, want)
-    enc = tzfpf.fused_compress_blocks(blocks, rate)
-    for got, want in zip(enc, tzfpf.fused_compress_blocks_plain(blocks, rate)):
-        assert _same(got, want)
-    assert _same(tzfpf.fused_decompress_blocks(*enc, rate),
-                 tzfpf.fused_decompress_blocks_plain(*enc, rate))
+    for rate in (4, 8):
+        enc = tzfpf.fused_compress_blocks(bg, rate)
+        enc_c = tzfpf.fused_compress_blocks(blocks, rate)
+        for got, want in zip(enc, enc_c):
+            assert _same(got, want)
+        assert _same(tzfpf.fused_decompress_blocks(*enc, rate),
+                     tzfpf.fused_decompress_blocks(*enc_c, rate))
 
 
 @pytest.mark.cuda

@@ -7,7 +7,7 @@ bit.
 
 The hand-written CUDA kernels run only on a card: ``test_torch_cuda.py``
 holds each against its plain version there.  Their one table, the sequency
-permutation in ``csrc/zfp_fused.cu``, is held to ``core.zfp.PERM`` here.
+permutation in ``csrc/zfp_block.cuh``, is held to ``core.zfp.PERM`` here.
 """
 
 import re
@@ -24,7 +24,7 @@ from repro.kernels import zfp3d as jk5
 from repro.kernels import zfp_fused as jk6
 from repro_torch.core import bitpack as tbp
 from repro_torch.core import zfp as tz
-from repro_torch.data import cosmo
+from repro_torch.data import cosmo, zfp_cases
 from repro_torch.kernels import _build
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
@@ -48,7 +48,15 @@ def _wide_blocks() -> np.ndarray:
     return b
 
 
+def _hard_blocks() -> np.ndarray:
+    """256 blocks led by the card checks' hard cases (+-inf, NaN, 3e38,
+    saturated blocks, zero, subnormal).  Only the kernel routes take them:
+    the reference's ``ref`` route gives an inf block another emax."""
+    return zfp_cases.hard_blocks(256, seed=7).numpy()
+
+
 BLOCKS = {"nyx": _nyx_blocks, "wide": _wide_blocks}
+FUSED_BLOCKS = {**BLOCKS, "hard": _hard_blocks}
 
 
 def _rand_field(seed, shape, spread=6.0):
@@ -102,10 +110,10 @@ def test_k5_takes_any_block_count():
 # ------------------------------------------------------------- K6 / K7 ----
 
 
-@pytest.mark.parametrize("blocks", list(BLOCKS))
+@pytest.mark.parametrize("blocks", list(FUSED_BLOCKS))
 @pytest.mark.parametrize("rate", [4, 8])
 def test_k6_k7_plain_match_zfp_fused(rate, blocks):
-    b = BLOCKS[blocks]()
+    b = FUSED_BLOCKS[blocks]()
     wj, ej, gj = jk6.fused_compress_blocks(jnp.asarray(b), rate)
     wt, et, gt = tk6.fused_compress_blocks(torch.from_numpy(b), rate)
     _assert_same(wt, wj)
@@ -141,8 +149,8 @@ def test_k6_k7_plain_match_core_at_every_rate(rate):
 
 def test_cuda_tables_match_core():
     """The kernels' sequency permutation is ``core.zfp.PERM``."""
-    src = (_build.CSRC / "zfp_fused.cu").read_text()
-    table = re.search(r"__constant__ uint8_t PERM\[64\] = \{([^}]*)\}", src).group(1)
+    src = (_build.CSRC / "zfp_block.cuh").read_text()
+    table = re.search(r"uint8_t PERM\[64\] = \{([^}]*)\}", src).group(1)
     np.testing.assert_array_equal([int(v) for v in table.replace("\n", " ").split(",")], tz.PERM)
 
 
