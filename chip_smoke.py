@@ -10,7 +10,12 @@ Needs one CUDA card and ``nvcc``; it builds the hand-written kernels from
 1. prints the card's name and power limit (``nvidia-smi``) and the kernel
    build time;
 2. holds each SZ kernel (K1-K4) against its plain PyTorch version on the
-   card, at 256^3 and at a ragged shape, requiring bitwise equality;
+   card, at 256^3 and at a ragged shape, K3 and K4 (which take and give the
+   dense stream) also on the hard cases of ``data/sz_cases.py`` (every block
+   at width 0, every block at width 32 from +-3e38, NaN and +inf, a ragged
+   padded field, values whose quantized value leaves the int32 range),
+   requiring bitwise equality of the words with their zero tail, the widths,
+   ``total_bits`` and the reconstruction;
 3. drives the SZ main path: the six ``nyx_fields(n=256, seed=42)`` fields
    through ``get_compressor("tpu-sz")`` (CUDA, ``kernel`` backend, ``fused``
    path), then through the ``xla`` path, with the launch counts reset just
@@ -44,9 +49,12 @@ Needs one CUDA card and ``nvcc``; it builds the hand-written kernels from
    the six 64^3 fields, and drives HACC ``x`` and ``vx`` (2^21 particles,
    one (32768, 8, 8) partition each) through ``tpu-zfp``;
 10. holds K8 and K9 (the arena-batched SZ kernels) against their plain
-    versions on the card, bitwise, on four of the 256^3 fields (one bucket)
-    and on three (16, 128, 256) rows with three different bounds; each
-    row's arena slice must be the one-field fused stream and K9's rows K4's;
+    versions on the card, bitwise (arena, widths, offsets, counts,
+    total_bits, used and the decoded rows), on four of the 256^3 fields (one
+    bucket), on three (16, 128, 256) rows with three different bounds, on
+    ``sz_cases.rows()`` (ratios more than 4x apart) and on rows at width 0
+    and 32; each row's arena slice must be the one-field fused stream and
+    K9's rows K4's;
 11. drives the snapshot path: a state of the six 256^3 Nyx fields, the six
     HACC arrays (2^21 particles), the ragged vx slice and a 64^3 bfloat16
     baryon density, planned with ``plan_kernel_buckets`` then
@@ -56,7 +64,8 @@ Needs one CUDA card and ``nvcc``; it builds the hand-written kernels from
     ``CheckpointManager(async_save=True).save`` through ``to_host_async``,
     drained with ``wait()`` and restored on the card; the launch counts are
     reset just before and read just after (K8 exactly 2, K9 exactly 2 from
-    ``szk_decompress_bucket``).  Each leaf's bound is 1e-4 x its own value
+    ``szk_decompress_bucket``: one launch per bucket each way, since each
+    writes or reads the whole arena).  Each leaf's bound is 1e-4 x its own value
     range, passed to the bucket coders as one bound per row.  Every row must
     hold codes (a nonzero
     block width), every row's stream must equal the one-field coder's, every
@@ -134,7 +143,7 @@ from repro_torch.core import bitpack  # noqa: E402
 from repro_torch.core import sz as sz_core  # noqa: E402
 from repro_torch.core import zfp as zfp_core  # noqa: E402
 from repro_torch.core.api import get_compressor  # noqa: E402
-from repro_torch.data import cosmo, zfp_cases  # noqa: E402
+from repro_torch.data import cosmo, sz_cases, zfp_cases  # noqa: E402
 from repro_torch.dist import insitu  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels import kvc_attention as k10  # noqa: E402
@@ -184,17 +193,20 @@ KVC_SERVE_SHAPE = (8, 2048, 24, 2, 128)  # B, S, H, Hkv, D at starcoder2-3b's se
 KVC_LONG_S = registry.SHAPES["decode_32k"].seq_len
 SMOKE_REQUESTS, SMOKE_NEW = 4, 8
 
-# Operations per point, by pipe.  int32: Lorenzo 7; zigzag 2, block max 1,
-# packing 6; prefix sums 3; unpacking 6, unzigzag 3.  f32 and cvt: the
-# quantizer's multiply and rounding conversion (the dequantizer's conversion
-# and multiply), and the bit length's leading-zero count.
+# Operations per point, by pipe: the least work the function needs, whatever
+# a kernel issues (K3/K4 quantize a plane twice and scan with shuffles; none
+# of that is charged).  int32: Lorenzo 7; zigzag 2, block max 1, packing 6;
+# prefix sums 3; unpacking 6, unzigzag 3.  f32 and cvt: the quantizer's
+# multiply and rounding conversion (the dequantizer's conversion and
+# multiply), and the bit length's leading-zero count.  The stream's offsets
+# (a scan of one width per 64 points) round to nothing per point.
 # K8 and K9 do K3's and K4's work per point.
 OPS_PER_POINT = {"lorenzo3d_quantize": {"int32": 7, "f32": 1, "cvt": 1},
                  "lorenzo3d_reconstruct": {"int32": 3, "f32": 1, "cvt": 1},
-                 "fused_encode": {"int32": 16, "f32": 1, "cvt": 2},
-                 "fused_decode": {"int32": 12, "f32": 1, "cvt": 1}}
-OPS_PER_POINT.update(fused_encode_batched=OPS_PER_POINT["fused_encode"],
-                     fused_decode_batched=OPS_PER_POINT["fused_decode"])
+                 "fused_compress": {"int32": 16, "f32": 1, "cvt": 2},
+                 "fused_decompress": {"int32": 12, "f32": 1, "cvt": 1}}
+OPS_PER_POINT.update(fused_compress_batched=OPS_PER_POINT["fused_compress"],
+                     fused_decompress_batched=OPS_PER_POINT["fused_decompress"])
 
 # Operations the ZFP functions need per 64-point block, by pipe, counted as
 # the least work one thread's registers allow, whatever a kernel issues: no
@@ -263,24 +275,24 @@ KERNELS = {
                            "src/repro/kernels/lorenzo3d.py:72"),
     "lorenzo3d_reconstruct": ("K2", "src/repro_torch/kernels/csrc/lorenzo3d.cu",
                               "src/repro/kernels/lorenzo3d.py:101"),
-    "fused_encode": ("K3", "src/repro_torch/kernels/csrc/sz_fused.cu",
-                     "src/repro/kernels/sz_fused.py:177"),
-    "fused_decode": ("K4", "src/repro_torch/kernels/csrc/sz_fused.cu",
-                     "src/repro/kernels/sz_fused.py:336"),
+    "fused_compress": ("K3", "src/repro_torch/kernels/csrc/sz_fused.cu",
+                       "src/repro/kernels/sz_fused.py:177"),
+    "fused_decompress": ("K4", "src/repro_torch/kernels/csrc/sz_fused.cu",
+                         "src/repro/kernels/sz_fused.py:336"),
     "zfp3d_transform": ("K5", "src/repro_torch/kernels/csrc/zfp3d.cu",
                         "src/repro/kernels/zfp3d.py:116"),
     "fused_compress_blocks": ("K6", "src/repro_torch/kernels/csrc/zfp_fused.cu",
                               "src/repro/kernels/zfp_fused.py:84"),
     "fused_decompress_blocks": ("K7", "src/repro_torch/kernels/csrc/zfp_fused.cu",
                                 "src/repro/kernels/zfp_fused.py:161"),
-    "fused_encode_batched": ("K8", "src/repro_torch/kernels/csrc/sz_fused.cu",
-                             "src/repro/kernels/sz_fused.py:238"),
-    "fused_decode_batched": ("K9", "src/repro_torch/kernels/csrc/sz_fused.cu",
-                             "src/repro/kernels/sz_fused.py:361"),
+    "fused_compress_batched": ("K8", "src/repro_torch/kernels/csrc/sz_fused.cu",
+                               "src/repro/kernels/sz_fused.py:238"),
+    "fused_decompress_batched": ("K9", "src/repro_torch/kernels/csrc/sz_fused.cu",
+                                 "src/repro/kernels/sz_fused.py:361"),
     "kvc_decode_attention": ("K10", "src/repro_torch/kernels/csrc/kvc_attention.cu",
                              "src/repro/kernels/kvc_attention.py:68"),
 }
-SZ_KERNELS = ("lorenzo3d_quantize", "lorenzo3d_reconstruct", "fused_encode", "fused_decode")
+SZ_KERNELS = ("lorenzo3d_quantize", "lorenzo3d_reconstruct", "fused_compress", "fused_decompress")
 
 
 def check(cond: bool, what: str) -> None:
@@ -321,29 +333,50 @@ def pad_to_tile(x):
     return F.pad(x, (0, pads[2], 0, pads[1], 0, pads[0])).contiguous()
 
 
-def kernels_vs_plain(inputs: dict) -> dict[str, float]:
+def hold_stream(got, want, label: str) -> float:
+    """Two SZ streams equal word for word (zero tail included), width for
+    width and in total_bits; returns the largest word difference (0)."""
+    check(same(got.widths, want.widths), f"K3 widths differ from plain at {label}")
+    check(got.total_bits.dtype == torch.int64 and int(got.total_bits) == int(want.total_bits),
+          f"K3 total_bits {int(got.total_bits)} != {int(want.total_bits)} at {label}")
+    err = max_abs_diff(got.words, want.words)
+    check(same(got.words, want.words), f"K3 words differ from plain at {label} (max |diff| {err})")
+    return err
+
+
+def kernels_vs_plain(inputs: dict, device) -> dict[str, float]:
     """Each kernel against its plain version on the same CUDA inputs; bitwise
-    equality required.  Returns the largest difference per kernel (0)."""
+    equality required, K3/K4 also on the hard cases of ``sz_cases``.  Returns
+    the largest difference per kernel (0)."""
     worst = {name: 0.0 for name in SZ_KERNELS}
+
+    def hold_k3_k4(xp, eb_i, label):
+        packed = szf.fused_compress(xp, eb_i)
+        worst["fused_compress"] = max(worst["fused_compress"], hold_stream(
+            packed, szf.fused_compress_plain(xp, eb_i), label))
+        got = szf.fused_decompress(packed, tuple(xp.shape), eb_i)
+        want = szf.fused_decompress_plain(packed, tuple(xp.shape), eb_i)
+        err = max_abs_diff(got, want)
+        check(same(got, want), f"fused_decompress differs from plain at {label} (max |diff| {err})")
+        worst["fused_decompress"] = max(worst["fused_decompress"], err)
+
     for label, (x, eb) in inputs.items():
         xp = pad_to_tile(x)
         eb_i = lor.guarded_eb(xp, eb)
-        pairs = {}
         delta = lor.lorenzo3d_quantize(xp, eb_i)
-        pairs["lorenzo3d_quantize"] = (delta, lor.lorenzo3d_quantize_plain(xp, eb_i))
-        pairs["lorenzo3d_reconstruct"] = (lor.lorenzo3d_reconstruct(delta, eb_i),
-                                          lor.lorenzo3d_reconstruct_plain(delta, eb_i))
-        words, widths = szf.fused_encode(xp, eb_i)
-        words_p, widths_p = szf.fused_encode_plain(xp, eb_i)
-        check(same(widths, widths_p), f"K3 widths differ from plain at {label}")
-        pairs["fused_encode"] = (words, words_p)
-        pairs["fused_decode"] = (szf.fused_decode(words, widths, tuple(xp.shape), eb_i),
-                                 szf.fused_decode_plain(words, widths, tuple(xp.shape), eb_i))
+        pairs = {"lorenzo3d_quantize": (delta, lor.lorenzo3d_quantize_plain(xp, eb_i)),
+                 "lorenzo3d_reconstruct": (lor.lorenzo3d_reconstruct(delta, eb_i),
+                                           lor.lorenzo3d_reconstruct_plain(delta, eb_i))}
         for name, (got, want) in pairs.items():
             err = max_abs_diff(got, want)
             check(same(got, want), f"{name} differs from plain at {label} (max |diff| {err})")
             worst[name] = max(worst[name], err)
+        hold_k3_k4(xp, eb_i, label)
         print(f"kernels vs plain at {label} {tuple(xp.shape)}: bitwise equal")
+    for label, (x, eb_i) in sz_cases.cases(SEED).items():
+        hold_k3_k4(x.to(device), eb_i.to(device), label)
+    print(f"K3/K4 vs plain on the hard cases {list(sz_cases.cases(SEED))}: streams (zero tail "
+          "included), widths, total_bits and reconstructions bitwise equal")
     return worst
 
 
@@ -414,7 +447,7 @@ def main_path(fields: dict, device) -> dict[str, int]:
         fused[name] = (r, xr)
     torch.cuda.synchronize()
     counts = kernels.launch_counts()
-    launches = {k: counts[k] for k in ("fused_encode", "fused_decode")}
+    launches = {k: counts[k] for k in ("fused_compress", "fused_decompress")}
 
     kernels.reset_launch_counts()
     for name, x in xs.items():
@@ -670,27 +703,25 @@ def same_stream(h, i: int, packed) -> bool:
 
 def batched_vs_plain(inputs: dict) -> dict[str, float]:
     """K8 and K9 against their plain versions on the same CUDA inputs,
-    bitwise; each row's arena slice against the one-field fused stream
-    (K3 path) and K9's rows against K4's."""
-    worst = {"fused_encode_batched": 0.0, "fused_decode_batched": 0.0}
+    bitwise (the arena with its zero tail and every sidecar, the decoded
+    rows); each row's arena slice against the one-field fused stream (K3)
+    and K9's rows against K4's."""
+    worst = {"fused_compress_batched": 0.0, "fused_decompress_batched": 0.0}
     for label, (x, eb_i) in inputs.items():
         shape = tuple(x.shape[1:])
-        words, widths = szf.fused_encode_batched(x, eb_i)
-        words_p, widths_p = szf.fused_encode_batched_plain(x, eb_i)
-        check(same(widths, widths_p), f"K8 widths differ from plain at {label}")
-        err = max_abs_diff(words, words_p)
-        check(same(words, words_p), f"K8 differs from plain at {label} (max |diff| {err})")
-        worst["fused_encode_batched"] = max(worst["fused_encode_batched"], err)
-        out = szf.fused_decode_batched(words, widths, shape, eb_i)
-        out_p = szf.fused_decode_batched_plain(words, widths, shape, eb_i)
-        err = max_abs_diff(out, out_p)
-        check(same(out, out_p), f"K9 differs from plain at {label} (max |diff| {err})")
-        worst["fused_decode_batched"] = max(worst["fused_decode_batched"], err)
-        del words_p, widths_p, out_p
-
-        ar, wrows, offs, counts, tbits, used = szf.fused_compress_batched(x, eb_i)
+        enc = szf.fused_compress_batched(x, eb_i)
+        for what, got, want in zip(("arena", "widths", "offsets", "counts", "total_bits", "used"),
+                                   enc, szf.fused_compress_batched_plain(x, eb_i)):
+            err = max_abs_diff(got, want)
+            check(same(got, want), f"K8 {what} differs from plain at {label} (max |diff| {err})")
+            worst["fused_compress_batched"] = max(worst["fused_compress_batched"], err)
+        ar, wrows, offs, counts, tbits, used = enc
         rows = szf.fused_decompress_batched(ar, wrows, shape, eb_i)
-        check(same(rows, out), f"fused_decompress_batched differs from K9 at {label}")
+        want = szf.fused_decompress_batched_plain(ar, wrows, shape, eb_i)
+        err = max_abs_diff(rows, want)
+        check(same(rows, want), f"K9 differs from plain at {label} (max |diff| {err})")
+        worst["fused_decompress_batched"] = max(worst["fused_decompress_batched"], err)
+        del want
         pos = 0
         for b in range(x.shape[0]):
             packed = szf.fused_compress(x[b], eb_i[b])
@@ -790,9 +821,11 @@ def snapshot_path(fields: dict, hacc, small: dict, device) -> dict[str, int]:
     decoded = {k: arena.szk_decompress_bucket(*arenas[k]) for k in arenas if k[0] == "k"}
     torch.cuda.synchronize()
     counts = kernels.launch_counts()
-    launches = {k: counts[k] for k in ("fused_encode_batched", "fused_decode_batched")}
+    launches = {k: counts[k] for k in ("fused_compress_batched", "fused_decompress_batched")}
     print("snapshot path launches: " + json.dumps({k: v for k, v in counts.items() if v}))
-    check(launches == {"fused_encode_batched": 2, "fused_decode_batched": 2},
+    # one K8 launch per kernel bucket (it writes the bucket's whole arena) and
+    # one K9 launch per bucket decoded by szk_decompress_bucket
+    check(launches == {"fused_compress_batched": 2, "fused_decompress_batched": 2},
           f"K8/K9 launches per snapshot {launches}, want 2 and 2")
     check(res.step == 1 and res.nbytes_raw == raw, f"save result {res}")
 
@@ -865,26 +898,20 @@ def snapshot_path(fields: dict, hacc, small: dict, device) -> dict[str, int]:
 
 
 def snapshot_stages(leaves: dict, kb, fbuckets, eb_k, feb: list) -> dict[str, float]:
-    """Median ms of the stages of one kernel bucket's compress and decode
-    (stack + bounds, K8, compaction; disassembly, K9) and of each flat
-    bucket's compress, CUDA-event timed."""
+    """Median ms of the stages of one kernel bucket's compress (stack +
+    bounds, K8, which writes the arena) and decode (K9, which reads it), and
+    of each flat bucket's compress, CUDA-event timed."""
     xs = [leaves[n] for n in kb.names]
     x = torch.stack([t.float() for t in xs])
     eb_i = sz_core.internal_bound(x.abs().amax(dim=(1, 2, 3)), eb_k)
-    words, widths = szf.fused_encode_batched(x, eb_i)
-    n = x[0].numel()
     a = arena.szk_compress_bucket(xs, kb, eb_k)
-    rows, rwidths = szf._disassemble(a.arena, a.widths)
     stages = {
         f"szk_compress_bucket[{kb.rows}]": lambda: arena.szk_compress_bucket(xs, kb, eb_k),
         "szk.stack+bounds": lambda: sz_core.internal_bound(
             torch.stack([t.float() for t in xs]).abs().amax(dim=(1, 2, 3)), eb_k),
-        "szk.K8": lambda: szf.fused_encode_batched(x, eb_i),
-        "szk.compact_streams": lambda: bitpack.compact_streams(words, 2 * widths,
-                                                               kb.rows * (n + 2)),
+        "szk.K8": lambda: szf.fused_compress_batched(x, eb_i),
         f"szk_decompress_bucket[{kb.rows}]": lambda: arena.szk_decompress_bucket(a, kb),
-        "szk.disassemble": lambda: szf._disassemble(a.arena, a.widths),
-        "szk.K9": lambda: szf.fused_decode_batched(rows, rwidths, kb.shapes[0], a.eb_i),
+        "szk.K9": lambda: szf.fused_decompress_batched(a.arena, a.widths, kb.shapes[0], a.eb_i),
     }
     for b, eb in zip(fbuckets, feb):
         fx = [leaves[nm] for nm in b.names]
@@ -920,25 +947,39 @@ def snapshot_agrees_with_cpu(fields: dict, hacc, device) -> None:
           "the manifest byte for byte")
 
 
+def sz_stream_bytes(n: int, rows: int, used: int, decode: bool) -> int:
+    """Bytes the SZ stream functions must move for ``rows`` TILE-padded
+    fields of ``n`` points whose payloads take ``used`` words in all.
+    Encode (K3, K8): f32 in, the word buffer of capacity ``rows * (n + 2)``
+    out once (payload and zero tail), a width byte per block, the look-back
+    flags (8 B per chunk and the ticket) and the row descriptors.  Decode
+    (K4, K9): the payload and the widths in, f32 out."""
+    nb = rows * n // 64
+    if decode:
+        return 4 * used + nb + 4 * rows * n + 4 * rows
+    chunks = rows * n // szf.CHUNK_POINTS
+    return 4 * rows * n + 4 * rows * (n + 2) + nb + 8 * (chunks + 1) + 4 * rows + 16 * rows
+
+
 def batched_kernel_times(xb, eb_i) -> dict[str, dict]:
     """Device ms of K8 and K9 (CUDA-graph replays) and their plain versions'
     event-timed ms at the snapshot's (4, 256, 256, 256) bucket, beside the
-    bound from this run's bytes (K9 reads the payload words this data
-    needs) and operations (:func:`timed`)."""
+    bound from this run's bytes (:func:`sz_stream_bytes`: K9 reads the payload
+    words this data needs) and operations (:func:`timed`)."""
     shape = tuple(xb.shape[1:])
-    n = xb.numel()
-    nb = n // 64
-    words, widths = szf.fused_encode_batched(xb, eb_i)
-    payload_words = 2 * int(widths.sum())
+    n = xb[0].numel()
+    enc = szf.fused_compress_batched(xb, eb_i)
+    used = int(enc[5])
     runs = {
-        "fused_encode_batched": (lambda: szf.fused_encode_batched(xb, eb_i),
-                                 lambda: szf.fused_encode_batched_plain(xb, eb_i),
-                                 4 * n + 4 * 64 * nb + 4 * nb + 4 * xb.shape[0]),
-        "fused_decode_batched": (lambda: szf.fused_decode_batched(words, widths, shape, eb_i),
-                                 lambda: szf.fused_decode_batched_plain(words, widths, shape, eb_i),
-                                 4 * payload_words + 4 * nb + 4 * n + 4 * xb.shape[0]),
+        "fused_compress_batched": (lambda: szf.fused_compress_batched(xb, eb_i),
+                                   lambda: szf.fused_compress_batched_plain(xb, eb_i),
+                                   sz_stream_bytes(n, xb.shape[0], used, decode=False)),
+        "fused_decompress_batched": (
+            lambda: szf.fused_decompress_batched(enc[0], enc[1], shape, eb_i),
+            lambda: szf.fused_decompress_batched_plain(enc[0], enc[1], shape, eb_i),
+            sz_stream_bytes(n, xb.shape[0], used, decode=True)),
     }
-    return {name: timed(kernel, plain, nbytes, add_ops((n, OPS_PER_POINT[name])))
+    return {name: timed(kernel, plain, nbytes, add_ops((xb.numel(), OPS_PER_POINT[name])))
             for name, (kernel, plain, nbytes) in runs.items()}
 
 
@@ -967,22 +1008,22 @@ def kernel_times(x, eb: float) -> dict[str, dict]:
     xp = pad_to_tile(x)
     shape = tuple(xp.shape)
     n = xp.numel()
-    nb = n // 64
     eb_i = lor.guarded_eb(xp, eb)
     delta = lor.lorenzo3d_quantize(xp, eb_i)
-    words, widths = szf.fused_encode(xp, eb_i)
-    payload_words = 2 * int(widths.sum())  # the words K4 must read for this data
+    packed = szf.fused_compress(xp, eb_i)
+    used = 2 * int(packed.widths.to(torch.int64).sum())  # the words K4 must read for this data
     ops = {name: add_ops((n, OPS_PER_POINT[name])) for name in SZ_KERNELS}
     runs = {
         "lorenzo3d_quantize": (lambda: lor.lorenzo3d_quantize(xp, eb_i),
                                lambda: lor.lorenzo3d_quantize_plain(xp, eb_i), 8 * n),
         "lorenzo3d_reconstruct": (lambda: lor.lorenzo3d_reconstruct(delta, eb_i),
                                   lambda: lor.lorenzo3d_reconstruct_plain(delta, eb_i), 8 * n),
-        "fused_encode": (lambda: szf.fused_encode(xp, eb_i),
-                         lambda: szf.fused_encode_plain(xp, eb_i), 4 * n + 4 * 64 * nb + 4 * nb),
-        "fused_decode": (lambda: szf.fused_decode(words, widths, shape, eb_i),
-                         lambda: szf.fused_decode_plain(words, widths, shape, eb_i),
-                         4 * payload_words + 4 * nb + 4 * n),
+        "fused_compress": (lambda: szf.fused_compress(xp, eb_i),
+                           lambda: szf.fused_compress_plain(xp, eb_i),
+                           sz_stream_bytes(n, 1, used, decode=False)),
+        "fused_decompress": (lambda: szf.fused_decompress(packed, shape, eb_i),
+                             lambda: szf.fused_decompress_plain(packed, shape, eb_i),
+                             sz_stream_bytes(n, 1, used, decode=True)),
     }
     # ZFP at the main path's rate; headers at the format's 11 B per block
     blocks = zfp_core._carve_blocks(x)
@@ -1011,23 +1052,18 @@ def stage_times(x, eb: float) -> dict[str, float]:
     and the peak device memory of one entry-point call each."""
     comp = get_compressor("tpu-sz")
     xp = pad_to_tile(x)
-    shape, n = tuple(xp.shape), xp.numel()
+    shape = tuple(xp.shape)
     eb_i = lor.guarded_eb(xp, eb)
-    words, widths = szf.fused_encode(xp, eb_i)
-    packed = szf._assemble_stream(words, widths, n)
-    rows, rwidths = szf._disassemble(packed.words, packed.widths)
+    packed = szf.fused_compress(xp, eb_i)
     delta = lor.lorenzo3d_quantize(xp, eb_i)
     r = comp.compress(x, eb=eb)
     stages = {
         "fused.compress": lambda: comp.compress(x, eb=eb),
         "fused.compress.guarded_eb": lambda: lor.guarded_eb(xp, eb),
-        "fused.compress.K3": lambda: szf.fused_encode(xp, eb_i),
-        "fused.compress.assemble_stream": lambda: szf._assemble_stream(words, widths, n),
+        "fused.compress.K3": lambda: szf.fused_compress(xp, eb_i),
         "fused.compress.total_bits_readback": lambda: int(packed.total_bits),
         "fused.decompress": lambda: comp.decompress(r),
-        "fused.decompress.disassemble_stream": lambda: szf._disassemble(packed.words,
-                                                                       packed.widths),
-        "fused.decompress.K4": lambda: szf.fused_decode(rows, rwidths, shape, eb_i),
+        "fused.decompress.K4": lambda: szf.fused_decompress(packed, shape, eb_i),
         "xla.compress.K1": lambda: lor.lorenzo3d_quantize(xp, eb_i),
         "xla.compress.pack_codes": lambda: bitpack.pack_codes(szf.tile_major_flatten(delta)),
         "xla.decompress.unpack_codes": lambda: szf.tile_major_unflatten(
@@ -1370,7 +1406,7 @@ def run(device) -> dict:
     ragged = vx[: N - 56, : N - 126, : N - 6].contiguous()
     inputs = {f"{N}^3 baryon_density": (base, ebs["baryon_density"]),
               "ragged vx": (ragged, ebs["vx"])}
-    worst = kernels_vs_plain(inputs)
+    worst = kernels_vs_plain(inputs, device)
 
     launches = main_path(fields, device)
     agrees_with_cpu(cosmo.nyx_fields(n=SMALL_N, seed=SEED), device)
@@ -1392,8 +1428,15 @@ def run(device) -> dict:
                           for k in ("vx", "vy", "vz")])
     eb3 = sz_core.internal_bound(small3.abs().amax(dim=(1, 2, 3)), torch.tensor(
         [REL_EB * 2e8, 1e-3 * 2e8, 1e-2 * 2e8], device=device))
+    xr, ebr = sz_cases.rows()
+    hard = sz_cases.cases(SEED)
+    edge = torch.stack([torch.zeros(16, 64, 128), hard["full_width"][0].repeat(2, 1, 1), xr[0]])
     worst.update(batched_vs_plain({f"{K_ROWS} x {N}^3 Nyx": (xb, eb_rows),
-                                   "3 x (16, 128, 256) vx/vy/vz": (small3, eb3)}))
+                                   "3 x (16, 128, 256) vx/vy/vz": (small3, eb3),
+                                   "sz_cases.rows (ratios > 4x apart)": (xr.to(device),
+                                                                         ebr.to(device)),
+                                   "rows at width 0, 32 and mixed": (edge.to(device), torch.tensor(
+                                       [1e-2, 1.0, 0.5], device=device))}))
     small = cosmo.nyx_fields(n=SMALL_N, seed=SEED)
     try:
         launches.update(snapshot_path(fields, hacc, small, device))

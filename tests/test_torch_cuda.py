@@ -26,7 +26,7 @@ from repro_torch import kernels
 from repro_torch.core import interop
 from repro_torch.core import zfp as tzfp
 from repro_torch.core.api import get_compressor
-from repro_torch.data import cosmo, zfp_cases
+from repro_torch.data import cosmo, sz_cases, zfp_cases
 from repro_torch.kernels import _build
 from repro_torch.kernels import lorenzo3d as tlor
 from repro_torch.kernels import sz_fused as tszf
@@ -109,6 +109,13 @@ def _same(a: torch.Tensor, b: torch.Tensor) -> bool:
     return a.shape == b.shape and bool(torch.equal(a.cpu(), b.cpu()))
 
 
+def _same_packed(a, b) -> None:
+    """Two SZ streams equal word for word (the zero tail included), width
+    for width and in ``total_bits``."""
+    assert _same(a.words, b.words) and _same(a.widths, b.widths)
+    assert int(a.total_bits) == int(b.total_bits) and a.n == b.n
+
+
 def _field(shape, seed):
     rng = np.random.default_rng(seed)
     f = rng.normal(size=shape).astype(np.float32)
@@ -130,12 +137,11 @@ def test_cuda_kernels_match_plain(cuda_device, shape):
     assert _same(delta, tlor.lorenzo3d_quantize_plain(x, eb_i))
     assert _same(tlor.lorenzo3d_reconstruct(delta, eb_i),
                  tlor.lorenzo3d_reconstruct_plain(delta, eb_i))
-    words, widths = tszf.fused_encode(x, eb_i)
-    words_p, widths_p = tszf.fused_encode_plain(x, eb_i)
-    assert _same(words, words_p) and _same(widths, widths_p)
+    packed = tszf.fused_compress(x, eb_i)
+    _same_packed(packed, tszf.fused_compress_plain(x, eb_i))
     padded = tuple(x.shape)
-    assert _same(tszf.fused_decode(words, widths, padded, eb_i),
-                 tszf.fused_decode_plain(words, widths, padded, eb_i))
+    assert _same(tszf.fused_decompress(packed, padded, eb_i),
+                 tszf.fused_decompress_plain(packed, padded, eb_i))
 
 
 @pytest.mark.cuda
@@ -168,9 +174,9 @@ def test_cuda_record_lands_on_the_card(cuda_device):
     rc = cpu.compress(x, eb=eb)
     rg = interop.from_record(interop.to_record(rc))
     assert rg.payload["kpacked"].words.is_cuda and rg.payload["eb_i"].is_cuda
-    before = tszf.launches["fused_decode"]
+    before = tszf.launches["fused_decompress"]
     xg = gpu.decompress(rg)
-    assert tszf.launches["fused_decode"] == before + 1
+    assert tszf.launches["fused_decompress"] == before + 1
     assert xg.is_cuda and _same(xg, cpu.decompress(rc))
     with pytest.raises(ValueError, match="payload on cpu"):
         gpu.decompress(rc)
@@ -224,8 +230,7 @@ def test_cuda_kernels_match_cpu_on_out_of_range_inputs(cuda_device):
         eb_i = tlor.guarded_eb(xc, 1e-3)
         xg, ebg = xc.to(cuda_device), eb_i.to(cuda_device)
         assert _same(tlor.lorenzo3d_quantize(xg, ebg), tlor.lorenzo3d_quantize(xc, eb_i))
-        for got, want in zip(tszf.fused_encode(xg, ebg), tszf.fused_encode(xc, eb_i)):
-            assert _same(got, want)
+        _same_packed(tszf.fused_compress(xg, ebg), tszf.fused_compress(xc, eb_i))
     blocks = zfp_cases.hard_blocks(256, seed=5)
     bg = blocks.to(cuda_device)
     for got, want in zip(tzfp3d.zfp3d_transform(bg), tzfp3d.zfp3d_transform(blocks)):
@@ -282,6 +287,100 @@ def test_cuda_zfp_compressor_launches_k6_k7_and_matches_plain_cpu(cuda_device, f
     assert tzfp.compression_ratio(rg.payload["parts"][0], n_values=x.size) == rg.ratio
 
 
+# ------------------------------------ the SZ stream kernels (K3, K4, K8, K9) ----
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(sz_cases.cases()))
+def test_cuda_sz_stream_kernels_match_plain(cuda_device, case):
+    """K3 and K4 on the card against their plain versions on the same CUDA
+    inputs, on the hard cases (every width 0, every width 32 from +-3e38, NaN
+    and +inf, a ragged padded field, out-of-range values): the stream word
+    for word with its zero tail, and the reconstruction, bitwise."""
+    x, eb_i = (t.to(cuda_device) for t in sz_cases.cases()[case])
+    kernels.reset_launch_counts()
+    packed = tszf.fused_compress(x, eb_i)
+    xr = tszf.fused_decompress(packed, tuple(x.shape), eb_i)
+    counts = kernels.launch_counts()
+    assert counts["fused_compress"] == 1 and counts["fused_decompress"] == 1
+    _same_packed(packed, tszf.fused_compress_plain(x, eb_i))
+    assert packed.words.shape == (x.numel() + 2,) and packed.total_bits.dtype == torch.int64
+    assert _same(xr, tszf.fused_decompress_plain(packed, tuple(x.shape), eb_i))
+
+
+@pytest.mark.cuda
+def test_cuda_sz_stream_batched_match_plain_on_uneven_rows(cuda_device):
+    """K8 and K9 on three rows whose ratios differ by more than 4x (so the
+    row offsets are arbitrary), and on rows that are all zero or all at
+    width 32: the arena, widths, offsets, counts, total_bits and used, and
+    the decoded rows, bitwise against the plain versions."""
+    x, eb = sz_cases.rows()
+    hard = sz_cases.cases()
+    zero = torch.zeros(16, 64, 128)
+    full = hard["full_width"][0].repeat(2, 1, 1)
+    for xs, ebs in ((x, eb), (torch.stack([zero, full, x[0]]), torch.tensor([1e-2, 1.0, 0.5]))):
+        xg, ebg = xs.to(cuda_device), ebs.to(cuda_device)
+        enc = tszf.fused_compress_batched(xg, ebg)
+        for got, want in zip(enc, tszf.fused_compress_batched_plain(xg, ebg)):
+            assert _same(got, want)
+        assert _same(tszf.fused_decompress_batched(enc[0], enc[1], (16, 64, 128), ebg),
+                     tszf.fused_decompress_batched_plain(enc[0], enc[1], (16, 64, 128), ebg))
+    ratios = 32 * x[0].numel() / tszf.fused_compress_batched(x, eb)[4].double()
+    assert float(ratios.max() / ratios.min()) > 4
+
+
+@pytest.mark.cuda
+def test_cuda_sz_stream_calls_repeat_and_capture_in_a_graph(cuda_device):
+    """Two calls in a row give identical streams (each call clears its
+    look-back flags), and a CUDA-graph capture replays to the same stream
+    and reconstruction."""
+    x, eb_i = (t.to(cuda_device) for t in sz_cases.cases()["ragged"])
+    shape = tuple(x.shape)
+    first = tszf.fused_compress(x, eb_i)
+    again = tszf.fused_compress(x, eb_i)
+    _same_packed(first, again)
+    assert _same(tszf.fused_decompress(first, shape, eb_i), tszf.fused_decompress(again, shape, eb_i))
+    xr = tszf.fused_decompress(first, shape, eb_i)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        tszf.fused_compress(x, eb_i)  # warm-up outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = tszf.fused_compress(x, eb_i)
+        decoded = tszf.fused_decompress(captured, shape, eb_i)
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        _same_packed(captured, first)
+        assert _same(decoded, xr)
+
+
+@pytest.mark.cuda
+def test_cuda_sz_stream_more_chunks_than_resident_ctas(cuda_device):
+    """A field of more chunks (tile planes) than the card holds CTAs at once,
+    so the look-back spans CTAs that ran in earlier waves: K3/K4 and K8/K9
+    bitwise against their plain versions."""
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    # an (8, 256, 512) slab holds 128 chunks; an even number of slabs, to split in two rows
+    z = 16 * -(-(16 * sms // 128 + 1) // 2)
+    x = torch.from_numpy(sz_cases.smooth((z, 256, 512), 21, 1e3)).to(cuda_device)
+    assert x.numel() // (64 * 128) > 16 * sms
+    eb_i = tlor.guarded_eb(x, 1e-1)
+    packed = tszf.fused_compress(x, eb_i)
+    _same_packed(packed, tszf.fused_compress_plain(x, eb_i))
+    assert _same(tszf.fused_decompress(packed, tuple(x.shape), eb_i),
+                 tszf.fused_decompress_plain(packed, tuple(x.shape), eb_i))
+    xb = x.view(2, z // 2, 256, 512)
+    ebb = torch.stack([eb_i, 2 * eb_i])
+    enc = tszf.fused_compress_batched(xb, ebb)
+    for got, want in zip(enc, tszf.fused_compress_batched_plain(xb, ebb)):
+        assert _same(got, want)
+    assert _same(tszf.fused_decompress_batched(enc[0], enc[1], (z // 2, 256, 512), ebb),
+                 tszf.fused_decompress_batched_plain(enc[0], enc[1], (z // 2, 256, 512), ebb))
+
+
 # ------------------------------------------------ K8 / K9 and snapshots ----
 
 
@@ -296,14 +395,14 @@ def test_cuda_k8_k9_match_plain_one_launch_per_bucket(cuda_device):
     eb = torch.tensor([1e-3, 0.2, 7.0])
     xg, ebg = x.to(cuda_device), eb.to(cuda_device)
     kernels.reset_launch_counts()
-    words, widths = tszf.fused_encode_batched(xg, ebg)
-    out = tszf.fused_decode_batched(words, widths, (16, 64, 128), ebg)
+    enc = tszf.fused_compress_batched(xg, ebg)
+    out = tszf.fused_decompress_batched(enc[0], enc[1], (16, 64, 128), ebg)
     counts = kernels.launch_counts()
-    assert counts["fused_encode_batched"] == 1 and counts["fused_decode_batched"] == 1
-    words_p, widths_p = tszf.fused_encode_batched_plain(xg, ebg)
-    assert _same(words, words_p) and _same(widths, widths_p)
-    assert _same(out, tszf.fused_decode_batched_plain(words, widths, (16, 64, 128), ebg))
-    for got, want in zip(tszf.fused_compress_batched(xg, ebg), tszf.fused_compress_batched(x, eb)):
+    assert counts["fused_compress_batched"] == 1 and counts["fused_decompress_batched"] == 1
+    for got, want in zip(enc, tszf.fused_compress_batched_plain(xg, ebg)):
+        assert _same(got, want)
+    assert _same(out, tszf.fused_decompress_batched_plain(enc[0], enc[1], (16, 64, 128), ebg))
+    for got, want in zip(enc, tszf.fused_compress_batched(x, eb)):
         assert _same(got, want)
 
 
@@ -318,17 +417,28 @@ def test_cuda_batched_wrappers_raise_when_the_library_cannot_be_loaded(cuda_devi
         raise AssertionError("the plain version ran for a CUDA tensor")
 
     monkeypatch.setattr(_build, "library", refuse)
-    monkeypatch.setattr(tszf, f"fused_{which}_batched_plain", plain)
+    name = "compress" if which == "encode" else "decompress"
+    monkeypatch.setattr(tszf, f"fused_{name}_batched_plain", plain)
+    monkeypatch.setattr(tszf, f"fused_{name}_plain", plain)
     before = dict(tszf.launches)
     eb = torch.ones(2, device=cuda_device)
     with pytest.raises(OSError, match="cannot load sz_fused"):
         if which == "encode":
-            tszf.fused_encode_batched(torch.zeros(2, 8, 64, 128, device=cuda_device), eb)
+            tszf.fused_compress_batched(torch.zeros(2, 8, 64, 128, device=cuda_device), eb)
         else:
-            tszf.fused_decode_batched(torch.zeros(2 * 1024, 64, dtype=torch.int32,
-                                                  device=cuda_device),
-                                      torch.zeros(2 * 1024, dtype=torch.int32, device=cuda_device),
-                                      (8, 64, 128), eb)
+            tszf.fused_decompress_batched(torch.zeros(2 * (65536 + 2), dtype=torch.int32,
+                                                      device=cuda_device),
+                                          torch.zeros(2, 1024, dtype=torch.uint8,
+                                                      device=cuda_device),
+                                          (8, 64, 128), eb)
+    with pytest.raises(OSError, match="cannot load sz_fused"):
+        if which == "encode":
+            tszf.fused_compress(torch.zeros(8, 64, 128, device=cuda_device), eb[0])
+        else:
+            tszf.fused_decompress(tszf.bitpack.PackedCodes(
+                torch.zeros(65536 + 2, dtype=torch.int32, device=cuda_device).view(torch.uint32),
+                torch.zeros(1024, dtype=torch.uint8, device=cuda_device),
+                torch.zeros((), dtype=torch.int64, device=cuda_device), 65536), (8, 64, 128), eb[0])
     assert tszf.launches == before
 
 

@@ -95,9 +95,9 @@ def test_k3_k4_plain_match_sz_fused(case):
     x, eb = _k3_k4_inputs()[case]
     xj, xt = jnp.asarray(x), torch.from_numpy(x)
     ebj, ebt = jlor.guarded_eb(xj, eb), tlor.guarded_eb(xt, eb)
-    # K3 itself: per-block payload rows and widths
+    # the Pallas K3's rows and widths (what the plain version builds the stream from)
     wj, widj = jszf._fused_encode(xj, ebj)
-    wt, widt = tszf.fused_encode(xt, ebt)
+    wt, widt = tszf.fused_encode_plain(xt, ebt)
     np.testing.assert_array_equal(np.asarray(wj), tbp.to_numpy(wt))
     np.testing.assert_array_equal(np.asarray(widj), widt.numpy())
     # K3 + stream assembly, then disassembly + K4
@@ -193,7 +193,7 @@ def test_wrappers_never_fall_back_off_the_cpu():
     with pytest.raises(ValueError, match="CUDA tensor"):
         tlor.lorenzo3d_quantize(x, eb)
     with pytest.raises(ValueError, match="CUDA tensor"):
-        tszf.fused_encode(x, eb)
+        tszf.fused_compress(x, eb)
 
 
 def test_default_device_raises_without_cuda(monkeypatch):
