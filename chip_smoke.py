@@ -10,8 +10,8 @@ Needs one CUDA card and ``nvcc``; it builds the hand-written kernels from
 1. prints the card's name and power limit (``nvidia-smi``) and the kernel
    build time;
 2. holds each SZ kernel (K1-K4) against its plain PyTorch version on the
-   card, at 256^3 and at a ragged shape, K3 and K4 (which take and give the
-   dense stream) also on the hard cases of ``data/sz_cases.py`` (every block
+   card, at 256^3 and at a ragged shape, K1, K3 and K4 (K3 and K4 take and
+   give the dense stream) also on the hard cases of ``data/sz_cases.py`` (every block
    at width 0, every block at width 32 from +-3e38, NaN and +inf, a ragged
    padded field, values whose quantized value leaves the int32 range),
    requiring bitwise equality of the words with their zero tail, the widths,
@@ -76,23 +76,29 @@ Needs one CUDA card and ``nvcc``; it builds the hand-written kernels from
     the files written; at small size the card's payload files must equal
     the plain CPU versions' byte for byte;
 12. holds K10 (decode attention over the blockfloat8 KV cache) against its
-    plain version on the card at the reference tests' shapes (f32 query,
-    rtol 2e-5 / atol 2e-6), at the serving shape (B=8, S=2048, H=24,
-    Hkv=2, D=128, bf16 query, one lane at index -1, which must be exactly
-    0; the others within one bf16 ulp plus 2e-6, and the same query in f32
-    within the f32 tolerance) and at S=32768 (``decode_32k``);
+    plain version on the card: the dense entry at the reference tests'
+    shapes (f32 query, rtol 2e-5 / atol 2e-6), and both entries at the
+    serving shape (B=8, S=2048, H=24, Hkv=2, D=128, bf16 query, one lane at
+    index -1, which must be exactly 0; the others within one bf16 ulp plus
+    2e-6, and the same query in f32 within the f32 tolerance) and at
+    S=32768 (``decode_32k``); the paged entry reads a pool of 16-token
+    pages through a permuted page table with a page id used twice and an
+    unmapped entry at the zero page, against the gather + plain K10;
 13. serves starcoder2-3b at full width (random bf16 weights drawn on the
     card from a seeded ``torch.Generator``) through ``ServingEngine``:
     8 slots, max_len 2048, paged blockfloat8 pool of 16-token pages,
     greedy, ``attention="auto"``; 12 requests of 256-1024 prompt tokens
     (numpy seed) and 32 new tokens each, so 4 recycle a slot.  The launch
-    counts are reset just before and read just after: K10 must launch 30
-    times per decode step, every request must get 32 tokens and the pool
-    must be clean (``check_kv_integrity``).  A second run must repeat the
+    counts are reset just before and read just after: K10 (its paged
+    entry, reading the pool through the page table) must launch 30 times
+    per decode step, ``layers._gather_pages`` must not run (the ``xla`` run
+    below must run it), every request must get 32 tokens and the pool must
+    be clean (``check_kv_integrity``).  A second run must repeat the
     tokens, and an ``attention="xla"`` run (plain attention) must give the
     same first token for every request (it comes from prefill).  Prints
     prefill ms, the median tick, decode tokens/s, K10's share of a tick,
-    the pool's bytes and peak device memory.  TF32 is off throughout;
+    the pool's bytes, peak device memory and a profiled tick's kernel
+    launches and device busy share.  TF32 is off throughout;
 14. runs the SMOKE config on the card (K10) and on the CPU (K10's plain
     version, ``attention="fused"``) with the same parameters and prompts:
     greedy tokens agree in at least 6 of 8 per request
@@ -108,8 +114,11 @@ Needs one CUDA card and ``nvcc``; it builds the hand-written kernels from
     leading-zero counts at 4.2 T/s, float32 multiplies at 33.5 T/s), and
     for K10
     ``library_ms``: one ``F.scaled_dot_product_attention`` call over K/V
-    dequantized to bf16 beforehand, the GQA repeat included) and, last,
-    ``{"ok": true, "device": {...}}``.
+    dequantized to bf16 beforehand, the GQA repeat included; K10's row is
+    its paged entry, the main path's, and its bound counts the page table's
+    bytes; K10's dense entry, both at S=32768, K1's and K10's share of
+    their bound and their registers and spills are printed before it) and,
+    last, ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero; so does a machine without CUDA, and a
 directory without the rest of the repository.
@@ -118,6 +127,7 @@ directory without the rest of the repository.
 from __future__ import annotations
 
 import json
+import re
 import shutil
 import statistics
 import subprocess
@@ -143,7 +153,7 @@ from repro_torch.core import bitpack  # noqa: E402
 from repro_torch.core import sz as sz_core  # noqa: E402
 from repro_torch.core import zfp as zfp_core  # noqa: E402
 from repro_torch.core.api import get_compressor  # noqa: E402
-from repro_torch.data import cosmo, sz_cases, zfp_cases  # noqa: E402
+from repro_torch.data import cosmo, kvc_cases, sz_cases, zfp_cases  # noqa: E402
 from repro_torch.dist import insitu  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels import kvc_attention as k10  # noqa: E402
@@ -152,6 +162,7 @@ from repro_torch.kernels import sz_fused as szf  # noqa: E402
 from repro_torch.kernels import zfp3d as k5  # noqa: E402
 from repro_torch.kernels import ref as kref  # noqa: E402
 from repro_torch.kernels import zfp_fused as zff  # noqa: E402
+from repro_torch.models import layers as model_layers  # noqa: E402
 from repro_torch.models.spec import init_params, param_count  # noqa: E402
 from repro_torch.obs import metrics as obs_metrics  # noqa: E402
 from repro_torch.serving.engine import EngineConfig, Request, ServingEngine  # noqa: E402
@@ -374,9 +385,13 @@ def kernels_vs_plain(inputs: dict, device) -> dict[str, float]:
         hold_k3_k4(xp, eb_i, label)
         print(f"kernels vs plain at {label} {tuple(xp.shape)}: bitwise equal")
     for label, (x, eb_i) in sz_cases.cases(SEED).items():
-        hold_k3_k4(x.to(device), eb_i.to(device), label)
-    print(f"K3/K4 vs plain on the hard cases {list(sz_cases.cases(SEED))}: streams (zero tail "
-          "included), widths, total_bits and reconstructions bitwise equal")
+        x, eb_i = x.to(device), eb_i.to(device)
+        got, want = lor.lorenzo3d_quantize(x, eb_i), lor.lorenzo3d_quantize_plain(x, eb_i)
+        check(same(got, want), f"lorenzo3d_quantize differs from plain at {label}")
+        hold_k3_k4(x, eb_i, label)
+    print(f"K1 and K3/K4 vs plain on the hard cases {list(sz_cases.cases(SEED))}: K1's residuals, "
+          "K3/K4's streams (zero tail included), widths, total_bits and reconstructions bitwise "
+          "equal")
     return worst
 
 
@@ -1121,11 +1136,20 @@ def long_index(b: int, s: int, seed: int = SEED) -> list[int]:
     return [int(i) for i in idx]
 
 
+def kvc_pool(b, s, h, hkv, d, qdtype, index, device, seed=SEED):
+    """The paged form of :func:`kvc_inputs` (``data/kvc_cases.py``): 16-token
+    pages every lane maps in a random order, one page id used twice, and an
+    unmapped entry at the zero page."""
+    return kvc_cases.paged_pool(b, s, h, hkv, d, qdtype, index, device, seed,
+                                page=SERVE["page_size"])
+
+
 def k10_vs_plain(device) -> float:
-    """K10 against its plain version on the card (phase 12).  Returns the
-    largest |kernel - plain| at the serving shape with the bf16 query the
-    main path gives it (the report row's ``max_abs_err``); the largest in
-    float32 over every case is printed beside it."""
+    """K10 against its plain version on the card (phase 12), both entries.
+    Returns the largest |kernel - plain| of the paged entry (the main path's)
+    at the serving shape with the bf16 query the main path gives it (the
+    report row's ``max_abs_err``); the largest in float32 over every case is
+    printed beside it."""
     worst, serving_err = 0.0, 0.0
 
     def hold_f32(label, b, s, h, hkv, d, index):
@@ -1166,6 +1190,31 @@ def k10_vs_plain(device) -> float:
               f"index {idx}): free lane exactly 0, largest distance {ulps} bf16 ulps "
               f"(max |diff| {err16:.3g}); f32 q max |diff| {err:.3g}")
         del q, kc, ks, vc, vs, got, want, got32, want32
+
+    for label, s, index in (("serving", KVC_SERVE_SHAPE[1], serving_index),
+                            ("decode_32k", KVC_LONG_S, long_index)):
+        b, _, h, hkv, d = KVC_SERVE_SHAPE
+        idx = index(b, s)
+        errs = {}
+        for qdtype in (torch.bfloat16, torch.float32):
+            args = kvc_pool(b, s, h, hkv, d, qdtype, idx, device)
+            got = k10.kvc_decode_attention_paged(*args)
+            want = kref.kvc_decode_attention_paged_ref(*args)
+            check(bool((got[0] == 0).all()), f"K10 paged free lane not exactly 0 at {label}")
+            if qdtype == torch.float32:
+                torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-6,
+                                           msg=f"K10 paged f32 at {label}")
+                worst = max(worst, float((got - want).abs().max()))
+            else:
+                errs["ulps"] = bf16_check(got, want)
+            errs[str(qdtype)] = float((got.float() - want.float()).abs().max())
+            del args, got, want
+        if label == "serving":
+            serving_err = errs[str(torch.bfloat16)]
+        print(f"K10 paged vs plain (gather + plain K10) at {label} (B={b}, capacity {s} in "
+              f"{SERVE['page_size']}-token pages, permuted table, a page id used twice): free "
+              f"lane exactly 0, bf16 q within {errs['ulps']} ulps (max |diff| "
+              f"{errs[str(torch.bfloat16)]:.3g}), f32 q max |diff| {errs[str(torch.float32)]:.3g}")
     torch.cuda.synchronize()
     print(f"K10 vs plain, largest |diff| with an f32 query over every case: {worst:.3g}")
     return serving_err
@@ -1201,6 +1250,24 @@ def serve(model, params, ecfg: EngineConfig, reqs_in, new: int):
     return eng, reqs, counts, stats, wall
 
 
+class GatherCount:
+    """Counts the calls of ``models.layers._gather_pages`` (the dense copy of
+    a paged cache that K10's paged entry makes unneeded) while active."""
+
+    def __enter__(self):
+        self.n, self._orig = 0, model_layers._gather_pages
+
+        def counted(*args):
+            self.n += 1
+            return self._orig(*args)
+
+        model_layers._gather_pages = counted
+        return self
+
+    def __exit__(self, *exc):
+        model_layers._gather_pages = self._orig
+
+
 def serving_full_width(device) -> dict:
     """Phase 13: starcoder2-3b at its published widths through the engine."""
     cfg = registry.get_config(ARCH)
@@ -1218,19 +1285,30 @@ def serving_full_width(device) -> dict:
     obs_metrics.enable()
     try:
         torch.cuda.reset_peak_memory_stats()
-        eng, reqs, counts, stats, wall = serve(model, params, EngineConfig(**SERVE), ps, SERVE_NEW)
+        with GatherCount() as gathers:
+            eng, reqs, counts, stats, wall = serve(model, params, EngineConfig(**SERVE), ps,
+                                                   SERVE_NEW)
         peak = torch.cuda.max_memory_allocated() / 2**30
         check(eng._fused, "attention='auto' did not pick K10 on the card")
         k10_n = counts["kvc_decode_attention"]
         check(k10_n == cfg.n_layers * eng.steps and k10_n > 0,
               f"K10 launched {k10_n} times in {eng.steps} decode steps of {cfg.n_layers} layers")
+        # prefill attends through the plain path (4 gathers a layer); decode gathers nothing
+        prefills = stats["prefill"]["count"]
+        check(gathers.n == 4 * cfg.n_layers * prefills,
+              f"{gathers.n} page gathers in {prefills} prefill calls and {eng.steps} decode "
+              f"steps of {cfg.n_layers} layers: the fused decode path gathered pages")
         check(eng.check_kv_integrity(), "the KV pool is not clean after the drain")
         toks = [r.out_tokens for r in reqs]
         _, again, _, _, _ = serve(model, params, EngineConfig(**SERVE), ps, SERVE_NEW)
         check([r.out_tokens for r in again] == toks, "a second identical run gave other tokens")
-        _, plain, plain_counts, plain_stats, plain_wall = serve(
-            model, params, EngineConfig(**SERVE, attention="xla"), ps, SERVE_NEW)
+        with GatherCount() as plain_gathers:
+            plain_eng, plain, plain_counts, plain_stats, plain_wall = serve(
+                model, params, EngineConfig(**SERVE, attention="xla"), ps, SERVE_NEW)
         check(plain_counts["kvc_decode_attention"] == 0, "attention='xla' launched K10")
+        check(plain_gathers.n == 4 * cfg.n_layers * (plain_stats["prefill"]["count"]
+                                                     + plain_eng.steps),
+              f"the plain path gathered pages {plain_gathers.n} times")
         check(all(a.out_tokens[0] == b[0] for a, b in zip(plain, toks)),
               "first tokens (from prefill) differ between attention auto and xla")
         rest = [(a, b) for r, tk in zip(plain, toks) for a, b in zip(r.out_tokens[1:], tk[1:])]
@@ -1243,6 +1321,7 @@ def serving_full_width(device) -> dict:
     decode_s = tick["mean"] * tick["count"] - pre["mean"] * pre["count"]
     decode_tokens = SERVE_REQUESTS * (SERVE_NEW - 1)
     out = {"steps": eng.steps, "ticks": eng.ticks, "k10_launches": k10_n,
+           "page_gathers": gathers.n, "xla_page_gathers": plain_gathers.n,
            "prefill_calls": pre["count"], "prefill_ms_mean": pre["mean"] * 1e3,
            "prefill_ms_max": pre["max"] * 1e3, "tick_ms_median": tick["p50"] * 1e3,
            "decode_tokens_per_s": decode_tokens / decode_s, "wall_s": wall,
@@ -1275,12 +1354,14 @@ def tick_profile(model, params, ps, ticks: int = 5) -> dict:
     eng.tick()  # admission, prefill and the first decode step
     eng.tick()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof, \
+            GatherCount() as gathers:
         t0 = time.perf_counter()
         for _ in range(ticks):
             eng.tick()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    check(gathers.n == 0, f"{ticks} decode ticks gathered pages {gathers.n} times")
     events = [e for e in prof.key_averages() if e.device_time_total > 0
               and e.device_type == torch.autograd.DeviceType.CUDA]
     device_us = sum(e.device_time_total for e in events)
@@ -1327,19 +1408,48 @@ def serving_card_vs_cpu(device) -> None:
           f"{agree('cuda-auto', 'cpu-xla')} (bf16 attention logits there)")
 
 
-def k10_times(device, serving: dict) -> tuple[dict, dict]:
-    """K10, its plain version and the library yardstick at the serving shape
-    (the row of the report) and at S=32768, with the bound from this run's
-    positions (and at full capacity).  Each is timed on the device from a
-    CUDA graph (:func:`graph_ms`): K10's wrapper spends more host time per
-    call than the kernel spends on the card, so an event pair around one
-    direct call (``call_ms``, also printed) times the host."""
+def ptxas_resources(logs: dict[str, str]) -> dict[str, dict]:
+    """Registers and spill bytes of K1 and of each K10 instantiation
+    (``kvc_attention_kernel<D>``) from the build's ``-Xptxas=-v`` report;
+    empty for a library that was not compiled in this run."""
+    out, name = {}, None
+    for log in logs.values():
+        for line in log.splitlines():
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                k10m = re.search(r"kvc_attention_kernelILi(\d+)E", m.group(1))
+                name = (f"kvc_attention_kernel<{k10m.group(1)}>" if k10m else
+                        "lorenzo3d_quantize_kernel" if "lorenzo3d_quantize_kernel" in m.group(1)
+                        else None)
+                if name:
+                    out[name] = {}
+                continue
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m and name:
+                out[name]["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+            m = re.search(r"Used (\d+) registers", line)
+            if m and name:
+                out[name]["registers"] = int(m.group(1))
+    return out
+
+
+def k10_times(device, serving: dict, resources: dict) -> tuple[dict, dict]:
+    """K10's paged entry (the main path's: the row of the report), its dense
+    entry on the gathered cache, the paged plain version (gather + plain
+    K10) and the library yardstick, at the serving shape and at S=32768,
+    with the bound from this run's positions (and at full capacity), the
+    share of the bound, and the main instantiation's registers and spills.
+    Each is timed on the device from a CUDA graph (:func:`graph_ms`): K10's
+    wrapper spends more host time per call than the kernel spends on the
+    card, so an event pair around one direct call (``call_ms``, also
+    printed) times the host."""
     rows = {}
     b, s0, h, hkv, d = KVC_SERVE_SHAPE
     n_rep = h // hkv
     for label, s, index in (("serving", s0, serving_index), ("decode_32k", KVC_LONG_S, long_index)):
         idx = index(b, s)
-        q, kc, ks, vc, vs, ix = kvc_inputs(b, s, h, hkv, d, torch.bfloat16, idx, device)
+        q, kp, ksp, vp, vsp, table, ix = kvc_pool(b, s, h, hkv, d, torch.bfloat16, idx, device)
+        kc, ks, vc, vs = (kref.gather_pages(t, table) for t in (kp, ksp, vp, vsp))  # untimed
         kd = (kc.float() * ks[..., None]).to(torch.bfloat16)  # dequantized beforehand, not timed
         vd = (vc.float() * vs[..., None]).to(torch.bfloat16)
         mask = (torch.arange(s, device=device)[None, :] <= ix[:, None])[:, None, None, :]
@@ -1351,7 +1461,8 @@ def k10_times(device, serving: dict) -> tuple[dict, dict]:
 
         live = sum(min(i + 1, s) for i in idx if i >= 0)
         qo_bytes = 2 * 2 * b * h * d + 4 * b  # q and out in bf16, index
-        nbytes = live * hkv * (2 * d + 8) + qo_bytes
+        table_bytes = 4 * table.numel()
+        nbytes = live * hkv * (2 * d + 8) + qo_bytes + table_bytes
 
         def ops_ms(positions: int) -> float:
             """The function's arithmetic: the one scale per position and KV head
@@ -1363,26 +1474,35 @@ def k10_times(device, serving: dict) -> tuple[dict, dict]:
 
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
 
-        def kernel():
+        def paged():
+            return k10.kvc_decode_attention_paged(q, kp, ksp, vp, vsp, table, ix)
+
+        def dense():
             return k10.kvc_decode_attention(q, kc, ks, vc, vs, ix)
 
-        t = {"ms": graph_ms(kernel),
-             "plain_ms": graph_ms(lambda: kref.kvc_decode_attention_ref(q, kc, ks, vc, vs, ix),
-                                  iters=PLAIN_ITERS),
-             "library_ms": graph_ms(library), "call_ms": cuda_ms(kernel, TIMING_ITERS)}
-        t.update(bytes_ms=bytes_ms, ops_ms=ops_ms(live), bound_ms=max(bytes_ms, ops_ms(live)),
+        t = {"ms": graph_ms(paged), "dense_ms": graph_ms(dense),
+             "plain_ms": graph_ms(lambda: kref.kvc_decode_attention_paged_ref(
+                 q, kp, ksp, vp, vsp, table, ix), iters=PLAIN_ITERS),
+             "library_ms": graph_ms(library), "call_ms": cuda_ms(paged, TIMING_ITERS),
+             "dense_call_ms": cuda_ms(dense, TIMING_ITERS)}
+        bound = max(bytes_ms, ops_ms(live))
+        t.update(bytes_ms=bytes_ms, ops_ms=ops_ms(live), bound_ms=bound,
                  bound_by="bytes" if bytes_ms >= ops_ms(live) else "operations", positions=live,
-                 full_bytes_ms=(b * s * hkv * (2 * d + 8) + qo_bytes) / HBM_BYTES_PER_S * 1e3,
-                 full_ops_ms=ops_ms(b * s),
+                 share_of_bound=bound / t["ms"],
+                 dense_share_of_bound=(bound - table_bytes / HBM_BYTES_PER_S * 1e3) / t["dense_ms"],
+                 full_bytes_ms=(b * s * hkv * (2 * d + 8) + qo_bytes + table_bytes)
+                 / HBM_BYTES_PER_S * 1e3, full_ops_ms=ops_ms(b * s),
                  splits=k10.split_plan(b, hkv, s, torch.cuda.get_device_properties(
-                     device).multi_processor_count)[0])
+                     device).multi_processor_count)[0],
+                 **resources.get(f"kvc_attention_kernel<{d}>", {}))
         rows[label] = t
-        del q, kc, ks, vc, vs, kd, vd
+        del q, kp, ksp, vp, vsp, kc, ks, vc, vs, kd, vd
     torch.cuda.empty_cache()
     row = rows["serving"]
     row["tick_share"] = row["ms"] * registry.get_config(ARCH).n_layers / serving["tick_ms_median"]
-    print("K10 times (ms; bound from this run's positions and at full capacity): "
-          + json.dumps(rows))
+    print("K10 times (ms, paged entry, dense entry on the gathered cache; bound from this run's "
+          "positions and at full capacity; registers and spill bytes of the "
+          f"kvc_attention_kernel<{d}> instantiation): " + json.dumps(rows))
     print(f"K10 share of a decode tick: {row['ms']:.4f} ms x 30 / "
           f"{serving['tick_ms_median']:.3f} ms = {row['tick_share']:.4f}")
     return row, rows["decode_32k"]
@@ -1396,6 +1516,7 @@ def run(device) -> dict:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
+    resources = ptxas_resources(logs)
 
     t0 = time.perf_counter()
     fields = cosmo.nyx_fields(n=N, seed=SEED)
@@ -1461,7 +1582,12 @@ def run(device) -> dict:
           + json.dumps(stages))
     times = kernel_times(base, ebs["baryon_density"])
     times.update(batched_kernel_times(xb, eb_rows))
-    times["kvc_decode_attention"], _ = k10_times(device, serving)
+    times["kvc_decode_attention"], _ = k10_times(device, serving, resources)
+    k1 = times["lorenzo3d_quantize"]
+    print("K1 (graph replay ms, bound ms, share of bound, registers and spill bytes): "
+          + json.dumps({"ms": k1["ms"], "bound_ms": k1["bound_ms"],
+                        "share_of_bound": k1["bound_ms"] / k1["ms"],
+                        **resources.get("lorenzo3d_quantize_kernel", {})}))
     print("kernel bounds (ms: bytes, operations, per pipe) and event-timed direct calls (ms): "
           + json.dumps({name: [t["bytes_ms"], t["ops_ms"], t.get("pipes_ms"), t["call_ms"]]
                         for name, t in times.items()}))

@@ -8,33 +8,79 @@
 // Bound.  Both are memory passes: K1 reads 4 B of f32 and writes 4 B of
 // int32 per point, K2 reads 4 B and writes 4 B, so 8 B/pt, which is 40 us
 // for a 256^3 field at the H100's 3.35 TB/s; the arithmetic (one multiply,
-// one conversion and seven adds per point) is far below the FP32 peak.
+// one conversion and seven adds per point) is far below the pipes' peaks.
 //
-// Design.  K1 is one thread per point with coalesced x-fastest stores; a
-// point's seven neighbours are re-quantized from x, whose re-reads hit L1/L2,
-// so device memory sees each input byte about once.  K2 is one CTA per
-// (8, 64, 128) tile that walks the tile plane by plane through 32 KiB of
-// shared memory (lorenzo_tile.cuh): the tile's prefix sums never reach
-// device memory.  Simple and right first; staging the input with TMA and a
-// finer CTA than the tile are later work.
+// Design.  K1: a warp per 8 rows of a tile column (8 rows x 128 columns,
+// walking the tile's 8 z-planes), 8 warps a CTA.  A lane holds 4
+// consecutive columns: 16-byte float4 loads of the plane's 8 rows and the
+// row above them (the tile's row above the warp, if any), each value
+// quantized once per plane (9/8 conversions a point), the z difference
+// against the previous plane's quantized rows kept in registers, the x
+// difference with one shuffle per row (a lane's left neighbour is the .w of
+// the lane before; lane 0 sits on the tile edge), the y difference between
+// the warp's rows in registers, and 16-byte int4 stores.  No shared memory,
+// no barrier and no 64-bit division per point.  K2 is one CTA per (8, 64,
+// 128) tile that walks the tile plane by plane through 32 KiB of shared
+// memory (lorenzo_tile.cuh): the tile's prefix sums never reach device
+// memory.
 #include "lorenzo_tile.cuh"
 
 namespace {
 
-__global__ void __launch_bounds__(256)
+constexpr int Q_ROWS = 8;                  // rows of a tile column a warp owns
+constexpr int Q_WARPS = 8;                 // warps per CTA
+constexpr unsigned FULL = 0xffffffffu;
+
+__device__ __forceinline__ uint4 quantize4(float4 v, float inv) {
+  return make_uint4(repro::quantize(v.x, inv), repro::quantize(v.y, inv),
+                    repro::quantize(v.z, inv), repro::quantize(v.w, inv));
+}
+
+__device__ __forceinline__ uint4 sub4(uint4 a, uint4 b) {
+  return make_uint4(a.x - b.x, a.y - b.y, a.z - b.z, a.w - b.w);
+}
+
+__global__ void __launch_bounds__(32 * Q_WARPS)
 lorenzo3d_quantize_kernel(const float* __restrict__ x, const float* __restrict__ eb,
                           int32_t* __restrict__ out, int Z, int Y, int X) {
+  const int lane = threadIdx.x & 31;
+  const int gx = X / repro::TX, gy = Y / Q_ROWS;
+  const long long w = static_cast<long long>(blockIdx.x) * Q_WARPS + (threadIdx.x >> 5);
+  const int tx = static_cast<int>(w % gx);
+  const long long r = w / gx;
+  const int y0 = static_cast<int>(r % gy) * Q_ROWS;
+  const long long z0 = r / gy * repro::TZ;
+  if (z0 >= Z) return;  // warp-uniform: the grid is rounded up to whole CTAs
   const float inv = repro::inv_two_eb(eb);
-  const long long n = static_cast<long long>(Z) * Y * X;
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; i < n;
-       i += stride) {
-    const int xx = static_cast<int>(i % X);
-    const long long r = i / X;
-    const int y = static_cast<int>(r % Y);
-    const int z = static_cast<int>(r / Y);
-    out[i] = static_cast<int32_t>(repro::residual_at(
-        x, Y, X, z, y, xx, z % repro::TZ, y % repro::TY, xx % repro::TX, inv));
+  const bool halo = y0 % repro::TY != 0;  // the row above lies in the same tile
+  const size_t plane = static_cast<size_t>(Y) * X;
+  const size_t base = (static_cast<size_t>(z0) * Y + y0) * X + tx * repro::TX + 4 * lane;
+
+  // q of the previous plane (0 before the tile's first), row 0 the one above
+  uint4 prev[Q_ROWS + 1];
+#pragma unroll
+  for (int i = 0; i <= Q_ROWS; ++i) prev[i] = make_uint4(0u, 0u, 0u, 0u);
+#pragma unroll
+  for (int zl = 0; zl < repro::TZ; ++zl) {
+    const float* src = x + base + zl * plane;
+    float4 v[Q_ROWS + 1];
+    v[0] = halo ? __ldg(reinterpret_cast<const float4*>(src - X)) : make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int i = 0; i < Q_ROWS; ++i) v[i + 1] = __ldg(reinterpret_cast<const float4*>(src + i * X));
+    uint4 c[Q_ROWS + 1];  // z then x differences
+#pragma unroll
+    for (int i = 0; i <= Q_ROWS; ++i) {
+      const uint4 q = i || halo ? quantize4(v[i], inv) : make_uint4(0u, 0u, 0u, 0u);
+      const uint4 d = sub4(q, prev[i]);
+      prev[i] = q;
+      uint32_t left = __shfl_up_sync(FULL, d.w, 1);
+      if (lane == 0) left = 0u;
+      c[i] = make_uint4(d.x - left, d.y - d.x, d.z - d.y, d.w - d.z);
+    }
+    int32_t* dst = out + base + zl * plane;
+#pragma unroll
+    for (int i = 0; i < Q_ROWS; ++i)
+      *reinterpret_cast<uint4*>(dst + i * X) = sub4(c[i + 1], c[i]);
   }
 }
 
@@ -60,11 +106,11 @@ REPRO_DEFINE_ERROR_STRING()
 // out: int32 (Z, Y, X).  Launches on ``stream`` and returns cudaGetLastError().
 extern "C" int lorenzo3d_quantize(const float* x, const float* eb, int32_t* out,
                                   int Z, int Y, int X, cudaStream_t stream) {
-  const long long n = static_cast<long long>(Z) * Y * X;
-  const int threads = 256;
-  const long long blocks = (n + threads - 1) / threads;
-  const int grid = static_cast<int>(blocks < (1LL << 30) ? blocks : (1LL << 30));
-  if (grid > 0) lorenzo3d_quantize_kernel<<<grid, threads, 0, stream>>>(x, eb, out, Z, Y, X);
+  const long long warps = static_cast<long long>(Z / repro::TZ) * (Y / Q_ROWS) * (X / repro::TX);
+  const long long grid = (warps + Q_WARPS - 1) / Q_WARPS;
+  if (grid > 0)
+    lorenzo3d_quantize_kernel<<<static_cast<unsigned>(grid), 32 * Q_WARPS, 0, stream>>>(
+        x, eb, out, Z, Y, X);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,6 +1,6 @@
 // Device code shared by the tile-blocked Lorenzo kernels (lorenzo3d.cu and
-// sz_fused.cu): the prediction tile, the quantized residual at one point,
-// and the per-tile three-fold prefix sum with dequantization.
+// sz_fused.cu): the prediction tile, the quantizer, and the per-tile
+// three-fold prefix sum with dequantization.
 //
 // The prediction tile is (8, 64, 128) in (z, y, x) whatever the CTA shape:
 // prediction resets at every tile edge, and that is stream semantics
@@ -31,23 +31,6 @@ __device__ __forceinline__ float inv_two_eb(const float* eb) {
 // jnp.round does (roundf would round half away from zero).
 __device__ __forceinline__ uint32_t quantize(float v, float inv2eb) {
   return static_cast<uint32_t>(__float2int_rn(v * inv2eb));
-}
-
-// Tile-blocked 3-D Lorenzo residual of q at (z, y, x) of a (Z, Y, X) field,
-// (zl, yl, xl) being the point's coordinates inside its tile.  The
-// 8-term inclusion-exclusion over the neighbours' q, with q = 0 outside the
-// tile, equals the reference's sequential z, y, x differencing mod 2^32.
-// Neighbours are re-quantized from x (served by L1/L2) rather than staged.
-__device__ __forceinline__ uint32_t residual_at(const float* __restrict__ x, int Y, int X,
-                                                int z, int y, int xx, int zl, int yl, int xl,
-                                                float inv2eb) {
-  auto q = [&](int dz, int dy, int dx) -> uint32_t {
-    if ((dz && zl == 0) || (dy && yl == 0) || (dx && xl == 0)) return 0u;
-    const size_t i = (static_cast<size_t>(z - dz) * Y + (y - dy)) * X + (xx - dx);
-    return quantize(__ldg(x + i), inv2eb);
-  };
-  return q(0, 0, 0) - q(1, 0, 0) - q(0, 1, 0) - q(0, 0, 1)
-       + q(1, 1, 0) + q(1, 0, 1) + q(0, 1, 1) - q(1, 1, 1);
 }
 
 // Inverse of the residual for one (8, 64, 128) tile: inclusive prefix sums

@@ -124,3 +124,14 @@ def kvc_attention(q: torch.Tensor, k_codes, k_scale, v_codes, v_scale, index) ->
     vector.  Any S: the reference's padding to its chunk has no
     counterpart."""
     return _kvc.kvc_decode_attention(q, k_codes, k_scale, v_codes, v_scale, index)
+
+
+def kvc_attention_paged(q: torch.Tensor, k_pool, k_scale_pool, v_pool, v_scale_pool, page_table,
+                        index) -> torch.Tensor:
+    """K10 read through the page table of the paged pool, dispatched like
+    :func:`kvc_attention`: ``kvc_attention(q, *cache_codes(pool,
+    PagedKV(index, page_table)), index)`` without the gathered copy on the
+    card.  Pools (n_pages, page, Hkv, D) int8 and (n_pages, page, Hkv) f32;
+    ``page_table`` (B, max_pages) int32."""
+    return _kvc.kvc_decode_attention_paged(q, k_pool, k_scale_pool, v_pool, v_scale_pool,
+                                           page_table, index)

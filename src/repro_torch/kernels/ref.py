@@ -96,3 +96,20 @@ def kvc_decode_attention_ref(q, k_codes, k_scale, v_codes, v_scale, index):
     # a uniform average over stale cache rows, as the kernel does
     p = torch.softmax(logits, dim=-1) * mask
     return torch.einsum("bhs,bshd->bhd", p, v).to(q.dtype)
+
+
+def gather_pages(pool: torch.Tensor, page_table: torch.Tensor) -> torch.Tensor:
+    """(n_pages, page, ...) pool + (B, max_pages) table -> (B, max_pages *
+    page, ...): the dense view the reference's ``cache_codes`` stitches (the
+    model layer's gather too).  Unmapped entries point at the zero page."""
+    b, max_pages = page_table.shape
+    g = pool[page_table.to(torch.int64)]  # (B, max_pages, page, ...)
+    return g.reshape((b, max_pages * pool.shape[1]) + tuple(pool.shape[2:]))
+
+
+def kvc_decode_attention_paged_ref(q, k_pool, k_scale_pool, v_pool, v_scale_pool, page_table,
+                                   index):
+    """The plain version of K10's paged entry: the gather through the page
+    table, then :func:`kvc_decode_attention_ref`."""
+    return kvc_decode_attention_ref(q, *(gather_pages(p, page_table) for p in (
+        k_pool, k_scale_pool, v_pool, v_scale_pool)), index)

@@ -39,6 +39,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.ref import gather_pages as _gather_pages  # the paged cache's dense view
 from repro_torch.models.spec import P
 
 # ---------------------------------------------------------------- norms ----
@@ -423,19 +424,10 @@ def cache_update(cache: dict, codec: KVCodecConfig, k_new: torch.Tensor, v_new: 
     return cache
 
 
-def _gather_pages(pool: torch.Tensor, page_table: torch.Tensor) -> torch.Tensor:
-    """(n_pages, page, ...) pool + (B, max_pages) table -> (B, S, ...) view
-    where S = max_pages * page. Unmapped entries point at the zero page."""
-    b, max_pages = page_table.shape
-    page = pool.shape[1]
-    g = pool[page_table.to(torch.int64)]  # (B, max_pages, page, ...)
-    return g.reshape((b, max_pages * page) + tuple(pool.shape[2:]))
-
-
 def cache_codes(cache: dict, index=None):
-    """Raw compressed view (k_codes, k_scale, v_codes, v_scale): K10
-    consumes codes directly, so the KV traffic on the card is the
-    compressed bytes.  Paged caches are stitched through the page table."""
+    """Raw compressed view (k_codes, k_scale, v_codes, v_scale).  Paged
+    caches are stitched through the page table here; K10's paged entry
+    (``kernels.ops.kvc_attention_paged``) reads the pool itself instead."""
     if isinstance(index, PagedKV):
         t = index.page_table
         return (_gather_pages(cache["k_codes"], t), _gather_pages(cache["k_scale"], t),
@@ -475,8 +467,10 @@ def _attend_cached(p: dict, c: AttnConfig, x: torch.Tensor, cache: dict,
     path behind both chunked prefill (T = prompt chunk) and per-slot decode
     (T = 1), for dense and paged caches alike.  ``attention="fused"`` sends
     blockfloat8 decode (T = 1, no window) through K10
-    (:func:`repro_torch.kernels.ops.kvc_attention`); ``plan`` is the
-    call's :func:`attend_plan`, computed here when not given.
+    (:func:`repro_torch.kernels.ops.kvc_attention_paged`, which reads the
+    pool through the page table, or ``kvc_attention`` for a dense cache);
+    ``plan`` is the call's :func:`attend_plan`, computed here when not
+    given.
     """
     start = index.pos if isinstance(index, PagedKV) else index  # (B,)
     t = x.shape[1]
@@ -490,8 +484,13 @@ def _attend_cached(p: dict, c: AttnConfig, x: torch.Tensor, cache: dict,
     if t == 1 and codec.mode == "blockfloat8" and attention == "fused" and c.window is None:
         from repro_torch.kernels import ops as _kops
 
-        kc, ks, vc, vs = cache_codes(cache, index)
-        out = _kops.kvc_attention(q[:, 0].contiguous(), kc, ks, vc, vs, start)[:, None]
+        if isinstance(index, PagedKV):  # read through the page table: no gathered copy
+            out = _kops.kvc_attention_paged(q[:, 0].contiguous(), cache["k_codes"],
+                                            cache["k_scale"], cache["v_codes"], cache["v_scale"],
+                                            index.page_table, start)[:, None]
+        else:
+            kc, ks, vc, vs = cache_codes(cache, index)
+            out = _kops.kvc_attention(q[:, 0].contiguous(), kc, ks, vc, vs, start)[:, None]
     else:
         k, v = cache_read(cache, codec, x.dtype, index)
         k, v = _repeat_kv(k, n_rep), _repeat_kv(v, n_rep)

@@ -26,7 +26,7 @@ from repro_torch import kernels
 from repro_torch.core import interop
 from repro_torch.core import zfp as tzfp
 from repro_torch.core.api import get_compressor
-from repro_torch.data import cosmo, sz_cases, zfp_cases
+from repro_torch.data import cosmo, kvc_cases, sz_cases, zfp_cases
 from repro_torch.kernels import _build
 from repro_torch.kernels import lorenzo3d as tlor
 from repro_torch.kernels import sz_fused as tszf
@@ -242,6 +242,31 @@ def test_cuda_kernels_match_cpu_on_out_of_range_inputs(cuda_device):
             assert _same(got, want)
         assert _same(tzfpf.fused_decompress_blocks(*enc, rate),
                      tzfpf.fused_decompress_blocks(*enc_c, rate))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["256^3", "ragged", "out_of_range"])
+def test_cuda_k1_matches_plain(cuda_device, case):
+    """K1 (a warp per 8 rows of a tile column, walking its planes) bitwise
+    against its plain version on the same CUDA inputs: the main path's
+    256^3 field, a ragged field padded to tiles, and a tile of +-inf, NaN,
+    3e38 and 5e6 at eb 1e-3 (saturated and NaN-to-0 codes)."""
+    if case == "256^3":
+        x = torch.from_numpy(_field((256, 256, 256), seed=4))
+    elif case == "ragged":
+        x = F.pad(torch.from_numpy(_field((20, 130, 300), seed=5)), (0, 84, 0, 62, 0, 4))
+    else:
+        x = torch.from_numpy(_field((16, 128, 256), seed=6))
+        x[0, 0, :5] = torch.tensor([np.inf, -np.inf, np.nan, 3e38, 5e6])
+        x[9, 64, 127] = np.nan
+    x = x.to(cuda_device).contiguous()
+    eb_i = tlor.guarded_eb(x, 1e-3) if case != "out_of_range" else torch.tensor(
+        1e-3, device=cuda_device)
+    before = tlor.launches["lorenzo3d_quantize"]
+    got = tlor.lorenzo3d_quantize(x, eb_i)
+    torch.cuda.synchronize()
+    assert tlor.launches["lorenzo3d_quantize"] == before + 1
+    assert _same(got, tlor.lorenzo3d_quantize_plain(x, eb_i))
 
 
 @pytest.mark.cuda
@@ -581,6 +606,76 @@ def test_cuda_kvc_matches_plain(cuda_device, b, s, h, hkv, d, qdtype):
         assert _bf16_close(scalar, want)
 
 
+def _kvc_pool(seed, b, cap, h, hkv, d, device, qdtype):
+    """``kvc_cases.paged_pool`` at positions from cap / 2 up, lane 0 free and
+    the last lane at the end of its mapped pages."""
+    idx = np.random.default_rng(seed).integers(cap // 2, cap, size=b)
+    idx[0], idx[-1] = -1, cap - 16 - 1
+    return kvc_cases.paged_pool(b, cap, h, hkv, d, qdtype, idx.tolist(), device, seed)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cap", [2048, 32768])
+@pytest.mark.parametrize("qdtype", [torch.float32, torch.bfloat16])
+def test_cuda_kvc_paged_matches_plain(cuda_device, cap, qdtype):
+    """K10's paged entry at starcoder2-3b's serving shape (B = 8, 24/2
+    heads, D = 128, 16-token pages) and at S = 32768, against its plain
+    version (the gather, then ``ref.kvc_decode_attention_ref``) on the same
+    CUDA inputs: f32 within rtol 2e-5 / atol 2e-6, bf16 within one ulp plus
+    2e-6; one launch; a free lane exactly 0; the dense entry on the gathered
+    cache gives the same."""
+    from repro_torch.kernels import kvc_attention as tkvc
+    from repro_torch.kernels import ref as tref
+
+    args = _kvc_pool(cap + 3, 8, cap, 24, 2, 128, cuda_device, qdtype)
+    before = tkvc.launches["kvc_decode_attention"]
+    got = tkvc.kvc_decode_attention_paged(*args)
+    torch.cuda.synchronize()
+    assert tkvc.launches["kvc_decode_attention"] == before + 1
+    want = tref.kvc_decode_attention_paged_ref(*args)
+    assert got.dtype == qdtype and torch.equal(got[0], torch.zeros_like(got[0]))
+    q, kp, ksp, vp, vsp, table, idx = args
+    dense = tkvc.kvc_decode_attention(q, *(tref.gather_pages(p, table) for p in (kp, ksp, vp, vsp)),
+                                      idx)
+    for out in (got, dense):
+        if qdtype == torch.float32:
+            torch.testing.assert_close(out, want, rtol=2e-5, atol=2e-6)
+        else:
+            assert _bf16_close(out, want)
+
+
+@pytest.mark.cuda
+def test_cuda_kvc_entries_capture_in_a_graph_with_clean_tickets(cuda_device):
+    """Both entries captured in a CUDA graph: each replay equals a direct
+    call bit for bit, and the merge tickets are zero after every replay (the
+    merging block resets them)."""
+    from repro_torch.kernels import kvc_attention as tkvc
+    from repro_torch.kernels import ref as tref
+
+    q, kp, ksp, vp, vsp, table, idx = _kvc_pool(7, 8, 2048, 24, 2, 128, cuda_device,
+                                                torch.bfloat16)
+    dense = [tref.gather_pages(p, table) for p in (kp, ksp, vp, vsp)]
+    calls = {"paged": lambda: tkvc.kvc_decode_attention_paged(q, kp, ksp, vp, vsp, table, idx),
+             "dense": lambda: tkvc.kvc_decode_attention(q, *dense, idx)}
+    assert tkvc.split_plan(8, 2, 2048, torch.cuda.get_device_properties(
+        cuda_device).multi_processor_count)[0] > 1  # the merge runs
+    for name, fn in calls.items():
+        direct = fn()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = fn()
+        for _ in range(3):
+            graph.replay()
+            torch.cuda.synchronize()
+            assert torch.equal(out, direct), name
+            assert all(int(t.abs().sum()) == 0 for t in tkvc._TICKETS.values()), name
+
+
 @pytest.mark.cuda
 def test_cuda_kvc_wrapper_refuses_what_the_kernel_does_not_take(cuda_device):
     """A CPU/CUDA mix, a wrong dtype, a non-contiguous input or a head
@@ -602,6 +697,31 @@ def test_cuda_kvc_wrapper_refuses_what_the_kernel_does_not_take(cuda_device):
     for args in bad:
         with pytest.raises(ValueError):
             tkvc.kvc_decode_attention(*args)
+    assert tkvc.launches == before
+
+
+@pytest.mark.cuda
+def test_cuda_kvc_paged_wrapper_refuses_what_the_kernel_does_not_take(cuda_device):
+    """The paged entry refuses a table off the card, of another dtype or
+    batch, a pool whose shapes disagree and a head dim the kernel has no
+    instantiation for, before any launch."""
+    from repro_torch.kernels import kvc_attention as tkvc
+
+    q, kp, ksp, vp, vsp, table, idx = _kvc_pool(9, 2, 64, 4, 2, 16, cuda_device, torch.float32)
+    before = dict(tkvc.launches)
+    bad = [
+        (q, kp, ksp, vp, vsp, table.cpu(), idx), (q, kp, ksp, vp, vsp, table.long(), idx),
+        (q, kp, ksp, vp, vsp, table[:1].contiguous(), idx),
+        (q, kp, ksp[:, :8].contiguous(), vp, vsp, table, idx),
+        (q[..., :8].contiguous(), kp[..., :8].contiguous(), ksp, vp[..., :8].contiguous(), vsp,
+         table, idx),
+        (torch.zeros(2, 4, 48, device=cuda_device), *(torch.zeros(
+            t.shape[:3] + (48,), dtype=torch.int8, device=cuda_device) if t.ndim == 4 else t
+            for t in (kp, ksp, vp, vsp)), table, idx),
+    ]
+    for args in bad:
+        with pytest.raises(ValueError):
+            tkvc.kvc_decode_attention_paged(*args)
     assert tkvc.launches == before
 
 

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time the SZ stream functions (K3, K4 and the batched K8, K9) of one
-source tree on the card.
+"""Time the SZ stream functions (K3, K4 and the batched K8, K9) and the
+quantizer K1 of one source tree on the card.
 
     python3 tools/sz_kernel_times.py [--src PATH] [--label NAME]
 
@@ -11,7 +11,8 @@ eb = 1e-4 x its value range) and the snapshot's first kernel bucket (the
 first four 256^3 fields, each at 1e-4 x its own range):
 
 * ``fused_compress``, ``fused_decompress``, ``fused_compress_batched``,
-  ``fused_decompress_batched``: device ms of one call from CUDA-graph
+  ``fused_decompress_batched``, ``lorenzo3d_quantize`` (K1, on the
+  ``xla`` path's 256^3 field): device ms of one call from CUDA-graph
   replays (median of 5 rounds of 50; null, with the error beside it, where
   the tree's function does not capture) and ``*_call_ms``, an event pair
   around one direct call (host time included), median of 50;
@@ -19,8 +20,9 @@ first four 256^3 fields, each at 1e-4 x its own range):
   ``szk_compress_bucket_ms``, ``szk_decompress_bucket_ms``: the kernel
   bucket's coders, each event-timed, median of 20;
 * ``resources`` and ``sass``: registers, stack and shared memory of each
-  kernel of the tree's ``sz_fused`` library (``cuobjdump -res-usage``) and
-  its static SASS instruction count with the ten most frequent opcodes.
+  kernel of the tree's ``sz_fused`` and ``lorenzo3d`` libraries
+  (``cuobjdump -res-usage``) and their static SASS instruction counts with
+  the ten most frequent opcodes.
 
 The timing is ``tools/cuda_timing.py``'s, as in ``chip_smoke.py``, which
 also holds the kernels to their plain versions; this script only times
@@ -90,6 +92,7 @@ def main() -> int:
         "fused_compress_batched": lambda: szf.fused_compress_batched(xb, eb_rows),
         "fused_decompress_batched": lambda: szf.fused_decompress_batched(enc[0], enc[1], shape,
                                                                          eb_rows),
+        "lorenzo3d_quantize": lambda: lor.lorenzo3d_quantize(x, eb_i),
     }
     out = {
         "label": args.label or str(src),
@@ -120,11 +123,13 @@ def main() -> int:
     out["szk_compress_bucket_ms"] = cuda_ms(lambda: arena.szk_compress_bucket(bxs, kb, beb), 20)
     out["szk_decompress_bucket_ms"] = cuda_ms(lambda: arena.szk_decompress_bucket(a, kb), 20)
 
-    lib = _build.library_path("sz_fused")
-    res = cuobjdump(_build.nvcc(), "-res-usage", str(lib))
-    out["resources"] = {m.group(1): m.group(2).strip()
-                        for m in re.finditer(r"Function (\S+):\s*\n?\s*(REG:.*)", res)}
-    out["sass"] = sass_counts(cuobjdump(_build.nvcc(), "-sass", str(lib)))
+    out["resources"], out["sass"] = {}, {}
+    for name in ("sz_fused", "lorenzo3d"):
+        lib = str(_build.library_path(name))
+        res = cuobjdump(_build.nvcc(), "-res-usage", lib)
+        out["resources"].update({m.group(1): m.group(2).strip()
+                                 for m in re.finditer(r"Function (\S+):\s*\n?\s*(REG:.*)", res)})
+        out["sass"].update(sass_counts(cuobjdump(_build.nvcc(), "-sass", lib)))
     print(json.dumps(out))
     return 0
 
