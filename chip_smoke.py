@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port of TPU-SZ, TPU-ZFP, the in-situ snapshot
-path and blockfloat8 serving on one GPU and check every result.
+path, Foresight, in-situ sharded compression and blockfloat8 serving on one
+GPU and check every result.
 
     python3 chip_smoke.py
 
@@ -75,7 +76,45 @@ Needs one CUDA card and ``nvcc``; it builds the hand-written kernels from
     MB/s, the peak device memory per kernel bucket, the snapshot stages and
     the files written; at small size the card's payload files must equal
     the plain CPU versions' byte for byte;
-12. holds K10 (decode attention over the blockfloat8 KV cache) against its
+12. runs Foresight's CBench (``repro_torch.foresight.cbench.run_sweep``) on
+    the card over the six 256^3 fields: ``tpu-sz`` at eb = {1e-2, 1e-3,
+    1e-4} x value range and ``tpu-zfp`` at rates 4 and 8, 30 cases, warm-up
+    1 and 3 timed calls each way; K3 and K4 must launch exactly 72 times and
+    K6 and K7 48, every SZ case hold its bound, every ZFP ratio be 32/rate
+    and the eb 1e-4 and rate 8 ratios equal phase 3's and 7's.  Prints each
+    case's CBench MB/s (host clock, each call ended by a synchronise) beside
+    the CUDA-event MB/s of phases 3 and 7, and writes the rows and a Cinema
+    database to the gitignored ``chip_smoke_out/foresight/``;
+13. runs the halo gate: ``hacc_particles(grid=64)`` positions (262144
+    particles) through ``tpu-zfp`` at rates 8 and 16 on the card and on the
+    CPU (streams and reconstructions bitwise equal), their FoF catalogs
+    (equal), and ``guideline.evaluate_gates(particles=...)``; prints the
+    halo counts and the worst deviation.  FoF and the P(k) gates of phase
+    14 run on the host in a pool of spawned processes beside the card's
+    work;
+14. runs the §V-D guideline on the card: ``best_fit_per_field`` per 256^3
+    field over the three SZ bounds must pick the passing configuration of
+    highest ratio (the least-bad one where none passes), as the CBench
+    reconstructions gated on the host say; at 64^3 the card's picks and
+    ratios must equal the CPU's (the CPU pinned to the kernel backend's
+    plain versions); then the port's workflow example
+    (``examples/torch_foresight_workflow.py``) at n=64 on the card, its
+    SLURM scripts and Cinema database written;
+15. drives the in-situ sharded path (``repro_torch.dist.insitu``): in a
+    one-rank NCCL group in this process the 256^3 baryon density through
+    ``sz`` core + halo, ``sz`` kernel and ``zfp`` kernel must give the
+    single-device entry points' streams and decodes, bitwise, K3, K4, K6
+    and K7 once each; two-process ``gloo`` groups (``pod`` = 2, (128, 256,
+    256) shards; both ranks on the one card, and again on the CPU), each
+    rank this script run with ``--insitu-rank``, must gather equal streams
+    on card and CPU, decode each shard and (``host_decode``) the whole
+    field bitwise as the single device does, send only faces, scalars and
+    compressed payloads (counted exactly), and launch each kernel once per
+    shard; ``CheckpointManager`` saves every host stream as ``insitu-*``
+    shard files and restores them on the card, bitwise;
+16. prints each of these phases' wall time and their K3, K4, K6 and K7
+    launches, which the kernel line below adds to the main paths';
+17. holds K10 (decode attention over the blockfloat8 KV cache) against its
     plain version on the card: the dense entry at the reference tests'
     shapes (f32 query, rtol 2e-5 / atol 2e-6), and both entries at the
     serving shape (B=8, S=2048, H=24, Hkv=2, D=128, bf16 query, one lane at
@@ -84,7 +123,7 @@ Needs one CUDA card and ``nvcc``; it builds the hand-written kernels from
     S=32768 (``decode_32k``); the paged entry reads a pool of 16-token
     pages through a permuted page table with a page id used twice and an
     unmapped entry at the zero page, against the gather + plain K10;
-13. serves starcoder2-3b at full width (random bf16 weights drawn on the
+18. serves starcoder2-3b at full width (random bf16 weights drawn on the
     card from a seeded ``torch.Generator``) through ``ServingEngine``:
     8 slots, max_len 2048, paged blockfloat8 pool of 16-token pages,
     greedy, ``attention="auto"``; 12 requests of 256-1024 prompt tokens
@@ -99,13 +138,13 @@ Needs one CUDA card and ``nvcc``; it builds the hand-written kernels from
     prefill ms, the median tick, decode tokens/s, K10's share of a tick,
     the pool's bytes, peak device memory and a profiled tick's kernel
     launches and device busy share.  TF32 is off throughout;
-14. runs the SMOKE config on the card (K10) and on the CPU (K10's plain
+19. runs the SMOKE config on the card (K10) and on the CPU (K10's plain
     version, ``attention="fused"``) with the same parameters and prompts:
     greedy tokens agree in at least 6 of 8 per request
     (``tests/test_serving.py``'s bar).  The CPU's ``xla`` path is another
     function in bfloat16 (it rounds attention logits and probabilities to
     bfloat16, as the reference's does), so its agreement is printed only;
-15. prints the ZFP stage times and one JSON line of per-kernel numbers for
+20. prints the ZFP stage times and one JSON line of per-kernel numbers for
     K1-K10 (launches, max difference from the plain version (K10's at the
     serving shape with its bf16 query), device ms at the main path's
     shapes from CUDA-graph replays (every wrapper captures), the plain
@@ -126,13 +165,18 @@ directory without the rest of the repository.
 
 from __future__ import annotations
 
+import importlib.util
 import json
+import multiprocessing
+import pickle
 import re
 import shutil
+import socket
 import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ProcessPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -145,7 +189,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "tools"))
 # These fail, and the script exits non-zero, outside a checkout of the repository.
 from repro_torch import kernels  # noqa: E402
 from repro_torch import tree as tree_util  # noqa: E402
-from repro_torch.analysis import metrics, spectrum  # noqa: E402
+from repro_torch.analysis import halos, metrics, spectrum  # noqa: E402
 from repro_torch.checkpoint import manager as ckpt  # noqa: E402
 from repro_torch.configs import registry  # noqa: E402
 from repro_torch.core import arena  # noqa: E402
@@ -154,7 +198,8 @@ from repro_torch.core import sz as sz_core  # noqa: E402
 from repro_torch.core import zfp as zfp_core  # noqa: E402
 from repro_torch.core.api import get_compressor  # noqa: E402
 from repro_torch.data import cosmo, kvc_cases, sz_cases, zfp_cases  # noqa: E402
-from repro_torch.dist import insitu  # noqa: E402
+from repro_torch.dist import insitu, sharding  # noqa: E402
+from repro_torch.foresight import cbench, cinema, guideline  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels import kvc_attention as k10  # noqa: E402
 from repro_torch.kernels import lorenzo3d as lor  # noqa: E402
@@ -486,7 +531,8 @@ def main_path(fields: dict, device) -> dict[str, int]:
         orig, recon = fields[name], xr.cpu().numpy()
         d = metrics.distortion(orig, recon)
         ok, dev = spectrum.pk_gate(orig, recon)
-        rates = rate_line(comp, lambda: comp.compress(x, eb=ebs[name]), r)
+        rates = rate_line(comp, lambda: comp.compress(x, eb=ebs[name]), r, ("tpu-sz", name),
+                          {"eb": ebs[name]})
         print(f"{name:20s} eb={ebs[name]:.6g} ratio={r.ratio:.4f} bitrate={r.bitrate:.4f} "
               f"psnr={d.psnr:.4f}dB max_err={err:.6g} pk_gate={'PASS' if ok else 'FAIL'} "
               f"(dev {dev:.6f}) {rates}")
@@ -530,16 +576,21 @@ def core_backend(baryon, vx, device) -> None:
           f"max_rel_err={rel:.6g}")
 
 
-def rate_line(comp, compress, r) -> str:
+def rate_line(comp, compress, r, key=None, config=None) -> str:
     """Compress and decompress MB/s of one field: median [slowest..fastest]
     of TIMING_ITERS CUDA-event-timed entry-point calls after a warm-up;
-    ``compress()`` compresses the field, ``r`` is its result."""
+    ``compress()`` compresses the field, ``r`` is its result.  With a
+    ``key``, the medians, ratio and ``config`` are kept in ``EVENT_MBS`` for
+    the CBench phase to print beside its own."""
     mb = r.raw_nbytes / 1e6
-    out = []
+    out, med = [], {}
     for what, fn in (("compress", compress), ("decompress", lambda: comp.decompress(r))):
         ms = sorted(cuda_times(fn, TIMING_ITERS))
-        out.append(f"{what}={mb / statistics.median(ms) * 1e3:.1f}MB/s "
+        med[what] = mb / statistics.median(ms) * 1e3
+        out.append(f"{what}={med[what]:.1f}MB/s "
                    f"[{mb / ms[-1] * 1e3:.1f}..{mb / ms[0] * 1e3:.1f}]")
+    if key is not None:
+        EVENT_MBS[key] = {**med, "ratio": r.ratio, "config": config}
     return " ".join(out)
 
 
@@ -606,7 +657,8 @@ def zfp_main_path(fields: dict, device) -> dict[str, int]:
         orig, recon = fields[name], xr.cpu().numpy()
         d = metrics.distortion(orig, recon)
         ok, dev = spectrum.pk_gate(orig, recon)
-        rates = rate_line(comp, lambda: comp.compress(x, rate=ZFP_RATE), r)
+        rates = rate_line(comp, lambda: comp.compress(x, rate=ZFP_RATE), r, ("tpu-zfp", name),
+                          {"rate": ZFP_RATE})
         print(f"zfp {name:20s} rate={ZFP_RATE} ratio={r.ratio:.4f} bitrate={r.bitrate:.4f} "
               f"psnr={d.psnr:.4f}dB max_err={d.max_abs_err:.6g} "
               f"pk_gate={'PASS' if ok else 'FAIL'} (dev {dev:.6f}) {rates}")
@@ -1508,6 +1560,486 @@ def k10_times(device, serving: dict, resources: dict) -> tuple[dict, dict]:
     return row, rows["decode_32k"]
 
 
+# ------------------------------------------------- Foresight and in-situ ----
+
+FORESIGHT_RELS = (1e-2, 1e-3, 1e-4)  # SZ bounds x value range: CBench sweep and guideline
+FORESIGHT_RATES = (4, 8)  # ZFP rates of the CBench sweep
+HALO_GRID = 64  # hacc_particles grid of the halo gate: 262144 particles
+HALO_RATES = (8, 16)
+HOST_WORKERS = 6  # processes for the host-side analyses (FoF catalogs, P(k) gates)
+FORESIGHT_OUT = Path(__file__).resolve().parent / "chip_smoke_out" / "foresight"  # gitignored
+INSITU_DIR = SNAPSHOT_DIR / "insitu"  # gitignored; removed at the end
+INSITU_AXES = ("pod", "data", "model")
+INSITU_POD = 2  # ranks of the two-process group, (128, 256, 256) shards at 256^3
+# labels of the in-situ runs: codec and sharded_compress keywords
+INSITU_CASES = {"sz-core": ("sz", {}), "sz-kernel": ("sz", {"backend": "kernel"}),
+                "zfp": ("zfp", {"rate": ZFP_RATE})}
+INSITU_LAUNCHES = {"sz-core": {}, "sz-kernel": {"fused_compress": 1, "fused_decompress": 1},
+                   "zfp": {"fused_compress_blocks": 1, "fused_decompress_blocks": 1}}
+FORESIGHT_KERNELS = ("fused_compress", "fused_decompress", "fused_compress_blocks",
+                     "fused_decompress_blocks")
+EVENT_MBS: dict = {}  # (compressor, field) -> phase 3 / 7 ratio and event-timed MB/s
+
+
+def host_timed(fn, *args, **kwargs):
+    """``(fn(*args, **kwargs), its host seconds)``: run in the host pool."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kwargs)
+    return out, time.perf_counter() - t0
+
+
+def sz_configs(v) -> list[dict]:
+    """The SZ configurations of the sweep: eb = rel x value range, as phase 3
+    computes its bound (eb 1e-4 x range is phase 3's)."""
+    return [{"eb": rel * float(v.max() - v.min())} for rel in FORESIGHT_RELS]
+
+
+def read_counts(want: dict) -> dict[str, int]:
+    """The launch counts of the path just driven, held to ``want`` exactly
+    (kernels absent from ``want`` must not have launched)."""
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    got = {k: v for k, v in counts.items() if v}
+    check(got == {k: v for k, v in want.items() if v},
+          f"launches {got}, want {want}")
+    return {k: counts[k] for k in FORESIGHT_KERNELS}
+
+
+def cbench_sweep(fields: dict, device) -> tuple[dict, list]:
+    """Foresight's CBench over the six 256^3 fields: tpu-sz at three bounds
+    and tpu-zfp at two rates, warm-up 1 and 3 timed calls each way, so K3
+    and K4 launch 72 times and K6 and K7 48."""
+    spec = {"cases": [{"compressor": "tpu-sz", "fields": [name], "configs": sz_configs(v)}
+                      for name, v in fields.items()]
+            + [{"compressor": "tpu-zfp", "fields": list(fields),
+                "configs": [{"rate": r} for r in FORESIGHT_RATES]}]}
+    kernels.reset_launch_counts()
+    rows = cbench.run_sweep(spec, fields, keep_reconstruction=True, device=device)
+    n_sz, n_zfp = 6 * len(FORESIGHT_RELS), 6 * len(FORESIGHT_RATES)
+    launches = read_counts({"fused_compress": 4 * n_sz, "fused_decompress": 4 * n_sz,
+                            "fused_compress_blocks": 4 * n_zfp,
+                            "fused_decompress_blocks": 4 * n_zfp})
+    check(len(rows) == n_sz + n_zfp, f"{len(rows)} CBench rows")
+    print("CBench (host perf_counter over 3 calls after 1 warm-up, each ended by "
+          "torch.cuda.synchronize) beside phase 3 / 7's CUDA-event medians, MB/s:")
+    for r in rows:
+        ev = EVENT_MBS.get((r.compressor, r.field))
+        if r.compressor == "tpu-sz":
+            eb = r.config["eb"]
+            check(r.max_abs_err <= eb * (1 + 1e-5), f"CBench {r.field} eb {eb}: max err "
+                  f"{r.max_abs_err}")
+            same_cfg = ev is not None and eb == ev["config"]["eb"]
+        else:
+            check(r.ratio == 32 / r.config["rate"], f"CBench ZFP ratio {r.ratio} at {r.config}")
+            same_cfg = ev is not None and r.config["rate"] == ev["config"]["rate"]
+        if same_cfg:
+            check(r.ratio == ev["ratio"], f"CBench {r.compressor} {r.field} ratio {r.ratio} != "
+                  f"the main path's {ev['ratio']}")
+        event = (f"event compress={ev['compress']:.1f} decompress={ev['decompress']:.1f}"
+                 if same_cfg else "event -")
+        print(f"  {r.compressor:7s} {r.field:20s} {json.dumps(r.config):24s} ratio={r.ratio:.4f} "
+              f"psnr={r.psnr:.4f}dB max_err={r.max_abs_err:.6g} cbench "
+              f"compress={r.throughput_c_mbs:.1f} decompress={r.throughput_d_mbs:.1f} {event}")
+    FORESIGHT_OUT.mkdir(parents=True, exist_ok=True)
+    cbench.save_results(rows, FORESIGHT_OUT / "cbench.json")
+    db = cinema.CinemaDatabase(FORESIGHT_OUT / "cinema_db", name="chip-smoke-cbench")
+    for r in rows:
+        db.add_case({k: v for k, v in r.row().items() if k != "config"} | {"config": str(r.config)})
+    print(f"CBench rows and Cinema database written to {FORESIGHT_OUT} "
+          f"({db.write().name}, {len(rows)} cases)")
+    return launches, rows
+
+
+def halo_recon(snap, comp, rate: int, device) -> tuple[np.ndarray, list]:
+    """x, y, z through ``comp`` at ``rate``: the reconstructed positions
+    and each coordinate's stream."""
+    cols, parts = [], []
+    for c in ("x", "y", "z"):
+        v = torch.as_tensor(snap.fields[c], device=device)
+        r = comp.compress(v, rate=rate)
+        parts.append(r.payload["parts"][0])
+        cols.append(comp.decompress(r).cpu().numpy())
+    return np.stack(cols, axis=1), parts
+
+
+def halo_start(pool, device) -> tuple[dict, dict]:
+    """HACC positions through tpu-zfp on the card and on the CPU (bitwise
+    equal), then the FoF catalogs and ``evaluate_gates`` handed to the host
+    pool; :func:`halo_finish` reads them."""
+    snap = cosmo.hacc_particles(grid=HALO_GRID)
+    pos = snap.positions()
+    gpu, cpu = get_compressor("tpu-zfp"), get_compressor("tpu-zfp", device="cpu")
+    kernels.reset_launch_counts()
+    card = {rate: halo_recon(snap, gpu, rate, device) for rate in HALO_RATES}
+    n = 3 * len(HALO_RATES)
+    launches = read_counts({"fused_compress_blocks": n, "fused_decompress_blocks": n})
+    jobs = {"orig": pool.submit(host_timed, halos.fof_halos, pos, snap.box)}
+    for rate in HALO_RATES:
+        host, parts = halo_recon(snap, cpu, rate, "cpu")
+        check(all(same_zfp(a, b) for a, b in zip(card[rate][1], parts)),
+              f"halo gate rate {rate}: card and CPU streams differ")
+        check(np.array_equal(card[rate][0].view(np.int32), host.view(np.int32)),
+              f"halo gate rate {rate}: card and CPU reconstructions differ")
+        jobs[("card", rate)] = pool.submit(host_timed, halos.fof_halos, card[rate][0], snap.box)
+        jobs[("cpu", rate)] = pool.submit(host_timed, halos.fof_halos, host, snap.box)
+        jobs[("gates", rate)] = pool.submit(host_timed, guideline.evaluate_gates, {}, {},
+                                            particles=(pos, card[rate][0], snap.box))
+    print(f"halo gate: hacc_particles(grid={HALO_GRID}) x, y, z ({len(pos)} particles) through "
+          f"tpu-zfp at rates {HALO_RATES} on the card == on the CPU, bitwise; FoF on the host")
+    return jobs, launches
+
+
+def halo_finish(jobs: dict) -> None:
+    t0 = time.perf_counter()
+    results = {k: f.result() for k, f in jobs.items()}
+    orig = results["orig"][0]
+    for rate in HALO_RATES:
+        card, host = results[("card", rate)][0], results[("cpu", rate)][0]
+        check(np.array_equal(card.labels, host.labels) and np.array_equal(card.sizes, host.sizes)
+              and card.n_halos == host.n_halos, f"halo catalogs of card and CPU differ at {rate}")
+        ok, dev = halos.halo_gate(orig, card)
+        passed, worst_pk, worst_halo = results[("gates", rate)][0]
+        check(worst_halo == dev and worst_pk == 0.0 and passed == (dev <= 0.1),
+              f"evaluate_gates at rate {rate}: {passed, worst_pk, worst_halo}, halo_gate {ok, dev}")
+        print(f"halo gate rate {rate}: n_halos {card.n_halos} (original {orig.n_halos}), "
+              f"worst halo deviation {worst_halo:.6f}, evaluate_gates passed={passed}")
+    print(f"halo catalogs waited for {time.perf_counter() - t0:.2f} s after the guideline; "
+          "host seconds (FoF in a pool process; evaluate_gates runs FoF twice): "
+          + json.dumps({str(k): round(v[1], 3) for k, v in results.items()}))
+
+
+def guideline_on_card(fields: dict, rows: list, pool, device) -> dict:
+    """§V-D on the card: ``best_fit_per_field`` per 256^3 field over the
+    three SZ bounds must pick the passing configuration with the highest
+    ratio (the least-bad one where none passes), as the CBench sweep's
+    reconstructions gated on the host say."""
+    gates = {(r.field, r.config["eb"]): (r.ratio, pool.submit(host_timed, spectrum.pk_gate,
+                                                              fields[r.field], r.reconstructed))
+             for r in rows if r.compressor == "tpu-sz"}
+    kernels.reset_launch_counts()
+    picks = {name: guideline.best_fit_per_field({name: v}, "tpu-sz", sz_configs(v),
+                                                device=device).field_results[name]
+             for name, v in fields.items()}
+    n = 6 * len(FORESIGHT_RELS)
+    launches = read_counts({"fused_compress": 4 * n, "fused_decompress": 4 * n})
+    for name, v in fields.items():
+        cand = [(cfg, gates[(name, cfg["eb"])][0], gates[(name, cfg["eb"])][1].result()[0])
+                for cfg in sz_configs(v)]
+        passing = [c for c in cand if c[2][0]]
+        want = (max(passing, key=lambda c: c[1]) if passing
+                else min(cand, key=lambda c: c[2][1]))
+        got = picks[name]
+        check(got.config == want[0] and got.ratio == want[1] and got.passed == want[2][0]
+              and got.worst_pk_dev == want[2][1],
+              f"guideline {name}: picked {got.config} ({got.ratio}, {got.passed}), want {want}")
+        print(f"guideline {name:20s} pick eb={got.config['eb']:.6g} ratio={got.ratio:.4f} "
+              f"passed={got.passed} worst_pk_dev={got.worst_pk_dev:.6f} (gates: "
+              + ", ".join(f"{c[1]:.3f}x {'PASS' if c[2][0] else 'fail'} {c[2][1]:.4f}"
+                          for c in cand) + ")")
+    pk_s = sorted(f.result()[1] for _ratio, f in gates.values())
+    print(f"host pk_gate at {N}^3 in a pool process: median {statistics.median(pk_s):.3f} s "
+          f"[{pk_s[0]:.3f}..{pk_s[-1]:.3f}] over {len(pk_s)}")
+    return launches
+
+
+def guideline_card_vs_cpu(small: dict, device) -> None:
+    """The guideline at 64^3 on the card and on the CPU give the same picks
+    and ratios.  The card's ``auto`` backend is the kernel and the CPU's the
+    core coder, so the CPU run is pinned to the kernel backend's plain
+    versions (the tests hold those to the JAX package)."""
+    def fits(dev):
+        return {name: guideline.best_fit_per_field({name: v}, "tpu-sz", sz_configs(v),
+                                                   device=dev).field_results[name]
+                for name, v in small.items()}
+
+    card = fits(device)
+    default = cbench.get_compressor
+    cbench.get_compressor = lambda name, **kw: default(name, backend="kernel", **kw)
+    try:
+        host = fits("cpu")
+    finally:
+        cbench.get_compressor = default
+    for name in small:
+        a, b = card[name], host[name]
+        check((a.config, a.ratio, a.passed, a.worst_pk_dev) == (b.config, b.ratio, b.passed,
+                                                                b.worst_pk_dev),
+              f"guideline {name} at {SMALL_N}^3: card {a} != CPU {b}")
+    print(f"guideline at {SMALL_N}^3: card == CPU (kernel backend) picks and ratios, six fields")
+
+
+def pat_workflow(device) -> dict:
+    """The port's Foresight workflow example at n=64 on the card, locally,
+    its SLURM submission script written beside the Cinema database."""
+    path = Path(__file__).resolve().parent / "examples" / "torch_foresight_workflow.py"
+    spec = importlib.util.spec_from_file_location("torch_foresight_workflow", path)
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    out = FORESIGHT_OUT / "workflow"
+    kernels.reset_launch_counts()
+    res = example.main(["--device", device.type, "--out", str(out), "--n", str(SMALL_N)])
+    launches = read_counts({"fused_compress": 20, "fused_decompress": 20,
+                            "fused_compress_blocks": 16, "fused_decompress_blocks": 16})
+    sbatch = sorted(p.name for p in (out / "foresight-demo_jobs").glob("*.sbatch"))
+    check((out / "submit_all.sh").is_file() and len(sbatch) == 4, f"SLURM scripts {sbatch}")
+    check(len(res["spectra"]) == 9 and res["cinema"].is_file(), "workflow results")
+    print(f"PAT workflow example on {device.type} at n={SMALL_N}: SLURM submission script and {sbatch} "
+          f"written, {len(res['spectra'])} Cinema cases")
+    return launches
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def insitu_start(base: np.ndarray, eb: float) -> list:
+    """Start the two-process gloo groups (``pod`` = 2) on the card (both
+    ranks on cuda:0: NCCL refuses two ranks on one device) and on the CPU;
+    each rank runs :func:`insitu_worker` in a fresh process of this script."""
+    shutil.rmtree(INSITU_DIR, ignore_errors=True)
+    INSITU_DIR.mkdir(parents=True)
+    np.save(INSITU_DIR / "field.npy", base)
+    procs = []
+    for dev in ("cuda", "cpu"):
+        port = free_port()
+        for rank in range(INSITU_POD):
+            log = open(INSITU_DIR / f"{dev}_r{rank}.log", "w")
+            procs.append(subprocess.Popen(
+                [sys.executable, str(Path(__file__).resolve()), "--insitu-rank", str(rank),
+                 str(INSITU_POD), str(port), dev, str(INSITU_DIR), repr(eb)],
+                stdout=log, stderr=subprocess.STDOUT))
+    return procs
+
+
+def insitu_worker(argv: list[str]) -> int:
+    """One rank of a two-process group: its (128, 256, 256) shard of the
+    256^3 baryon density through the three in-situ runs; writes its decoded
+    shard, launch counts, bytes sent and (rank 0) the gathered host stream."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+    from torch.distributed.tensor import DTensor
+
+    rank, world, port, dev, out, eb = (int(argv[0]), int(argv[1]), argv[2], argv[3],
+                                       Path(argv[4]), float(argv[5]))
+    torch.set_num_threads(2)
+    if dev == "cuda":
+        torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", world_size=world,
+                            rank=rank)
+    try:
+        mesh = DeviceMesh(dev, torch.arange(world).reshape(world, 1, 1),
+                          mesh_dim_names=INSITU_AXES)
+        x = np.load(out / "field.npy", mmap_mode="r")
+        spec = sharding.field_spec(x.shape, mesh)
+        n = x.shape[0] // world
+        local = torch.from_numpy(np.array(x[rank * n:(rank + 1) * n])).to(dev)
+        field = DTensor.from_local(local, mesh, sharding.placements(spec, mesh), run_check=False,
+                                   shape=x.shape, stride=(x.shape[1] * x.shape[2], x.shape[2], 1))
+        res = {"spec": spec}
+        for label, (codec, kw) in INSITU_CASES.items():
+            kernels.reset_launch_counts()
+            insitu.reset_sent_bytes()
+            t0 = time.perf_counter()
+            st = insitu.sharded_compress(field, codec, mesh, eb=eb if codec == "sz" else None,
+                                         **kw)
+            if dev == "cuda":
+                torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            y = insitu.sharded_decompress(st, mesh).to_local()
+            if dev == "cuda":
+                torch.cuda.synchronize()
+            seconds = (t1 - t0, time.perf_counter() - t1)
+            launches = {k: v for k, v in kernels.launch_counts().items() if v}
+            ratio = insitu.compression_ratio(st)
+            hss = insitu.to_host(st)
+            np.save(out / f"{dev}_{label}_r{rank}.npy", y.cpu().numpy())
+            res[label] = {"launches": launches, "sent": dict(insitu.sent_bytes), "ratio": ratio,
+                          "position": st.position, "hss": hss, "seconds": seconds}
+        with open(out / f"{dev}_r{rank}.pkl", "wb") as f:
+            pickle.dump(res, f)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def same_hss(a, b) -> bool:
+    if (a.codec, a.shape, a.local_shape, a.grid, a.halo, a.backend, a.params) != \
+            (b.codec, b.shape, b.local_shape, b.grid, b.halo, b.backend, b.params):
+        return False
+    return all(ia == ib and sorted(ba) == sorted(bb)
+               and all(np.array_equal(np.asarray(ba[k]), np.asarray(bb[k])) for k in ba)
+               for (ia, ba), (ib, bb) in zip(a.shards, b.shards))
+
+
+def insitu_one_rank(base: torch.Tensor, eb: float, device) -> tuple[dict, dict, dict]:
+    """A one-rank NCCL group in this process: the 256^3 baryon density
+    through ``sz`` core + halo, ``sz`` kernel and ``zfp`` kernel equals the
+    single-device entry points, stream and decode; each kernel launches once
+    per shard.  Returns the single-device decodes, the host streams and the
+    launches."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}", world_size=1,
+                            rank=0)
+    try:
+        mesh = init_device_mesh("cuda", (1, 1, 1), mesh_dim_names=INSITU_AXES)
+        spec = sharding.field_spec(base.shape, mesh)
+        single = {"sz-core": get_compressor("tpu-sz", backend="core"),
+                  "sz-kernel": get_compressor("tpu-sz", backend="kernel"),
+                  "zfp": get_compressor("tpu-zfp")}
+        decodes, streams, total = {}, {}, dict.fromkeys(FORESIGHT_KERNELS, 0)
+        for label, (codec, kw) in INSITU_CASES.items():
+            comp = single[label]
+            r = comp.compress(base, eb=eb) if codec == "sz" else comp.compress(base, **kw)
+            decodes[label] = comp.decompress(r)
+            kernels.reset_launch_counts()
+            st = insitu.sharded_compress(base, codec, mesh, spec,
+                                         eb=eb if codec == "sz" else None, **kw)
+            y = insitu.sharded_decompress(st, mesh).to_local()
+            for k, v in read_counts(INSITU_LAUNCHES[label]).items():
+                total[k] += v
+            if codec == "sz":
+                p = r.payload["kpacked"] if label == "sz-kernel" else r.payload["parts"][0].packed
+                check(same(st.words, p.words) and same(st.widths, p.widths)
+                      and int(st.total_bits) == int(p.total_bits),
+                      f"in-situ {label}: one-rank stream != the single-device entry point's")
+            else:
+                check(same_zfp(zfp_core.ZFPCompressed(st.words, st.emax, st.gtops, tuple(
+                    base.shape), st.rate), r.payload["parts"][0]),
+                    f"in-situ {label}: one-rank stream != the single-device entry point's")
+            check(same(y, decodes[label]), f"in-situ {label}: one-rank decode != single-device")
+            streams[label] = insitu.to_host(st)
+        print("in-situ one-rank group (NCCL): sz core+halo, sz kernel and zfp kernel streams and "
+              "decodes == the single-device entry points, bitwise; K3, K4, K6, K7 once each")
+    finally:
+        dist.destroy_process_group()
+    return decodes, streams, total
+
+
+def insitu_finish(procs: list, decodes: dict, one_rank: dict, device) -> dict:
+    """Read the two-process groups: their gathered streams equal across card
+    and CPU, each decoded shard and (every run) ``host_decode`` equal the
+    single-device decode, each rank sends faces, scalars and its compressed
+    payload only, and K3, K4, K6, K7 launch once per shard on the card.
+    Then ``CheckpointManager`` saves and restores every host stream."""
+    t0 = time.perf_counter()
+    for p in procs:
+        try:
+            rc = p.wait(timeout=600)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            rc = "timeout"
+        if rc != 0:
+            logs = "\n".join(q.read_text()[-3000:] for q in sorted(INSITU_DIR.glob("*.log")))
+            raise RuntimeError(f"chip_smoke check failed: in-situ rank exited {rc}\n{logs}")
+    print(f"in-situ two-process groups waited for {time.perf_counter() - t0:.2f} s")
+    res = {(dev, r): pickle.load(open(INSITU_DIR / f"{dev}_r{r}.pkl", "rb"))
+           for dev in ("cuda", "cpu") for r in range(INSITU_POD)}
+    total = dict.fromkeys(FORESIGHT_KERNELS, 0)
+    n = decodes["sz-core"].shape[0] // INSITU_POD
+    face = 4 * decodes["sz-core"].shape[1] * decodes["sz-core"].shape[2]
+    for label, (codec, _kw) in INSITU_CASES.items():
+        hss = {dev: res[(dev, 0)][label]["hss"] for dev in ("cuda", "cpu")}
+        check(same_hss(hss["cuda"], hss["cpu"]), f"in-situ {label}: card and CPU streams differ")
+        check(hss["cuda"].grid == (INSITU_POD, 1, 1), f"in-situ {label}: grid {hss['cuda'].grid}")
+        for (dev, r), out in res.items():
+            got = out[label]
+            want = INSITU_LAUNCHES[label] if dev == "cuda" else {}
+            check(got["launches"] == want, f"in-situ {label} {dev} rank {r}: {got['launches']}")
+            for k, v in got["launches"].items():
+                total[k] += v
+            y = np.load(INSITU_DIR / f"{dev}_{label}_r{r}.npy")
+            check(np.array_equal(y.view(np.int32),
+                                 decodes[label][r * n:(r + 1) * n].cpu().numpy().view(np.int32)),
+                  f"in-situ {label} {dev} rank {r}: decoded shard != single-device decode")
+            blobs = hss["cuda"].shards[r][1]
+            sent = {"ppermute": face * (1 + 1) * (r == 0) if label == "sz-core" else 0,
+                    "all_reduce": (4 + 8) if codec == "sz" else 0,
+                    "gather": sum(np.asarray(a).nbytes for a in blobs.values()) if r else 0}
+            check(got["sent"] == sent and sum(sent.values()) < 4 * decodes[label][:n].numel(),
+                  f"in-situ {label} {dev} rank {r}: sent {got['sent']}, want {sent}")
+        check(same(insitu.host_decode(hss["cuda"], device=device), decodes[label]),
+              f"in-situ {label}: host_decode != single-device decode")
+        print(f"in-situ {label} two-process gloo ({INSITU_POD} x {hss['cuda'].local_shape}): "
+              f"card == CPU streams, decodes == single-device, ratio "
+              f"{res[('cuda', 0)][label]['ratio']:.4f}, bytes sent by rank 0 / 1: "
+              f"{res[('cuda', 0)][label]['sent']} / {res[('cuda', 1)][label]['sent']}; "
+              "host s (compress, decompress; first call of the process) card "
+              + ", ".join(f"{res[('cuda', r)][label]['seconds'][0]:.4f}/"
+                          f"{res[('cuda', r)][label]['seconds'][1]:.4f}" for r in range(INSITU_POD))
+              + " CPU " + ", ".join(f"{res[('cpu', r)][label]['seconds'][0]:.4f}/"
+                                    f"{res[('cpu', r)][label]['seconds'][1]:.4f}"
+                                    for r in range(INSITU_POD)))
+    mgr = ckpt.CheckpointManager(INSITU_DIR / "ckpt", async_save=False)
+    state = {"one_rank": one_rank,
+             "two_rank": {lb: res[("cuda", 0)][lb]["hss"] for lb in INSITU_CASES}}
+    mgr.save(1, state)
+    saved = mgr.last_result
+    back, _ = mgr.restore(state_like=state)
+    for group in ("one_rank", "two_rank"):
+        for label in INSITU_CASES:
+            check(same(back[group][label], decodes[label]),
+                  f"in-situ {group} {label}: restored leaf != single-device decode")
+    files = sorted(p.name for p in (INSITU_DIR / "ckpt" / "step_000000001").glob("leaf_*"))
+    print(f"CheckpointManager saved {len(files)} insitu-* shard files (ratio "
+          f"{saved.ratio:.4f}) and restored all six leaves on the card, bitwise")
+    return total
+
+
+def foresight_and_insitu(fields: dict, small: dict, base, eb: float, device) -> dict:
+    """The Foresight and in-situ phases, each timed; returns the launches of
+    K3, K4, K6 and K7 over all of them (the two-process groups' included).
+    The host analyses (FoF catalogs, P(k) gates) run in a pool of processes
+    beside the card's phases, the two-process groups in their own."""
+    total = dict.fromkeys(FORESIGHT_KERNELS, 0)
+
+    def phase(label, t0, launches=None):
+        for k, v in (launches or {}).items():
+            total[k] += v
+        print(f"phase {label}: {time.perf_counter() - t0:.2f} s")
+
+    t0 = time.perf_counter()
+    launches, rows = cbench_sweep(fields, device)
+    phase("CBench sweep (30 cases at 256^3)", t0, launches)
+    t_all = time.perf_counter()
+    procs = insitu_start(fields["baryon_density"], eb)
+    pool = ProcessPoolExecutor(HOST_WORKERS, mp_context=multiprocessing.get_context("spawn"))
+    try:
+        t0 = time.perf_counter()
+        jobs, launches = halo_start(pool, device)
+        phase("halo gate, card and CPU reconstructions (FoF queued)", t0, launches)
+        t0 = time.perf_counter()
+        launches = guideline_on_card(fields, rows, pool, device)
+        del rows
+        phase("guideline at 256^3", t0, launches)
+        t0 = time.perf_counter()
+        guideline_card_vs_cpu(small, device)
+        phase(f"guideline card vs CPU at {SMALL_N}^3", t0)
+        t0 = time.perf_counter()
+        phase("PAT workflow example", t0, pat_workflow(device))
+        t0 = time.perf_counter()
+        decodes, streams, launches = insitu_one_rank(base, eb, device)
+        phase("in-situ one-rank group", t0, launches)
+        t0 = time.perf_counter()
+        phase("in-situ two-process groups and checkpoint", t0,
+              insitu_finish(procs, decodes, streams, device))
+        t0 = time.perf_counter()
+        halo_finish(jobs)
+        phase("halo gate, FoF results", t0)
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(INSITU_DIR, ignore_errors=True)
+    print(f"phase Foresight and in-situ after the sweep: {time.perf_counter() - t_all:.2f} s; "
+          f"their launches: {json.dumps(total)}")
+    return total
+
+
 def run(device) -> dict:
     t0 = time.perf_counter()
     logs = _build.build(verbose=True)
@@ -1565,6 +2097,8 @@ def run(device) -> dict:
     finally:
         shutil.rmtree(SNAPSHOT_DIR, ignore_errors=True)
 
+    foresight = foresight_and_insitu(fields, small, base, ebs["baryon_density"], device)
+
     torch.backends.cuda.matmul.allow_tf32 = False  # the comparison phases run in full f32
     torch.backends.cudnn.allow_tf32 = False
     print("TF32 off from here: torch.backends.cuda.matmul.allow_tf32 = "
@@ -1595,7 +2129,7 @@ def run(device) -> dict:
     for name, (kid, source, replaces) in KERNELS.items():
         t = times[name]
         rows.append({"name": f"{kid} {name}", "route": "cuda", "source": source,
-                     "replaces": replaces, "launches": launches[name],
+                     "replaces": replaces, "launches": launches[name] + foresight.get(name, 0),
                      "max_abs_err": worst[name], "ms": t["ms"], "plain_ms": t["plain_ms"],
                      "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                      "library_ms": t.get("library_ms")})
@@ -1603,6 +2137,8 @@ def run(device) -> dict:
 
 
 def main() -> int:
+    if sys.argv[1:2] == ["--insitu-rank"]:  # one rank of a two-process group (insitu_start)
+        return insitu_worker(sys.argv[2:])
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs a CUDA card",
               file=sys.stderr)

@@ -15,6 +15,10 @@ snapshots given the same ``state_like``:
         arena_00001_s000.bin   one arena bucket (``core.arena.HostArena``):
                                every leaf of the bucket in one payload, its
                                descriptor index in the manifest
+        leaf_00002_s000.bin    one shard of an in-situ sharded stream
+                               (``dist.insitu.HostShardedStream``, codec
+                               ``insitu-sz`` / ``insitu-zfp``), one file per
+                               shard, its index slice in the manifest
         obs_i000000123.json    the observatory record (advisory)
 
 Each payload may be zstd-compressed when ``zstandard`` imports
@@ -36,9 +40,10 @@ Each payload may be zstd-compressed when ``zstandard`` imports
 
 Restored leaves are CPU tensors in their manifest dtype (an arena leaf is a
 ``{name: tensor}`` dict); compressed payloads decode on the manager's
-device, CUDA unless ``device="cpu"``.  Mesh-sharded leaves on save and the
-``insitu-*`` codec on restore need the port's ``dist`` slice (ROADMAP Queue 1
-item 10) and raise ``NotImplementedError``.  One departure from the
+device, CUDA unless ``device="cpu"``.  An in-situ leaf restores through
+``dist.insitu.host_restore``, which needs no mesh.  A raw mesh-sharded leaf
+(a ``DTensor``) on save waits for the port's next dist slice (ROADMAP Queue
+1 item 1) and raises ``NotImplementedError``.  One departure from the
 reference: a zstd-compressed single leaf is expanded once on restore (the
 reference expands it twice and fails, ROADMAP Queue 3).
 """
@@ -65,6 +70,7 @@ from repro_torch import tree as tree_util
 from repro_torch.core import arena, bitpack, sz, transforms
 from repro_torch.core.api import get_compressor
 from repro_torch.device import resolve_device
+from repro_torch.dist import insitu
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import observatory as obs_observatory
 from repro_torch.obs import trace as obs_trace
@@ -80,7 +86,7 @@ _LOSSY_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 # (RuntimeError, OSError), a failed launch or an exhausted device is no
 # corruption: it propagates, and nothing is quarantined for it.
 _PAYLOAD_ERRORS = (ValueError, IndexError, KeyError, TypeError, OverflowError)
-_DIST_ITEM = "the port's dist slice (ROADMAP Queue 1 item 10)"
+_DIST_ITEM = "the port's next dist slice (ROADMAP Queue 1 item 1: _ShardedLeaf)"
 
 try:
     import zstandard as _zstd
@@ -266,8 +272,10 @@ def _to_host(x: Any) -> Any:
     """A state leaf on the host.  Raw leaves are copied *here*, on the
     caller thread, since the caller may overwrite them next; arena buckets
     (``HostArena``, or ``PendingHostArena`` whose device buffers the
-    snapshot owns) pass through for the drain thread."""
-    if isinstance(x, (arena.HostArena, arena.PendingHostArena)):
+    snapshot owns) and in-situ streams (``HostShardedStream``: compressed
+    bytes already on the host, never the raw field) pass through for the
+    drain thread."""
+    if isinstance(x, (arena.HostArena, arena.PendingHostArena, insitu.HostShardedStream)):
         return x
     if isinstance(x, torch.Tensor):
         if getattr(x, "placements", None) is not None:
@@ -455,27 +463,34 @@ class CheckpointManager:
                 with obs_trace.span("ckpt.drain.fetch", step=step, leaf=i):
                     arr = arr.result()
                 fetch_s = time.perf_counter() - t0
-            if isinstance(arr, arena.HostArena):
-                # arena-batched snapshot bucket: one binary per shard (the
-                # compacted word arena + sidecars), per-leaf descriptors in
-                # the manifest — O(1) files where the per-leaf path wrote
-                # O(#leaves); the codec tag routes restore through
-                # arena.host_restore (mesh-independent)
-                meta = arena.host_meta(arr)
+            if isinstance(arr, (arena.HostArena, insitu.HostShardedStream)):
+                # compressed on the device: one binary per shard, the codec
+                # tag in the manifest routing restore through a decoder that
+                # needs no mesh.  An arena bucket (``arena_*``) holds every
+                # leaf of the bucket, its per-leaf descriptors in the
+                # manifest (O(1) files where the per-leaf path wrote
+                # O(#leaves)); an in-situ stream (``leaf_*_sNNN``) one field,
+                # each shard's index slice beside its payload
+                if isinstance(arr, arena.HostArena):
+                    meta, prefix = arena.host_meta(arr), "arena"
+                    shards = [({}, blobs) for blobs in arr.shards]
+                else:
+                    meta, prefix = insitu.host_stream_meta(arr), "leaf"
+                    shards = [({"index": [list(se) for se in idx]}, blobs)
+                              for idx, blobs in arr.shards]
                 meta["shards"] = []
                 leaf_stored = 0
                 enc_s = wr_s = 0.0
-                for j, blobs in enumerate(arr.shards):
+                for j, (bmeta, blobs) in enumerate(shards):
                     t0 = time.perf_counter()
                     payload = arena.payload_encode(blobs)
-                    bmeta: dict[str, Any] = {}
                     if _zstd is not None and self.policy.zstd_level > 0:
                         payload = _zstd.ZstdCompressor(
                             level=self.policy.zstd_level).compress(payload)
                         bmeta["zstd"] = True
                     enc_s += time.perf_counter() - t0
                     t0 = time.perf_counter()
-                    self._wb(tmp / f"arena_{i:05d}_s{j:03d}.bin", payload)
+                    self._wb(tmp / f"{prefix}_{i:05d}_s{j:03d}.bin", payload)
                     wr_s += time.perf_counter() - t0
                     bmeta["crc32"] = _crc(payload)
                     bmeta["stored_bytes"] = len(payload)
@@ -660,7 +675,7 @@ class CheckpointManager:
         payload's stored crc32 before any byte reaches a leaf; failures
         raise :class:`SnapshotCorruptionError` naming the bad payload.
         Leaves come back as CPU tensors (the reference's ``shardings``
-        re-placement waits for the port's dist slice).
+        re-placement waits for the port's next dist slice).
         ``fallback=True`` delegates to :meth:`restore_latest_valid`:
         corrupt steps are quarantined and skipped instead of raised."""
         if fallback:
@@ -737,9 +752,21 @@ class CheckpointManager:
                         step=step, payload=names[0]) from e
                 continue
             if meta.get("codec", "").startswith("insitu-"):
-                raise NotImplementedError(
-                    f"leaf {i} of {d} is an in-situ sharded stream ({meta['codec']}); "
-                    f"its restore comes with {_DIST_ITEM}")
+                shards = meta.get("shards", [])
+                names = [f"leaf_{i:05d}_s{j:03d}.bin" for j in range(len(shards))]
+                payloads = [self._read_payload(d, nm, bm, step)
+                            for nm, bm in zip(names, shards)]
+                try:
+                    grid = meta["insitu"]["grid"]
+                    if len(payloads) != math.prod(grid):
+                        # a sparse manifest must never leak an empty buffer
+                        raise ValueError(f"{len(payloads)} shard payloads, grid {grid}")
+                    host.append(insitu.host_restore(meta, payloads, device=self.device))
+                except _PAYLOAD_ERRORS as e:
+                    raise SnapshotCorruptionError(
+                        f"in-situ decode of leaf {i} in {d} failed: {e}",
+                        step=step, payload=names[0] if names else None) from e
+                continue
             if "shards" in meta:
                 shape = tuple(meta["shape"])
                 full = torch.empty(shape, dtype=arena.torch_dtype(meta["dtype"]))

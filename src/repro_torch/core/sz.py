@@ -10,8 +10,10 @@ mod 2**32 exactly as the reference's int32 arithmetic does — they are carried
 in int64 and wrapped back, because ``torch.cumsum`` on int32 returns int64.
 
 ``block_size`` mirrors GPU-SZ's independent data blocking (prediction resets
-at block borders); ``None`` is global prediction.  The reference's
-``exchange`` border hooks for sharded fields arrive with the dist slice.
+at block borders); ``None`` is global prediction.  The ``exchange`` border
+hooks of :func:`lorenzo_residual` and :func:`lorenzo_reconstruct` let a
+sharded caller (:mod:`repro_torch.dist.insitu`) give each shard's predictor
+its true left neighbours.
 """
 
 from __future__ import annotations
@@ -44,10 +46,22 @@ def _wrap_i32(v: torch.Tensor) -> torch.Tensor:
     return ((v + _2P31) & bitpack.MASK32) - _2P31
 
 
-def lorenzo_residual(q: torch.Tensor, ndim: int | None = None) -> torch.Tensor:
-    """Exact integer Lorenzo residual: d-fold first difference (int32, zero
-    border).  ``ndim`` counts the field axes from the right, so a stacked
-    ``(batch..., *field)`` tensor is differenced per field."""
+def lorenzo_residual(q: torch.Tensor, exchange=None, ndim: int | None = None) -> torch.Tensor:
+    """Exact integer Lorenzo residual: d-fold first difference (int32).
+
+    ``exchange`` is the border-override hook for sharded fields: a callable
+    ``(field_axis, last_plane) -> prev_plane | None``.  Before differencing
+    field axis ``a``, the running intermediate's *last* plane along that axis
+    (int32, as the reference's) is offered to the hook; a distributed caller
+    (:mod:`repro_torch.dist.insitu`) ships it one shard rightward and returns
+    the plane received from its left neighbour, so the shard's predictor
+    starts from its true left border instead of the implicit zero plane.
+    ``None`` (or no hook) keeps the zero border — the single-device
+    behaviour, and the correct one for mesh-edge shards.
+
+    ``ndim`` counts the field axes from the right, so a stacked
+    ``(batch..., *field)`` tensor is differenced per field (a shard-local
+    block, or stacked shards under a mocked mesh in the tests)."""
     nd = q.ndim if ndim is None else ndim
     d = q.to(torch.int64)
     for a in range(nd):
@@ -55,16 +69,37 @@ def lorenzo_residual(q: torch.Tensor, ndim: int | None = None) -> torch.Tensor:
         ext = d.shape[axis]
         prev = torch.zeros_like(d)
         prev.narrow(axis, 1, ext - 1).copy_(d.narrow(axis, 0, ext - 1))
+        if exchange is not None:
+            # the running intermediate is carried unwrapped in int64; its
+            # face travels as the int32 value it equals mod 2**32
+            face = exchange(a, _wrap_i32(d.narrow(axis, ext - 1, 1)).to(torch.int32))
+            if face is not None:
+                prev.narrow(axis, 0, 1).copy_(face.to(torch.int64))
         d = d - prev
     return _wrap_i32(d).to(torch.int32)
 
 
-def lorenzo_reconstruct(delta: torch.Tensor, ndim: int | None = None) -> torch.Tensor:
-    """Inverse Lorenzo: d-fold inclusive prefix sum, wrapping as int32 does."""
+def lorenzo_reconstruct(delta: torch.Tensor, exchange=None, ndim: int | None = None) -> torch.Tensor:
+    """Inverse Lorenzo: d-fold inclusive prefix sum, wrapping as int32 does.
+
+    ``exchange`` is the reconstruction-side border hook, dual to the one on
+    :func:`lorenzo_residual`: a callable ``(field_axis, local_total_plane) ->
+    carry | None``.  After the local cumsum along field axis ``a``, the hook
+    receives the shard's inclusive total (its last plane, int32) and returns
+    the carry to add — the sum of every left shard's total, an exclusive
+    cross-shard scan.  The add wraps as int32 addition does, and that is
+    associative under wraparound, so local cumsum + carry is *bitwise* the
+    global cumsum.  ``ndim`` as in :func:`lorenzo_residual`."""
     nd = delta.ndim if ndim is None else ndim
     q = delta.to(torch.int64)
     for a in range(nd):
-        q = _wrap_i32(torch.cumsum(q, dim=a - nd))
+        axis = a - nd
+        q = _wrap_i32(torch.cumsum(q, dim=axis))
+        if exchange is not None:
+            ext = q.shape[axis]
+            carry = exchange(a, q.narrow(axis, ext - 1, 1).to(torch.int32))
+            if carry is not None:
+                q = _wrap_i32(q + carry.to(torch.int64))
     return q.to(torch.int32)
 
 

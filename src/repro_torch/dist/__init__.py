@@ -1,3 +1,6 @@
-"""repro_torch.dist — distribution of the snapshot path.  Only the
-single-device planning of ``repro.dist.insitu`` is ported so far; the rest
-of ``repro.dist`` waits for the port's dist slice (ROADMAP Queue 1 item 10)."""
+"""repro_torch.dist — distribution on ``torch.distributed`` (the port of
+``repro.dist``): :mod:`repro_torch.dist.sharding` maps logical axes onto a
+device mesh, and :mod:`repro_torch.dist.insitu` compresses one field where
+it lives, one shard per rank, with the halo exchange closing the seams.
+The sharded arena and ``repro.dist.collectives`` wait for the port's next
+dist slice."""

@@ -233,12 +233,15 @@ class TestDrain:
 
 
 def test_sharded_leaves_and_insitu_codec_wait_for_dist(tmp_path):
+    """A raw mesh-sharded leaf still waits for the next dist slice; an
+    ``insitu-*`` leaf now restores through ``dist.insitu.host_restore``, so
+    a manifest that claims the codec for a plain payload is corruption."""
     class FakeDTensor(torch.Tensor):
         placements = ("Shard(0)",)
 
     mgr = _tmgr(tmp_path)
     leaf = torch.zeros(4).as_subclass(FakeDTensor)
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(NotImplementedError, match="item 1: _ShardedLeaf"):
         mgr.save(1, {"w": leaf})
     mgr.save(2, {"w": torch.zeros(4)})
     mpath = tmp_path / "step_000000002/MANIFEST.json"
@@ -247,7 +250,7 @@ def test_sharded_leaves_and_insitu_codec_wait_for_dist(tmp_path):
     body = {k: v for k, v in m.items() if k != "digest"}
     m["digest"] = tman._crc(json.dumps(body, sort_keys=True).encode())
     mpath.write_text(json.dumps(m))
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(tman.SnapshotCorruptionError, match="in-situ decode of leaf 0"):
         mgr.restore(state_like={"w": 0})
 
 

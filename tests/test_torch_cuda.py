@@ -786,3 +786,71 @@ def _to_device(tree, device):
     if isinstance(tree, dict):
         return {k: _to_device(v, device) for k, v in tree.items()}
     return tree.to(device)
+
+
+# ------------------------------------------- Foresight and in-situ (card) ----
+
+
+@pytest.mark.cuda
+def test_cuda_run_case_launches_k3_k4_and_matches_plain_cpu(cuda_device):
+    """A CBench case on the card goes through K3 and K4 once per call
+    (warm-up and timed) and reports the ratio and reconstruction of the
+    kernel backend's plain versions on the CPU."""
+    from repro_torch.foresight import cbench
+
+    f = cosmo.nyx_fields(n=64)["baryon_density"]
+    kernels.reset_launch_counts()
+    r = cbench.run_case("tpu-sz", "baryon_density", f, {"eb": 10.0}, warmup=1, iters=2)
+    counts = kernels.launch_counts()
+    assert counts["fused_compress"] == 3 and counts["fused_decompress"] == 3
+    cpu = get_compressor("tpu-sz", backend="kernel", device="cpu")
+    rc = cpu.compress(f, eb=10.0)
+    assert r.ratio == rc.ratio and r.max_abs_err <= 10.0 * (1 + 1e-5)
+    np.testing.assert_array_equal(r.reconstructed, cpu.decompress(rc).numpy())
+
+
+@pytest.mark.cuda
+def test_cuda_one_rank_sharded_compress_equals_single_device(cuda_device):
+    """A one-rank mesh on the card: each codec's stream and decode are the
+    single-device entry point's, and K3, K4, K6, K7 launch once each (the
+    field is TILE-aligned, as the sharded kernel backend requires)."""
+    import socket
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.dist import insitu, sharding
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", world_size=1, rank=0)
+    try:
+        mesh = init_device_mesh("cuda", (1, 1, 1), mesh_dim_names=("pod", "data", "model"))
+        x = torch.from_numpy(_field((16, 64, 256), 3)).to(cuda_device)
+        spec = sharding.field_spec(x.shape, mesh)
+        eb = 1e-3 * float(x.max() - x.min())
+        single = {"core": get_compressor("tpu-sz", backend="core"),
+                  "kernel": get_compressor("tpu-sz", backend="kernel")}
+        for backend, comp in single.items():
+            kernels.reset_launch_counts()
+            st = insitu.sharded_compress(x, "sz", mesh, spec, eb=eb, backend=backend)
+            y = insitu.sharded_decompress(st, mesh).to_local()
+            counts = kernels.launch_counts()
+            want = int(backend == "kernel")
+            assert counts["fused_compress"] == want and counts["fused_decompress"] == want
+            r = comp.compress(x, eb=eb)
+            p = r.payload["kpacked"] if backend == "kernel" else r.payload["parts"][0].packed
+            assert _same(st.words, p.words) and _same(st.widths, p.widths)
+            assert int(st.total_bits) == int(p.total_bits)
+            assert _same(y, comp.decompress(r))
+        kernels.reset_launch_counts()
+        st = insitu.sharded_compress(x, "zfp", mesh, spec, rate=8)
+        y = insitu.sharded_decompress(st, mesh).to_local()
+        counts = kernels.launch_counts()
+        assert counts["fused_compress_blocks"] == 1 and counts["fused_decompress_blocks"] == 1
+        zc = get_compressor("tpu-zfp")
+        r = zc.compress(x, rate=8)
+        assert _same(st.words, r.payload["parts"][0].words) and _same(y, zc.decompress(r))
+    finally:
+        dist.destroy_process_group()

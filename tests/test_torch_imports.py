@@ -1,6 +1,7 @@
-"""Import hygiene of the port: nothing under ``src/repro_torch/`` and nothing
-in ``chip_smoke.py`` imports ``jax`` or anything of the JAX package
-``repro`` (it keeps its own copies of what it needs)."""
+"""Import hygiene of the port: nothing under ``src/repro_torch/``, nothing in
+the port's examples (``examples/torch_*.py``) and nothing in
+``chip_smoke.py`` imports ``jax`` or anything of the JAX package ``repro``
+(it keeps its own copies of what it needs)."""
 
 import ast
 from pathlib import Path
@@ -8,7 +9,8 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
-FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FILES = (sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+         + sorted((ROOT / "examples").glob("torch_*.py")) + [ROOT / "chip_smoke.py"])
 FORBIDDEN = ("jax", "repro")
 
 
@@ -32,8 +34,13 @@ def test_the_walk_sees_the_port():
     assert "src/repro_torch/core/api.py" in names and "chip_smoke.py" in names
     for module in ("configs/registry.py", "configs/starcoder2_3b.py", "models/layers.py",
                    "models/transformer.py", "models/interop.py", "kernels/kvc_attention.py",
-                   "serving/engine.py", "serving/kv_pages.py", "launch/serve.py"):
+                   "serving/engine.py", "serving/kv_pages.py", "launch/serve.py",
+                   "analysis/halos.py", "foresight/__init__.py", "foresight/cbench.py",
+                   "foresight/pat.py", "foresight/cinema.py", "foresight/guideline.py",
+                   "dist/sharding.py", "dist/insitu.py"):
         assert f"src/repro_torch/{module}" in names, module
+    for example in ("torch_quickstart.py", "torch_foresight_workflow.py"):
+        assert f"examples/{example}" in names, example
     assert _forbidden("jax.numpy") and _forbidden("repro.core") and not _forbidden("repro_torch.core")
 
 
