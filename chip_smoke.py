@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port of TPU-SZ, TPU-ZFP, the in-situ snapshot
-path, Foresight, in-situ sharded compression and blockfloat8 serving on one
-GPU and check every result.
+path, Foresight, in-situ sharded compression, sharded snapshots with the
+compressed gradient hop and blockfloat8 serving on one GPU and check every
+result.
 
     python3 chip_smoke.py
 
@@ -112,9 +113,35 @@ Needs one CUDA card and ``nvcc``; it builds the hand-written kernels from
     compressed payloads (counted exactly), and launch each kernel once per
     shard; ``CheckpointManager`` saves every host stream as ``insitu-*``
     shard files and restores them on the card, bitwise;
-16. prints each of these phases' wall time and their K3, K4, K6 and K7
-    launches, which the kernel line below adds to the main paths';
-17. holds K10 (decode attention over the blockfloat8 KV cache) against its
+16. snapshots a sharded state (``launch.train.build_insitu_hook``): the
+    leaves of phase 11's state placed on a ("pod", "data", "model") mesh
+    of (2, 1, 1), two ``gloo`` processes on cuda:0 (and again on the CPU,
+    started at the beginning beside phases 2-15), each rank this script
+    run with ``--sharded-rank``: baryon and dark-matter density replicated
+    (one K8 bucket, the first rank only), temperature split on y (the
+    per-leaf route, K3 per shard), vx/vy/vz split on z and the six HACC
+    arrays split (flat arenas with the halo), the ragged vx and the
+    bfloat16 density replicated (flat arenas, no axis); ``eb`` = 100 for
+    every leaf.  Two snapshots in flight (``overlap``, two slots), then a
+    restore with ``shardings`` on the pair and, here, on a one-rank NCCL
+    mesh.  Every decode (each bucket's, the restores') must equal the
+    single-device reference semantics bitwise (the flat leaf through
+    ``sz``, K8 rows as the one-field fused stream, the per-leaf route as the
+    kernel backend), every value lie within eb, the card pair's files equal
+    the CPU pair's byte for byte, each rank's launches and bytes sent be
+    exactly as counted (no raw field sent); then the six HACC arrays and
+    temperature as raw ``DTensor`` leaves, lossless and ``sz_abs``, saved
+    per shard and restored on both meshes; then the compressed cross-pod
+    gradient mean (both forms, bits 8 and 4, block 1024, error feedback,
+    three steps) of one starcoder2-3b block's gradients at its published
+    widths (about 96 M parameters), card == CPU bitwise, the wire exactly
+    codes plus scales, ``enabled=False`` the plain mean; prints each
+    bucket's compress ms per rank, the stalls, drain and restore walls, the
+    ratio, the bytes sent by kind and the hop's ms against
+    ``enabled=False`` with the card's name and power limit;
+17. prints each of these phases' wall time and their K3, K4, K6, K7, K8
+    and K2 launches, which the kernel line below adds to the main paths';
+18. holds K10 (decode attention over the blockfloat8 KV cache) against its
     plain version on the card: the dense entry at the reference tests'
     shapes (f32 query, rtol 2e-5 / atol 2e-6), and both entries at the
     serving shape (B=8, S=2048, H=24, Hkv=2, D=128, bf16 query, one lane at
@@ -123,7 +150,7 @@ Needs one CUDA card and ``nvcc``; it builds the hand-written kernels from
     S=32768 (``decode_32k``); the paged entry reads a pool of 16-token
     pages through a permuted page table with a page id used twice and an
     unmapped entry at the zero page, against the gather + plain K10;
-18. serves starcoder2-3b at full width (random bf16 weights drawn on the
+19. serves starcoder2-3b at full width (random bf16 weights drawn on the
     card from a seeded ``torch.Generator``) through ``ServingEngine``:
     8 slots, max_len 2048, paged blockfloat8 pool of 16-token pages,
     greedy, ``attention="auto"``; 12 requests of 256-1024 prompt tokens
@@ -138,13 +165,13 @@ Needs one CUDA card and ``nvcc``; it builds the hand-written kernels from
     prefill ms, the median tick, decode tokens/s, K10's share of a tick,
     the pool's bytes, peak device memory and a profiled tick's kernel
     launches and device busy share.  TF32 is off throughout;
-19. runs the SMOKE config on the card (K10) and on the CPU (K10's plain
+20. runs the SMOKE config on the card (K10) and on the CPU (K10's plain
     version, ``attention="fused"``) with the same parameters and prompts:
     greedy tokens agree in at least 6 of 8 per request
     (``tests/test_serving.py``'s bar).  The CPU's ``xla`` path is another
     function in bfloat16 (it rounds attention logits and probabilities to
     bfloat16, as the reference's does), so its agreement is printed only;
-20. prints the ZFP stage times and one JSON line of per-kernel numbers for
+21. prints the ZFP stage times and one JSON line of per-kernel numbers for
     K1-K10 (launches, max difference from the plain version (K10's at the
     serving shape with its bf16 query), device ms at the main path's
     shapes from CUDA-graph replays (every wrapper captures), the plain
@@ -167,7 +194,9 @@ from __future__ import annotations
 
 import importlib.util
 import json
+import math
 import multiprocessing
+import os
 import pickle
 import re
 import shutil
@@ -176,6 +205,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 from concurrent.futures import ProcessPoolExecutor
 from pathlib import Path
 
@@ -227,6 +257,9 @@ TIMING_ITERS = 20  # timed calls (or CUDA-graph replays per round) per kernel, s
 PLAIN_ITERS = 3
 SNAPSHOT_DIR = Path(__file__).resolve().parent / ".chip_smoke_snapshots"  # gitignored
 K_ROWS = 4  # rows of the first kernel bucket: 4 x 2^24 points fill ROW_ELEM_BUDGET
+# a one-device mesh as the bucket planners read one (axis names and sizes):
+# every leaf of the single-process snapshot is replicated
+ONE_DEVICE = types.SimpleNamespace(shape=(1,), mesh_dim_names=("data",))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
 # Peak operation rates per pipe: 132 SMs at the 1.98 GHz boost clock, times
 # the per-SM throughputs of compute capability 9.0 (CUDA C++ Programming
@@ -825,10 +858,10 @@ def plan_snapshot(state: dict):
     snapshot makes no host-to-device copy for them.  Returns the leaves,
     the kernel and flat buckets, and each bucket's bounds."""
     leaves = dict(tree_util.tree_flatten_with_path(state)[0])
-    entries = [(name, tuple(x.shape), x.dtype) for name, x in leaves.items()
+    entries = [(name, tuple(x.shape), x.dtype, ()) for name, x in leaves.items()
                if arena.is_float_leaf(x)]
-    kbuckets, rest = insitu.plan_kernel_buckets(entries)
-    fbuckets = arena.plan_buckets(rest)
+    kbuckets, rest = insitu.plan_kernel_buckets(entries, ONE_DEVICE)
+    fbuckets = arena.plan_buckets([e[:3] for e in rest])
 
     def bucket_eb(b):
         ebs = [REL_EB * float(leaves[n].float().max() - leaves[n].float().min())
@@ -1957,7 +1990,8 @@ def insitu_finish(procs: list, decodes: dict, one_rank: dict, device) -> dict:
             blobs = hss["cuda"].shards[r][1]
             sent = {"ppermute": face * (1 + 1) * (r == 0) if label == "sz-core" else 0,
                     "all_reduce": (4 + 8) if codec == "sz" else 0,
-                    "gather": sum(np.asarray(a).nbytes for a in blobs.values()) if r else 0}
+                    "gather": sum(np.asarray(a).nbytes for a in blobs.values()) if r else 0,
+                    "all_gather": 0}
             check(got["sent"] == sent and sum(sent.values()) < 4 * decodes[label][:n].numel(),
                   f"in-situ {label} {dev} rank {r}: sent {got['sent']}, want {sent}")
         check(same(insitu.host_decode(hss["cuda"], device=device), decodes[label]),
@@ -1988,12 +2022,629 @@ def insitu_finish(procs: list, decodes: dict, one_rank: dict, device) -> dict:
     return total
 
 
-def foresight_and_insitu(fields: dict, small: dict, base, eb: float, device) -> dict:
+# -------------------------------------- sharded snapshots and collectives ----
+
+SHARDED_DIR = SNAPSHOT_DIR.parent / ".chip_smoke_sharded"  # gitignored; removed at the end
+CHILD_PROCS: list = []  # the sharded pairs' rank processes, stopped at exit
+# One absolute bound for every leaf, as the hook takes: |x|max / eb is at most
+# 8e7 / 100 = 8e5 < 2^20 (vx), so no leaf leaves the guarded regime.
+SHARDED_EB = 100.0
+SHARDED_POD = 2
+# snapshot_state's leaves on ("pod", "data", "model") = (2, 1, 1): each route
+SHARDED_SPECS = {
+    "['nyx']['baryon_density']": (), "['nyx']['dark_matter_density']": (),  # K8, first rank
+    "['nyx']['temperature']": (None, "pod"),  # split on y: per-leaf route, K3 per shard
+    **{f"['nyx']['{k}']": ("pod",) for k in ("vx", "vy", "vz")},  # flat arena, halo
+    **{f"['hacc']['{k}']": ("pod",) for k in cosmo.HACC_FIELDS},  # flat arena, halo
+    "['vx_ragged']": (), "['baryon64_bf16']": (),  # flat arena, axis None
+}
+RAW_LEAVES = [k for k in SHARDED_SPECS if k.startswith("['hacc']")] + ["['nyx']['temperature']"]
+GRAD_BITS = (8, 4)
+GRAD_STEPS = 3
+GRAD_BLOCK = 1024
+# launches per card rank (rank 0, rank 1) of: two hook snapshots (K8 once per
+# kernel bucket on the first rank, K3 once per temperature shard), the
+# restore of step 2 (K2 once per arena-szk row, K4 once per temperature
+# shard), and the direct decode check (K8 timed once, K3 and K4 once)
+SHARDED_LAUNCHES = {
+    "hook": ({"fused_compress_batched": 2, "fused_compress": 2}, {"fused_compress": 2}),
+    "restore": ({"lorenzo3d_reconstruct": 2, "fused_decompress": 2},) * 2,
+    "direct": ({"fused_compress_batched": 1, "fused_compress": 1, "fused_decompress": 1},
+               {"fused_compress": 1, "fused_decompress": 1}),
+}
+SHARDED_KERNELS = ("fused_compress_batched", "fused_compress", "fused_decompress",
+                   "lorenzo3d_reconstruct")
+
+
+def sharded_data(fields: dict, hacc, small: dict) -> None:
+    """snapshot_state's leaves as .npy files for the rank processes (each
+    takes its block of every leaf; the bf16 leaf is stored as its float32
+    source)."""
+    d = SHARDED_DIR / "data"
+    shutil.rmtree(SHARDED_DIR, ignore_errors=True)
+    d.mkdir(parents=True)
+    for k, v in fields.items():
+        np.save(d / f"nyx.{k}.npy", v)
+    for k in cosmo.HACC_FIELDS:
+        np.save(d / f"hacc.{k}.npy", hacc.fields[k])
+    np.save(d / "vx_ragged.npy", np.ascontiguousarray(fields["vx"][:200, :130, :250]))
+    np.save(d / "baryon64_bf16.npy", small["baryon_density"])
+
+
+def _leaf_file(name: str) -> str:
+    return ".".join(re.findall(r"\['([^']+)'\]", name)) + ".npy"
+
+
+def sharded_start(dev: str) -> list:
+    """A two-process gloo group (``pod`` = 2) on ``dev``: on the card both
+    ranks on cuda:0 (NCCL refuses two ranks on one device).  Each rank runs
+    :func:`sharded_worker` in a fresh process of this script."""
+    port = free_port()
+    procs = []
+    for rank in range(SHARDED_POD):
+        log = open(SHARDED_DIR / f"{dev}_r{rank}.log", "w")
+        procs.append(subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--sharded-rank", str(rank),
+             str(SHARDED_POD), str(port), dev, str(SHARDED_DIR)],
+            stdout=log, stderr=subprocess.STDOUT))
+    CHILD_PROCS.extend(procs)
+    return procs
+
+
+def digest(t: torch.Tensor) -> str:
+    import hashlib
+
+    return hashlib.sha256(t.detach().cpu().contiguous().reshape(-1).view(torch.uint8)
+                          .numpy().tobytes()).hexdigest()
+
+
+def tree_digest(tree: dict) -> str:
+    return "".join(digest(tree[k]) for k in sorted(tree))
+
+
+def block_grad_shapes() -> dict:
+    """One starcoder2-3b block's parameter shapes at its published widths
+    (d_model 3072, 24 / 2 heads of 128, d_ff 12288): the gradient tree."""
+    specs = registry.build_model(registry.get_config(ARCH), device="cpu").specs()["layers"]
+    return {f"{g}.{k}": tuple(v.shape[1:]) for g, sub in specs.items() for k, v in sub.items()}
+
+
+def block_grads(shapes: dict, rank: int) -> dict:
+    gen = torch.Generator().manual_seed(SEED + rank)
+    return {k: torch.randn(s, generator=gen) * 1e-3 for k, s in shapes.items()}
+
+
+def hook_layout(mesh, named: dict):
+    """The hook's payload groups for ``named`` (the plan it makes):
+    ``{field key: spec per leaf name}``."""
+    entries = [(k, tuple(v.shape), v.dtype, sharding.spec_of(v)) for k, v in named.items()]
+    kb, rest = insitu.plan_kernel_buckets(entries, mesh)
+    fb, skipped = insitu.plan_arena(rest, mesh)
+    out = {f"karena{k:03d}": {n: () for n in b.names} for k, b in enumerate(kb)}
+    out.update({f"arena{k:03d}": {n: SHARDED_SPECS[n] for n in b.names} for k, b in enumerate(fb)})
+    out.update({k: SHARDED_SPECS[k] for k, _ in skipped})
+    return kb, fb, out
+
+
+def shardings_for(layout: dict, mesh):
+    return {k: ({n: sharding.NamedSharding(mesh, sp) for n, sp in v.items()} if isinstance(v, dict)
+                else sharding.NamedSharding(mesh, v)) for k, v in layout.items()}
+
+
+def local_digests(restored: dict) -> dict:
+    out = {}
+    for k, v in restored.items():
+        for n, t in (v.items() if isinstance(v, dict) else [(k, v)]):
+            out[n] = digest(t.to_local())
+    return out
+
+
+def sync(dev) -> None:
+    if str(dev).startswith("cuda"):
+        torch.cuda.synchronize()
+
+
+def stacked(v: torch.Tensor, mesh, world: int):
+    """This rank's pod gradient as its row of a ``(world, *shape)``
+    ``DTensor`` split on dim 0 over ``pod``."""
+    from torch.distributed.tensor import DTensor
+
+    shape = (world,) + tuple(v.shape)
+    return DTensor.from_local(v[None], mesh, sharding.placements(("pod",), mesh),
+                              run_check=False, shape=shape,
+                              stride=torch.empty(shape, device="meta").stride())
+
+
+def sharded_worker(argv: list[str]) -> int:
+    """One rank of a two-process group: snapshot_state's leaves placed on
+    ("pod", "data", "model") = (2, 1, 1) through the in-situ hook (two
+    snapshots in flight, restore with ``shardings``), the raw DTensor saves
+    and the compressed cross-pod gradient mean; writes its counts, bytes
+    sent, times and digests."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.dist import collectives
+    from repro_torch.launch.train import build_insitu_hook
+
+    t_start = time.perf_counter()
+    rank, world, port, dev, out = (int(argv[0]), int(argv[1]), argv[2], argv[3], Path(argv[4]))
+    torch.set_num_threads(2)
+    card = dev == "cuda"
+    if card:
+        torch.cuda.set_device(0)
+    # the pairs run beside other phases on the host's idle cycles: the main
+    # process's host work (P(k), FoF, the guideline) goes first
+    os.nice(10)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", world_size=world,
+                            rank=rank)
+    res = {}
+    try:
+        mesh = DeviceMesh(dev, torch.arange(world).reshape(world, 1, 1), mesh_dim_names=INSITU_AXES)
+        named = {}
+        for k, spec in SHARDED_SPECS.items():
+            x = torch.from_numpy(np.load(out / "data" / _leaf_file(k)))
+            if k == "['baryon64_bf16']":
+                x = x.to(torch.bfloat16)
+            named[k] = sharding.place(x, sharding.NamedSharding(mesh, spec))
+        state = {"nyx": {k[9:-2]: v for k, v in named.items() if k.startswith("['nyx']")},
+                 "hacc": {k[10:-2]: v for k, v in named.items() if k.startswith("['hacc']")},
+                 "vx_ragged": named["['vx_ragged']"], "baryon64_bf16": named["['baryon64_bf16']"]}
+        kb, fb, layout = hook_layout(mesh, named)
+        first = rank == 0
+
+        # the hook: two snapshots, the second taken while the first drains
+        hook = build_insitu_hook(mesh, str(out / f"{dev}_hook"), SHARDED_EB, min_bytes=1 << 16,
+                                 overlap=True, slots=2, backend="kernel")
+        sync(dev)
+        kernels.reset_launch_counts()
+        insitu.reset_sent_bytes()
+        t0 = time.perf_counter()
+        hook(1, state)
+        t1 = time.perf_counter()
+        hook(2, state)
+        t2 = time.perf_counter()
+        hook.wait()
+        sync(dev)
+        t3 = time.perf_counter()
+        res["hook"] = {"launches": {k: v for k, v in kernels.launch_counts().items() if v},
+                       "sent": dict(insitu.sent_bytes),
+                       "stall_ms": [(t1 - t0) * 1e3, (t2 - t1) * 1e3], "wall_ms": (t3 - t0) * 1e3,
+                       "ratio": hook.manager.last_result.ratio if first else None}
+        dist.barrier()
+
+        if card:  # the CPU pair owes its files only (equal to the card pair's)
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            back, _ = hook.manager.restore(step=2, state_like=dict.fromkeys(layout, 0),
+                                           shardings=shardings_for(layout, mesh))
+            sync(dev)
+            res["restore"] = {"ms": (time.perf_counter() - t0) * 1e3,
+                              "launches": {k: v for k, v in kernels.launch_counts().items() if v},
+                              "digests": local_digests(back)}
+            errs = {}
+            for key, v in back.items():
+                for n, t in (v.items() if isinstance(v, dict) else [(key, v)]):
+                    x = named[n].to_local().float()
+                    errs[n] = (float((t.to_local().float() - x).abs().max()), float(x.abs().max()))
+            res["restore"]["errs"] = errs
+            del back
+
+            # each bucket's compress on its own (ms), and the decoded DTensor leaves
+            kernels.reset_launch_counts()
+            times, decoded = {}, {}
+            for k, b in enumerate(kb if first else []):
+                sync(dev)
+                t0 = time.perf_counter()
+                arena.szk_compress_bucket([named[n].to_local() for n in b.names], b, SHARDED_EB,
+                                          device=dev)
+                sync(dev)
+                times[f"karena{k:03d} (K8, {b.rows} rows)"] = (time.perf_counter() - t0) * 1e3
+            for k, b in enumerate(fb):
+                if b.axis is None and not first:
+                    continue
+                sync(dev)
+                t0 = time.perf_counter()
+                st = insitu.sharded_compress_arena([named[n] for n in b.names], b, mesh, SHARDED_EB)
+                sync(dev)
+                times[f"arena{k:03d} ({b.rows} rows, axis {b.axis})"] = (time.perf_counter() - t0) * 1e3
+                for n, y in zip(b.names, insitu.sharded_decompress_arena(st, mesh)):
+                    decoded[n] = digest(y.to_local())
+            sync(dev)
+            t0 = time.perf_counter()
+            st = insitu.sharded_compress(named["['nyx']['temperature']"], "sz", mesh, eb=SHARDED_EB,
+                                         backend="kernel")
+            sync(dev)
+            times["['nyx']['temperature'] (per leaf, K3)"] = (time.perf_counter() - t0) * 1e3
+            decoded["['nyx']['temperature']"] = digest(insitu.sharded_decompress(st, mesh).to_local())
+            sync(dev)
+            res["direct"] = {"ms": times, "digests": decoded,
+                             "launches": {k: v for k, v in kernels.launch_counts().items() if v}}
+
+        # raw DTensor leaves, lossless and lossy, saved per shard and restored
+        raw = {"hacc": state["hacc"], "temperature": state["nyx"]["temperature"]}
+        raw_sh = {"hacc": {k: sharding.NamedSharding(mesh, ("pod",)) for k in raw["hacc"]},
+                  "temperature": sharding.NamedSharding(mesh, (None, "pod"))}
+        for label, pol in (("lossless", ckpt.CodecPolicy(zstd_level=0)),
+                           ("lossy", ckpt.CodecPolicy(mode="sz_abs", eb=SHARDED_EB,
+                                                      min_bytes=1 << 16, zstd_level=0))):
+            mgr = ckpt.CheckpointManager(out / f"{dev}_raw_{label}", async_save=True, device=dev,
+                                         policy=pol)
+            insitu.reset_sent_bytes()
+            t0 = time.perf_counter()
+            mgr.save(1, raw)
+            t1 = time.perf_counter()
+            mgr.wait()
+            t2 = time.perf_counter()
+            sent = dict(insitu.sent_bytes)
+            dist.barrier()
+            res[f"raw_{label}"] = {"stall_ms": (t1 - t0) * 1e3, "drain_ms": (t2 - t0) * 1e3,
+                                   "sent": sent}
+            if not card:
+                continue
+            t0 = time.perf_counter()
+            got, _ = mgr.restore(step=1, state_like={"hacc": dict.fromkeys(raw["hacc"], 0),
+                                                     "temperature": 0}, shardings=raw_sh)
+            sync(dev)
+            flat_got = {f"['hacc']['{k}']": v for k, v in got["hacc"].items()}
+            flat_got["['nyx']['temperature']"] = got["temperature"]
+            res[f"raw_{label}"].update(
+                restore_ms=(time.perf_counter() - t0) * 1e3,
+                errs={n: float((t.to_local() - named[n].to_local()).abs().max())
+                      for n, t in flat_got.items()},
+                digests={n: digest(t.to_local()) for n, t in flat_got.items()})
+            del got, flat_got
+
+        # the compressed cross-pod gradient mean over one block's gradients
+        shapes = block_grad_shapes()
+        grads = {k: v.to(dev) for k, v in block_grads(shapes, rank).items()}
+        other = block_grads(shapes, 1 - rank)
+        plain = {k: (grads[k] + other[k].to(dev)) / 2 for k in grads}  # two terms: either order
+        del other
+        hops = {}
+        for form in ("pod_mean", "stacked"):
+            for bits in GRAD_BITS:
+                cfg = collectives.GradCompressionConfig(enabled=True, bits=bits, block=GRAD_BLOCK)
+                ef = {k: torch.zeros(s, dtype=torch.bfloat16, device=dev) for k, s in shapes.items()}
+                if form == "stacked":
+                    ef = {k: sharding.place(torch.zeros((world,) + s, dtype=torch.bfloat16),
+                                            sharding.NamedSharding(mesh, ("pod",)))
+                          for k, s in shapes.items()}
+                for step in range(GRAD_STEPS):
+                    g = {k: v * (step + 1) for k, v in grads.items()}
+                    if form == "stacked":
+                        g = {k: stacked(v, mesh, world) for k, v in g.items()}
+                    insitu.reset_sent_bytes()
+                    sync(dev)
+                    t0 = time.perf_counter()
+                    if form == "pod_mean":
+                        mean, ef = collectives.compressed_pod_mean(g, cfg, ef, mesh=mesh)
+                    else:
+                        mean, ef = collectives.compressed_pod_mean_stacked(g, cfg, ef, mesh)
+                    sync(dev)
+                    ms = (time.perf_counter() - t0) * 1e3
+                    efl = {k: (v.to_local() if form == "stacked" else v) for k, v in ef.items()}
+                    hops[(form, bits, step)] = {"ms": ms, "sent": dict(insitu.sent_bytes),
+                                                "mean": tree_digest(mean), "ef": tree_digest(efl)}
+                    del g, mean
+            off = collectives.GradCompressionConfig(enabled=False)
+            g = grads if form == "pod_mean" else {k: stacked(v, mesh, world)
+                                                  for k, v in grads.items()}
+            sync(dev)
+            t0 = time.perf_counter()
+            mean, none = (collectives.compressed_pod_mean(g, off, None, mesh=mesh)
+                          if form == "pod_mean" else
+                          collectives.compressed_pod_mean_stacked(g, off, None, mesh))
+            sync(dev)
+            hops[(form, "off")] = {"ms": (time.perf_counter() - t0) * 1e3,
+                                   "plain": all(torch.equal(mean[k], plain[k]) for k in plain)
+                                   and none is None, "mean": tree_digest(mean)}
+            del mean, g
+        res["grads"] = {"hops": hops, "n_params": sum(math.prod(s) for s in shapes.values()),
+                        "shapes": shapes}
+        res["seconds"] = time.perf_counter() - t_start
+        with open(out / f"{dev}_r{rank}.pkl", "wb") as f:
+            pickle.dump(res, f)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def wait_procs(procs: list, logs_glob: str, label: str) -> None:
+    for p in procs:
+        try:
+            rc = p.wait(timeout=900)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            rc = "timeout"
+        if rc != 0:
+            logs = "\n".join(q.read_text()[-3000:] for q in sorted(SHARDED_DIR.glob(logs_glob)))
+            raise RuntimeError(f"chip_smoke check failed: {label} rank exited {rc}\n{logs}")
+
+
+def same_dir(a: Path, b: Path) -> list:
+    """The files of two step directories byte for byte (observatory
+    records hold timings): returns the names."""
+    names = sorted(p.name for p in a.iterdir() if not p.name.startswith("obs_"))
+    check(names == sorted(p.name for p in b.iterdir() if not p.name.startswith("obs_")),
+          f"{a} and {b} hold other files")
+    for n in names:
+        check((a / n).read_bytes() == (b / n).read_bytes(), f"{a.name}/{n} differs: {a} vs {b}")
+    return names
+
+
+def rank_gather_bytes(step_dir: Path, shard: int) -> int:
+    """The bytes the hook's rank ``shard`` gathered to the first rank for
+    one step: its split arena slabs and sidecars and its per-leaf stream."""
+    manifest = json.loads((step_dir / "MANIFEST.json").read_text())
+    mgr = ckpt.CheckpointManager(step_dir.parent, async_save=False, device="cpu")
+    total = 0
+    for i, leaf in enumerate(manifest["leaves"]):
+        if len(leaf.get("shards", [])) <= shard:
+            continue
+        prefix = "arena" if leaf["codec"].startswith("arena-") else "leaf"
+        name = f"{prefix}_{i:05d}_s{shard:03d}.bin"
+        blobs = arena.payload_decode(mgr._read_payload(step_dir, name, leaf["shards"][shard], 0))
+        total += sum(np.asarray(a).nbytes for a in blobs.values())
+    return total
+
+
+def raw_rank1_bytes(step_dir: Path) -> int:
+    """What the second rank of a raw split save sends: the payloads of
+    the shards it holds (those not starting at 0 on the split dim)."""
+    manifest = json.loads((step_dir / "MANIFEST.json").read_text())
+    return sum(sh["stored_bytes"] for leaf in manifest["leaves"] for sh in leaf.get("shards", [])
+               if any(start > 0 for start, _stop in sh["index"]))
+
+
+def sharded_references(fields: dict, hacc, small: dict, device) -> dict:
+    """Each hook leaf decoded by the reference semantics on one device:
+    flat leaves through ``sz.compress`` / ``sz.decompress`` of the whole flat
+    leaf, K8 rows as the one-field fused stream, the per-leaf route as
+    single-device ``sz`` with the kernel backend."""
+    src = {**{f"['nyx']['{k}']": v for k, v in fields.items()},
+           **{f"['hacc']['{k}']": hacc.fields[k] for k in cosmo.HACC_FIELDS},
+           "['vx_ragged']": np.ascontiguousarray(fields["vx"][:200, :130, :250]),
+           "['baryon64_bf16']": small["baryon_density"]}
+    out = {}
+    for n, spec in SHARDED_SPECS.items():
+        x = torch.from_numpy(src[n]).to(device)
+        if n == "['baryon64_bf16']":
+            x = x.to(torch.bfloat16)
+        if n == "['nyx']['temperature']":
+            comp = get_compressor("tpu-sz", backend="kernel", device=device)
+            y = comp.decompress(comp.compress(x, eb=SHARDED_EB))
+        elif spec == () and x.ndim == 3 and not any(s % t for s, t in zip(x.shape, lor.TILE)):
+            packed, padded, eb_i = ops.sz_compress_kernel(x, SHARDED_EB)
+            y = ops.sz_decompress_kernel(packed, padded, x.shape, eb_i, path="fused")
+        else:
+            flat = x.float().reshape(-1)
+            y = sz_core.decompress(sz_core.compress(flat, SHARDED_EB)).reshape(x.shape).to(x.dtype)
+        out[n] = (x.cpu(), y.cpu(), spec)
+    return out
+
+
+def split_digests(y: torch.Tensor, spec: tuple) -> list:
+    """The digest of each rank's block of ``y`` under ``spec`` (pod = 2)."""
+    if not spec:
+        return [digest(y)] * SHARDED_POD
+    d = spec.index("pod")
+    return [digest(c) for c in torch.chunk(y, SHARDED_POD, dim=d)]
+
+
+def sharded_finish(procs: dict, fields: dict, hacc, small: dict, device) -> dict:
+    """Phase 16: read the card and CPU pairs, hold them to each other and
+    to the reference semantics, restore every directory onto a one-rank
+    NCCL mesh here (another mesh than the pair's), and run the gradient hop
+    on that group.  Returns the phase's K8, K3, K4 and K2 launches."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.dist import collectives
+
+    t0 = time.perf_counter()
+    for dev, ps in procs.items():
+        wait_procs(ps, f"{dev}_r*.log", f"sharded {dev}")
+    res = {(dev, r): pickle.load(open(SHARDED_DIR / f"{dev}_r{r}.pkl", "rb"))
+           for dev in ("cuda", "cpu") for r in range(SHARDED_POD)}
+    print(f"sharded pairs waited for {time.perf_counter() - t0:.2f} s; each rank's own wall s "
+          "(process start to its last hop): " + json.dumps(
+              {f"{d} {r}": round(v["seconds"], 2) for (d, r), v in res.items()}))
+    total = dict.fromkeys(SHARDED_KERNELS, 0)
+
+    # files: the card pair's equal the CPU pair's, byte for byte
+    names = []
+    for sub in ("hook/step_000000001", "hook/step_000000002", "raw_lossless/step_000000001",
+                "raw_lossy/step_000000001"):
+        a, b = sub.split("/")
+        names += same_dir(SHARDED_DIR / f"cuda_{a}" / b, SHARDED_DIR / f"cpu_{a}" / b)
+    print(f"sharded phase: {len(names)} files of the card pair == the CPU pair's, byte for byte")
+
+    # launches per rank, exactly; bytes sent per rank, exactly
+    hook_dir = SHARDED_DIR / "cuda_hook"
+    gathered = sum(rank_gather_bytes(hook_dir / f"step_00000000{s}", 1) for s in (1, 2))
+    kb_rows = 6 + 3  # the two split flat buckets' rows (HACC 6, velocities 3)
+    for (dev, r), out in res.items():
+        for part in ("hook", "restore", "direct") if dev == "cuda" else ("hook",):
+            want = SHARDED_LAUNCHES[part][r] if dev == "cuda" else {}
+            check(out[part]["launches"] == want, f"sharded {part} {dev} rank {r}: launches "
+                  f"{out[part]['launches']}, want {want}")
+            if dev == "cuda":
+                for k, v in out[part]["launches"].items():
+                    total[k] += v
+        sent = {"ppermute": 2 * 4 * kb_rows if r == 0 else 0,
+                "all_reduce": 2 * (4 * kb_rows + 4), "gather": gathered if r else 0,
+                "all_gather": 0}
+        check(out["hook"]["sent"] == sent, f"sharded hook {dev} rank {r}: sent "
+              f"{out['hook']['sent']}, want {sent}")
+        for label in ("raw_lossless", "raw_lossy"):
+            got = out[label]["sent"]
+            check({k: v for k, v in got.items() if k != "gather"}
+                  == {"ppermute": 0, "all_reduce": 0, "all_gather": 0}
+                  and got["gather"] == (raw_rank1_bytes(
+                      SHARDED_DIR / f"cuda_{label}" / "step_000000001") if r else 0),
+                  f"{label} {dev} rank {r}: sent {got}")
+        if dev != "cuda":
+            continue
+        for n, (err, amax) in out["restore"]["errs"].items():
+            # a bfloat16 leaf holds its decode rounded to bfloat16: half an ulp more
+            slack = amax * 2.0**-8 if n == "['baryon64_bf16']" else 0.0
+            check(err <= SHARDED_EB * (1 + 1e-5) + slack,
+                  f"sharded restore {dev} rank {r}: {n} max err {err} > eb {SHARDED_EB}")
+
+    # every decode against the reference semantics, bitwise (digests of blocks)
+    refs = sharded_references(fields, hacc, small, device)
+    for r in range(SHARDED_POD):
+        dev, out = "cuda", res[("cuda", r)]
+        for n, (_x, y, spec) in refs.items():
+            want = split_digests(y, spec)[r]
+            check(out["restore"]["digests"][n] == want,
+                  f"sharded restore {dev} rank {r}: {n} != the reference decode")
+            if n in out["direct"]["digests"]:
+                check(out["direct"]["digests"][n] == want,
+                      f"sharded decode {dev} rank {r}: {n} != the reference decode")
+        for label in ("raw_lossless", "raw_lossy"):
+            for n, e in out[label]["errs"].items():
+                check(e == 0.0 if label == "raw_lossless" else e <= SHARDED_EB * (1 + 1e-5),
+                      f"{label} {dev} rank {r}: {n} max err {e}")
+
+    # the gradient hop: card == CPU bitwise, wire bytes exactly codes + scales
+    shapes = res[("cuda", 0)]["grads"]["shapes"]
+    for r in range(SHARDED_POD):
+        card, host = res[("cuda", r)]["grads"]["hops"], res[("cpu", r)]["grads"]["hops"]
+        for key, h in card.items():
+            if key[-1] == "off":
+                check(h["plain"] and host[key]["plain"] and h["mean"] == host[key]["mean"],
+                      f"gradient hop {key} rank {r}: enabled=False != the plain mean")
+                continue
+            bits = key[1]
+            wire = sum(-(-math.prod(s) // GRAD_BLOCK) * (GRAD_BLOCK * bits // 8 + 4)
+                       for s in shapes.values())
+            check(h["mean"] == host[key]["mean"] and h["ef"] == host[key]["ef"],
+                  f"gradient hop {key} rank {r}: card and CPU means or error feedback differ")
+            check(h["sent"] == {"ppermute": 0, "all_reduce": 0, "gather": 0, "all_gather": wire},
+                  f"gradient hop {key} rank {r}: sent {h['sent']}, want {wire} codes + scales")
+
+    # restore on a one-rank NCCL mesh here, and the hop on its group
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}", world_size=1,
+                            rank=0)
+    try:
+        mesh = init_device_mesh("cuda", (1, 1, 1), mesh_dim_names=INSITU_AXES)
+        named = {n: x for n, (x, _y, _s) in refs.items()}
+        placed = {n: sharding.place(x, sharding.NamedSharding(mesh, SHARDED_SPECS[n]))
+                  for n, x in named.items()}
+        # the pair's plan (its mesh's axis sizes), placed on this mesh
+        _kb, _fb, layout2 = hook_layout(
+            types.SimpleNamespace(shape=(SHARDED_POD, 1, 1), mesh_dim_names=INSITU_AXES), placed)
+        mgr = ckpt.CheckpointManager(hook_dir, async_save=False)
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        back, _ = mgr.restore(step=2, state_like=dict.fromkeys(layout2, 0),
+                              shardings=shardings_for(layout2, mesh))
+        torch.cuda.synchronize()
+        restore_ms = (time.perf_counter() - t0) * 1e3
+        want = {"lorenzo3d_reconstruct": 2, "fused_decompress": 2}
+        got = {k: v for k, v in kernels.launch_counts().items() if v}
+        check(got == want, f"one-rank restore launches {got}, want {want}")
+        for k, v in got.items():
+            total[k] += v
+        for key, v in back.items():
+            for n, t in (v.items() if isinstance(v, dict) else [(key, v)]):
+                check(same(t.to_local(), refs[n][1]), f"one-rank restore of {n} != the reference")
+        for label in ("lossless", "lossy"):
+            m = ckpt.CheckpointManager(SHARDED_DIR / f"cuda_raw_{label}", async_save=False)
+            got, _ = m.restore(step=1, state_like={"hacc": dict.fromkeys(cosmo.HACC_FIELDS, 0),
+                                                   "temperature": 0},
+                               shardings=sharding.NamedSharding(mesh, ("pod",)))
+            for k, t in list(got["hacc"].items()) + [("temperature", got["temperature"])]:
+                n = f"['hacc']['{k}']" if k != "temperature" else "['nyx']['temperature']"
+                err = float((t.to_local() - named[n].to(t.device)).abs().max())
+                check(err == 0.0 if label == "lossless" else err <= SHARDED_EB * (1 + 1e-5),
+                      f"one-rank restore of raw {label} {n}: max err {err}")
+                halves = torch.chunk(t.to_local(), SHARDED_POD, dim=SHARDED_SPECS[n].index("pod"))
+                check([digest(h) for h in halves] == [res[("cuda", r)][f"raw_{label}"]["digests"][n]
+                                                      for r in range(SHARDED_POD)],
+                      f"one-rank restore of raw {label} {n} != the pair's restore")
+        del back, got
+        grads = {k: v.to(device) for k, v in block_grads(shapes, 0).items()}
+        nccl = {}
+        for bits in GRAD_BITS:
+            cfg = collectives.GradCompressionConfig(enabled=True, bits=bits, block=GRAD_BLOCK)
+            ef = {k: torch.zeros(s, dtype=torch.bfloat16, device=device) for k, s in shapes.items()}
+            ms = []
+            for step in range(GRAD_STEPS):
+                g = {k: v * (step + 1) for k, v in grads.items()}
+                want_ef = {}
+                for k, v in g.items():
+                    carry = v.reshape(-1) + ef[k].reshape(-1).float()
+                    c, sc = collectives._quantize_blockwise(carry, bits, GRAD_BLOCK)
+                    own = collectives._dequantize_blockwise(c, sc, carry.numel(), GRAD_BLOCK)
+                    want_ef[k] = (carry - own, own)
+                insitu.reset_sent_bytes()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                mean, ef = collectives.compressed_pod_mean(g, cfg, ef, mesh=mesh)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+                for k in g:
+                    check(same(mean[k].reshape(-1), want_ef[k][1]) and same(
+                        ef[k].reshape(-1), want_ef[k][0].to(torch.bfloat16)),
+                        f"one-rank NCCL hop bits {bits} step {step}: {k}")
+            nccl[bits] = ms
+        off = collectives.GradCompressionConfig(enabled=False)
+        ms_off = []
+        for _ in range(GRAD_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mean, _ = collectives.compressed_pod_mean(grads, off, None, mesh=mesh)
+            torch.cuda.synchronize()
+            ms_off.append((time.perf_counter() - t0) * 1e3)
+        check(all(same(mean[k], grads[k]) for k in grads), "one-rank NCCL enabled=False != mean")
+        del grads, mean, g, ef
+    finally:
+        dist.destroy_process_group()
+
+    card = card_line()
+    r0, r1 = res[("cuda", 0)], res[("cuda", 1)]
+    print(f"sharded snapshot (card pair, {SHARDED_POD} gloo ranks on cuda:0, eb {SHARDED_EB}; "
+          f"{card}): ratio {r0['hook']['ratio']:.4f}; save() stalls ms rank 0 "
+          f"{[round(v, 3) for v in r0['hook']['stall_ms']]}, rank 1 "
+          f"{[round(v, 3) for v in r1['hook']['stall_ms']]}; drain wall ms "
+          f"{r0['hook']['wall_ms']:.3f} / {r1['hook']['wall_ms']:.3f}; restore on the pair ms "
+          f"{r0['restore']['ms']:.3f} / {r1['restore']['ms']:.3f}, on one NCCL rank "
+          f"{restore_ms:.3f}; bytes sent by kind rank 0 {r0['hook']['sent']}, rank 1 "
+          f"{r1['hook']['sent']} (no raw field)")
+    for r in range(SHARDED_POD):
+        print(f"  rank {r} bucket compress ms (card): " + json.dumps(
+            {k: round(v, 3) for k, v in res[("cuda", r)]["direct"]["ms"].items()}))
+        for label in ("raw_lossless", "raw_lossy"):
+            o = res[("cuda", r)][label]
+            print(f"  rank {r} {label}: stall {o['stall_ms']:.3f} ms, drain {o['drain_ms']:.3f} ms, "
+                  f"restore {o['restore_ms']:.3f} ms, sent {o['sent']}")
+    n_params = r0["grads"]["n_params"]
+    print(f"gradient hop ({ARCH} block, {n_params} params, {4 * n_params / 1e6:.1f} MB f32 per "
+          f"rank, block {GRAD_BLOCK}, 3 steps; {card}), ms per step:")
+    for form in ("pod_mean", "stacked"):
+        for bits in GRAD_BITS:
+            print(f"  {form} bits {bits}: gloo pair rank 0 "
+                  f"{[round(r0['grads']['hops'][(form, bits, s)]['ms'], 3) for s in range(GRAD_STEPS)]}"
+                  f", wire {r0['grads']['hops'][(form, bits, 0)]['sent']['all_gather']} B per rank")
+        print(f"  {form} enabled=False (all_reduce mean): gloo pair rank 0 "
+              f"{r0['grads']['hops'][(form, 'off')]['ms']:.3f}")
+    print(f"  one-rank NCCL pod_mean ms: bits 8 {[round(v, 3) for v in nccl[8]]}, bits 4 "
+          f"{[round(v, 3) for v in nccl[4]]}, enabled=False {[round(v, 3) for v in ms_off]}")
+    print("sharded phase launches: " + json.dumps(total))
+    return total
+
+
+def foresight_and_insitu(fields: dict, small: dict, hacc, base, eb: float, cpu_pair: list,
+                         device) -> dict:
     """The Foresight and in-situ phases, each timed; returns the launches of
     K3, K4, K6 and K7 over all of them (the two-process groups' included).
     The host analyses (FoF catalogs, P(k) gates) run in a pool of processes
     beside the card's phases, the two-process groups in their own."""
-    total = dict.fromkeys(FORESIGHT_KERNELS, 0)
+    total = dict.fromkeys(FORESIGHT_KERNELS + SHARDED_KERNELS, 0)
 
     def phase(label, t0, launches=None):
         for k, v in (launches or {}).items():
@@ -2005,6 +2656,7 @@ def foresight_and_insitu(fields: dict, small: dict, base, eb: float, device) -> 
     phase("CBench sweep (30 cases at 256^3)", t0, launches)
     t_all = time.perf_counter()
     procs = insitu_start(fields["baryon_density"], eb)
+    card_pair = sharded_start("cuda")
     pool = ProcessPoolExecutor(HOST_WORKERS, mp_context=multiprocessing.get_context("spawn"))
     try:
         t0 = time.perf_counter()
@@ -2025,6 +2677,9 @@ def foresight_and_insitu(fields: dict, small: dict, base, eb: float, device) -> 
         t0 = time.perf_counter()
         phase("in-situ two-process groups and checkpoint", t0,
               insitu_finish(procs, decodes, streams, device))
+        t0 = time.perf_counter()
+        phase("sharded snapshots, raw DTensor leaves and the gradient hop", t0,
+              sharded_finish({"cuda": card_pair, "cpu": cpu_pair}, fields, hacc, small, device))
         t0 = time.perf_counter()
         halo_finish(jobs)
         phase("halo gate, FoF results", t0)
@@ -2061,9 +2716,14 @@ def run(device) -> dict:
               "ragged vx": (ragged, ebs["vx"])}
     worst = kernels_vs_plain(inputs, device)
 
-    launches = main_path(fields, device)
-    agrees_with_cpu(cosmo.nyx_fields(n=SMALL_N, seed=SEED), device)
     hacc = cosmo.hacc_particles(grid=HACC_GRID)
+    small = cosmo.nyx_fields(n=SMALL_N, seed=SEED)
+    sharded_data(fields, hacc, small)
+    cpu_pair = sharded_start("cpu")  # runs beside phases 2-15 on the host's free cores
+    print(f"sharded CPU pair started ({SHARDED_POD} gloo ranks; state in {SHARDED_DIR.name}/)")
+
+    launches = main_path(fields, device)
+    agrees_with_cpu(small, device)
     core_backend(fields["baryon_density"], hacc.fields["vx"], device)
 
     worst.update(zfp_kernels_vs_plain({f"{N}^3 baryon_density": base, "ragged vx": ragged},
@@ -2090,14 +2750,14 @@ def run(device) -> dict:
                                                                          ebr.to(device)),
                                    "rows at width 0, 32 and mixed": (edge.to(device), torch.tensor(
                                        [1e-2, 1.0, 0.5], device=device))}))
-    small = cosmo.nyx_fields(n=SMALL_N, seed=SEED)
     try:
         launches.update(snapshot_path(fields, hacc, small, device))
         snapshot_agrees_with_cpu(fields, hacc, device)
     finally:
         shutil.rmtree(SNAPSHOT_DIR, ignore_errors=True)
 
-    foresight = foresight_and_insitu(fields, small, base, ebs["baryon_density"], device)
+    foresight = foresight_and_insitu(fields, small, hacc, base, ebs["baryon_density"], cpu_pair,
+                                     device)
 
     torch.backends.cuda.matmul.allow_tf32 = False  # the comparison phases run in full f32
     torch.backends.cudnn.allow_tf32 = False
@@ -2139,6 +2799,8 @@ def run(device) -> dict:
 def main() -> int:
     if sys.argv[1:2] == ["--insitu-rank"]:  # one rank of a two-process group (insitu_start)
         return insitu_worker(sys.argv[2:])
+    if sys.argv[1:2] == ["--sharded-rank"]:  # one rank of a sharded pair (sharded_start)
+        return sharded_worker(sys.argv[2:])
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs a CUDA card",
               file=sys.stderr)
@@ -2146,7 +2808,14 @@ def main() -> int:
     print(card_line())
     print(f"python {sys.version.split()[0]} torch {torch.__version__} cuda {torch.version.cuda}")
     t0 = time.perf_counter()
-    report = run(torch.device("cuda"))
+    try:
+        report = run(torch.device("cuda"))
+    finally:
+        for p in CHILD_PROCS:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(SHARDED_DIR, ignore_errors=True)
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps(report))
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,5 @@
 """Checkpointing with optional error-bounded lossy compression — the
-paper's snapshot-I/O use case (the port of ``repro.checkpoint.manager``,
-single process).
+paper's snapshot-I/O use case (the port of ``repro.checkpoint.manager``).
 
 Layout (one directory per step, atomic rename on completion), the
 reference's byte for byte, so either package restores the other's
@@ -13,12 +12,13 @@ snapshots given the same ``state_like``:
         leaf_00000.bin         a raw leaf (its bytes; bf16 as its bits) or a
                                TPU-SZ stream (``sz_abs`` / ``sz_pwrel``)
         arena_00001_s000.bin   one arena bucket (``core.arena.HostArena``):
-                               every leaf of the bucket in one payload, its
-                               descriptor index in the manifest
+                               every leaf of the bucket in one payload per
+                               shard, its descriptor index in the manifest
         leaf_00002_s000.bin    one shard of an in-situ sharded stream
                                (``dist.insitu.HostShardedStream``, codec
-                               ``insitu-sz`` / ``insitu-zfp``), one file per
-                               shard, its index slice in the manifest
+                               ``insitu-sz`` / ``insitu-zfp``) or of a raw
+                               mesh-sharded leaf (a ``DTensor``, encoded with
+                               the policy), its index slice in the manifest
         obs_i000000123.json    the observatory record (advisory)
 
 Each payload may be zstd-compressed when ``zstandard`` imports
@@ -31,6 +31,13 @@ Each payload may be zstd-compressed when ``zstandard`` imports
     and writes every payload.  A bounded queue (``max_in_flight``) gives
     backpressure; a drain failure re-raises on the next ``save()`` or
     ``wait()``, and transient ``OSError``s are retried with backoff;
+  * per-shard leaves: a ``DTensor`` split over a mesh is never assembled.
+    With one process per rank, :meth:`CheckpointManager.save` is a
+    collective once a leaf is split: every rank saves the same tree, each
+    encodes the unique shards it holds (one copy of a replicated shard) on
+    its drain thread, and the group's first rank gathers the payloads and
+    writes every file in the reference's sorted shard order; the other ranks
+    write nothing;
   * atomic finalization: payloads are written + fsync'd into a tmp dir, the
     manifest last, then the dir renames into place;
   * integrity: crc32 per payload + the manifest digest, verified before any
@@ -39,11 +46,11 @@ Each payload may be zstd-compressed when ``zstandard`` imports
   * keep_last: bounded disk usage.
 
 Restored leaves are CPU tensors in their manifest dtype (an arena leaf is a
-``{name: tensor}`` dict); compressed payloads decode on the manager's
-device, CUDA unless ``device="cpu"``.  An in-situ leaf restores through
-``dist.insitu.host_restore``, which needs no mesh.  A raw mesh-sharded leaf
-(a ``DTensor``) on save waits for the port's next dist slice (ROADMAP Queue
-1 item 1) and raises ``NotImplementedError``.  One departure from the
+``{name: tensor}`` dict), or, with ``shardings=``, ``DTensor`` leaves on the
+meshes it names (which need not be the mesh that saved the step);
+compressed payloads decode on the manager's device, CUDA unless
+``device="cpu"``.  An in-situ leaf restores through
+``dist.insitu.host_restore``, which needs no mesh.  One departure from the
 reference: a zstd-compressed single leaf is expanded once on restore (the
 reference expands it twice and fails, ROADMAP Queue 3).
 """
@@ -65,12 +72,14 @@ from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import tree as tree_util
 from repro_torch.core import arena, bitpack, sz, transforms
 from repro_torch.core.api import get_compressor
 from repro_torch.device import resolve_device
 from repro_torch.dist import insitu
+from repro_torch.dist import sharding as shardlib
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import observatory as obs_observatory
 from repro_torch.obs import trace as obs_trace
@@ -86,7 +95,6 @@ _LOSSY_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 # (RuntimeError, OSError), a failed launch or an exhausted device is no
 # corruption: it propagates, and nothing is quarantined for it.
 _PAYLOAD_ERRORS = (ValueError, IndexError, KeyError, TypeError, OverflowError)
-_DIST_ITEM = "the port's next dist slice (ROADMAP Queue 1 item 1: _ShardedLeaf)"
 
 try:
     import zstandard as _zstd
@@ -268,21 +276,98 @@ def _decode_leaf(payload: bytes, meta: dict, device: torch.device) -> torch.Tens
         arena.torch_dtype(meta["dtype"]))
 
 
+@dataclasses.dataclass
+class _ShardedLeaf:
+    """Host-side view of a mesh-sharded leaf on this rank: one (index,
+    block) pair per unique shard index this rank holds (a replicated shard
+    is held by one rank only), never the assembled array.  ``gathered`` is
+    filled once, on the drain thread: every shard's ``(index, payload,
+    meta)`` on the group's first rank, in sorted index order."""
+
+    shape: tuple
+    dtype: str
+    shards: list  # [(((start, stop), ...) per dim, CPU tensor), ...]
+    gathered: Optional[list] = None
+    done: bool = False
+
+
+def _dtensor_index(x) -> tuple[tuple, bool, int]:
+    """``(index, lead, unique)`` of a ``DTensor`` on this rank: its block's
+    ``(start, stop)`` per dimension, whether this rank holds the copy of the
+    block that is saved (local rank 0 on every mesh axis that replicates
+    it), and how many distinct blocks the leaf has."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh, shape = x.device_mesh, tuple(x.shape)
+    coord = mesh.get_coordinate()
+    start, length = [0] * len(shape), list(shape)
+    lead, unique = True, 1
+    for i, p in enumerate(x.placements):
+        size = mesh.size(i)
+        if isinstance(p, Shard):
+            d = p.dim % len(shape)
+            if length[d] % size:
+                raise ValueError(f"dim {d} of {shape} does not split evenly over mesh dim {i}")
+            length[d] //= size
+            start[d] += coord[i] * length[d]
+            unique *= size
+        elif isinstance(p, Replicate):
+            lead = lead and coord[i] == 0
+        else:
+            raise ValueError(f"placement {p}: a saved leaf is Shard or Replicate")
+    return tuple((s, s + n) for s, n in zip(start, length)), lead, unique
+
+
+def _needs_gather(x: Any) -> bool:
+    """A leaf whose save is a collective: a ``DTensor`` with more than one
+    distinct block, or a deferred arena fetch (which may gather)."""
+    if isinstance(x, arena.PendingHostArena):
+        return True
+    return shardlib.is_dtensor(x) and _dtensor_index(x)[2] > 1
+
+
 def _to_host(x: Any) -> Any:
     """A state leaf on the host.  Raw leaves are copied *here*, on the
-    caller thread, since the caller may overwrite them next; arena buckets
-    (``HostArena``, or ``PendingHostArena`` whose device buffers the
-    snapshot owns) and in-situ streams (``HostShardedStream``: compressed
-    bytes already on the host, never the raw field) pass through for the
-    drain thread."""
+    caller thread, since the caller may overwrite them next; a ``DTensor``
+    with several distinct blocks becomes a :class:`_ShardedLeaf` holding
+    this rank's (never the assembled array), one with a single block (fully
+    replicated) a whole leaf; arena buckets (``HostArena``, or
+    ``PendingHostArena`` whose device buffers the snapshot owns) and in-situ
+    streams (``HostShardedStream``: compressed bytes already on the host,
+    never the raw field) pass through for the drain thread."""
     if isinstance(x, (arena.HostArena, arena.PendingHostArena, insitu.HostShardedStream)):
         return x
+    if shardlib.is_dtensor(x):
+        idx, lead, unique = _dtensor_index(x)
+        local = x.to_local().detach().to("cpu", copy=True)
+        if unique == 1:  # fully replicated: stored once, as a whole leaf
+            return local
+        return _ShardedLeaf(tuple(x.shape), arena.dtype_name(x.dtype),
+                            [(idx, local)] if lead else [])
     if isinstance(x, torch.Tensor):
-        if getattr(x, "placements", None) is not None:
-            raise NotImplementedError(
-                f"mesh-sharded leaves ({type(x).__name__}) are saved per shard by {_DIST_ITEM}")
         return x.detach().to("cpu", copy=True)
     return torch.from_numpy(np.array(x))
+
+
+def _place(node: Any, sh: Any) -> Any:
+    """Place a restored tree by ``sh``, a tree prefix of it whose leaves are
+    :class:`repro_torch.dist.sharding.NamedSharding` (every tensor below it
+    goes there) or ``None`` (stays a host tensor)."""
+    if sh is None:
+        return node
+    if isinstance(sh, shardlib.NamedSharding):
+        if isinstance(node, dict):
+            return {k: _place(v, sh) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return type(node)(_place(v, sh) for v in node)
+        return shardlib.place(node, sh) if isinstance(node, torch.Tensor) else node
+    if isinstance(sh, dict) and isinstance(node, dict) and set(sh) == set(node):
+        return {k: _place(node[k], sh[k]) for k in node}
+    if isinstance(sh, (list, tuple)) and isinstance(node, (list, tuple)) \
+            and len(sh) == len(node):
+        return type(node)(_place(v, s) for v, s in zip(node, sh))
+    raise ValueError(f"shardings do not match the restored tree at {type(node).__name__}: "
+                     f"{sh!r}")
 
 
 class CheckpointManager:
@@ -292,7 +377,8 @@ class CheckpointManager:
                  retry_backoff_s: float = 0.05,
                  write_bytes: Optional[Callable[[Path, bytes], None]] = None,
                  fetch_hook: Optional[Callable[[int], None]] = None,
-                 observatory: bool = True, device: str | torch.device | None = None):
+                 observatory: bool = True, device: str | torch.device | None = None,
+                 group=None):
         """``io_retries``: total write attempts the drain worker makes per
         snapshot before poisoning itself with the error (transient
         ``OSError``/``BlockingIOError`` only; backoff doubles from
@@ -303,8 +389,17 @@ class CheckpointManager:
         per-snapshot ``obs_iNNNNNNNNN.json`` compression record beside the
         manifest (advisory, excluded from the digest — DESIGN.md §11).
         ``device``: where compressed leaves are encoded and decoded, CUDA
-        unless ``"cpu"``."""
+        unless ``"cpu"``.  ``group``: the process group of a save that every
+        rank of a mesh makes (one process per rank); its first rank writes
+        the files, the others hand it their shards' payloads over this
+        group, on the drain thread.  Give a group that only the drain thread
+        uses (``torch.distributed.new_group``, created by every rank in the
+        same order), whose first rank is the mesh's.  ``None``: the first
+        save holding a split ``DTensor`` in a multi-process run creates one
+        (a ``gloo`` group over the whole world, since the payloads are host
+        bytes); without one every process writes."""
         self.device = resolve_device(device)
+        self._group = group
         self.dir = Path(directory)
         self.dir.mkdir(parents=True, exist_ok=True)
         self.keep_last = keep_last
@@ -345,7 +440,11 @@ class CheckpointManager:
         passes ``SnapshotSlots.release`` to recycle its device slot."""
         self._raise_pending()
         leaves, treedef = tree_util.tree_flatten(state)
-        host = [_to_host(x) for x in leaves]  # raw leaves copied here
+        self._join_group(leaves)
+        writer = self._is_writer()
+        # raw leaves copied here; a rank that writes nothing keeps only the
+        # leaves whose save is a collective
+        host = [_to_host(x) if writer or _needs_gather(x) else None for x in leaves]
         treedef_str = str(treedef)
         if self.async_save:
             self._ensure_worker()
@@ -363,6 +462,50 @@ class CheckpointManager:
             finally:
                 if on_complete is not None:
                     on_complete(step)
+
+    def _join_group(self, leaves: list) -> None:
+        if (self._group is None and dist.is_initialized() and dist.get_world_size() > 1
+                and any(shardlib.is_dtensor(x) and _dtensor_index(x)[2] > 1 for x in leaves)):
+            # every rank saves the same tree, so every rank creates it here
+            self._group = dist.new_group(backend="gloo")
+
+    def _is_writer(self) -> bool:
+        return self._group is None or dist.get_rank(self._group) == 0
+
+    def _shard_payloads(self, leaf: _ShardedLeaf) -> Optional[list]:
+        """Encode this rank's blocks of a split leaf with the policy and
+        gather every rank's ``(index, payload, meta)`` to the group's first
+        rank: sorted by index there, ``None`` elsewhere.  Done once per
+        leaf, so a retried write reuses it."""
+        if not leaf.done:
+            mine = [(idx, *_encode_leaf(block, self.policy, self.device))
+                    for idx, block in leaf.shards]
+            size = 1 if self._group is None else dist.get_world_size(self._group)
+            if size == 1:
+                got = [mine]
+            else:
+                writer = self._is_writer()
+                got = [None] * size if writer else None
+                if not writer:
+                    insitu.count_sent("gather", sum(len(p) for _, p, _ in mine))
+                dist.gather_object(mine, got, dst=dist.get_global_rank(self._group, 0),
+                                   group=self._group)
+            if got is not None:
+                unique = {idx: (idx, p, m) for part in got for idx, p, m in part}
+                leaf.gathered = [unique[idx] for idx in sorted(unique)]
+            leaf.shards, leaf.done = [], True  # the host blocks are encoded now
+        return leaf.gathered
+
+    def _participate(self, step: int, host: list) -> None:
+        """A rank that writes nothing: its share of the save's collectives,
+        in the writer's leaf order (deferred arena gathers, shard payloads)."""
+        for arr in host:
+            if isinstance(arr, arena.PendingHostArena):
+                if self._fetch_hook is not None:
+                    self._fetch_hook(step)
+                arr.result()
+            elif isinstance(arr, _ShardedLeaf):
+                self._shard_payloads(arr)
 
     def _ensure_worker(self) -> None:
         if self._queue is None:
@@ -398,7 +541,11 @@ class CheckpointManager:
         I/O errors.  ``BlockingIOError`` is an ``OSError`` subclass; a
         :class:`SnapshotCorruptionError` is *not* transient and never
         retried.  ``_write`` cleans its tmp dir on failure, so every
-        attempt starts from a blank slate."""
+        attempt starts from a blank slate.  A rank that writes nothing only
+        takes its part in the save's collectives."""
+        if not self._is_writer():
+            self._participate(step, host)
+            return
         for attempt in range(self.io_retries):
             try:
                 self._write(step, host, treedef_str, extra, retries=attempt)
@@ -504,6 +651,35 @@ class CheckpointManager:
                                 "fetch_s": round(fetch_s, 6),
                                 "encode_s": round(enc_s, 6),
                                 "write_s": round(wr_s, 6)})
+                continue
+            if isinstance(arr, _ShardedLeaf):
+                # a raw mesh-sharded leaf: one payload per unique shard, encoded
+                # by the rank holding it and gathered here, in index order
+                t0 = time.perf_counter()
+                pairs = self._shard_payloads(arr)
+                enc_s = time.perf_counter() - t0
+                meta = {"shape": list(arr.shape), "dtype": arr.dtype, "shards": []}
+                leaf_raw = leaf_stored = 0
+                wr_s = 0.0
+                for j, (idx, payload, bmeta) in enumerate(pairs):
+                    t0 = time.perf_counter()
+                    self._wb(tmp / f"leaf_{i:05d}_s{j:03d}.bin", payload)
+                    wr_s += time.perf_counter() - t0
+                    bmeta = {**bmeta, "index": [list(se) for se in idx]}
+                    meta["shards"].append(bmeta)
+                    leaf_raw += bmeta["raw_bytes"]
+                    leaf_stored += bmeta["stored_bytes"]
+                raw += leaf_raw
+                stored += leaf_stored
+                rec = {"leaf": i, "kind": "sharded",
+                       "codec": meta["shards"][0]["codec"] if meta["shards"] else "raw",
+                       "raw_bytes": leaf_raw, "stored_bytes": leaf_stored,
+                       "shards": len(pairs), "launches": 0,
+                       "encode_s": round(enc_s, 6), "write_s": round(wr_s, 6)}
+                if meta["shards"] and "eb" in meta["shards"][0]:
+                    rec["eb"] = meta["shards"][0]["eb"]
+                manifest["leaves"].append(meta)
+                records.append(rec)
                 continue
             t0 = time.perf_counter()
             payload, meta = _encode_leaf(arr, self.policy, self.device)
@@ -670,27 +846,33 @@ class CheckpointManager:
         return manifest
 
     def restore(self, step: Optional[int] = None, state_like: Any = None,
-                fallback: bool = False) -> tuple[Any, dict]:
+                shardings: Any = None, fallback: bool = False) -> tuple[Any, dict]:
         """Restore (state, extra). Verifies the manifest digest and every
         payload's stored crc32 before any byte reaches a leaf; failures
         raise :class:`SnapshotCorruptionError` naming the bad payload.
-        Leaves come back as CPU tensors (the reference's ``shardings``
-        re-placement waits for the port's next dist slice).
+        Leaves come back as CPU tensors; with ``shardings`` (a tree prefix
+        of the restored state whose leaves are
+        :class:`repro_torch.dist.sharding.NamedSharding` or ``None``) each
+        placed leaf is a ``DTensor`` on the mesh it names, this rank's block
+        sliced from the leaf assembled on the host.  That mesh need not be
+        the one that saved the step: re-sharding onto another mesh is how
+        elastic restarts work.  With one process per rank every rank
+        restores, after the writer's save has finished.
         ``fallback=True`` delegates to :meth:`restore_latest_valid`:
         corrupt steps are quarantined and skipped instead of raised."""
         if fallback:
             if step is not None:
                 raise ValueError("fallback=True restores the newest valid "
                                  "step; do not pin one")
-            state, extra, _ = self.restore_latest_valid(state_like)
+            state, extra, _ = self.restore_latest_valid(state_like, shardings)
             return state, extra
         if step is None:
             step = self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints under {self.dir}")
-        return self._restore_step(step, state_like)
+        return self._restore_step(step, state_like, shardings)
 
-    def restore_latest_valid(self, state_like: Any = None,
+    def restore_latest_valid(self, state_like: Any = None, shardings: Any = None,
                              max_fallbacks: Optional[int] = None
                              ) -> tuple[Any, dict, int]:
         """Restore the newest step that passes full verification, walking
@@ -707,7 +889,7 @@ class CheckpointManager:
             if max_fallbacks is not None and k > max_fallbacks:
                 break
             try:
-                state, extra = self._restore_step(step, state_like)
+                state, extra = self._restore_step(step, state_like, shardings)
                 return state, extra, step
             except SnapshotCorruptionError as e:
                 q = self._quarantine(step)
@@ -724,9 +906,11 @@ class CheckpointManager:
         assert last_err is not None
         raise last_err
 
-    def _restore_step(self, step: int, state_like: Any) -> tuple[Any, dict]:
+    def _restore_step(self, step: int, state_like: Any,
+                      shardings: Any = None) -> tuple[Any, dict]:
         with obs_trace.span("ckpt.restore", step=step):
-            return self._restore_step_impl(step, state_like)
+            state, extra = self._restore_step_impl(step, state_like)
+        return _place(state, shardings), extra
 
     def _restore_step_impl(self, step: int, state_like: Any) -> tuple[Any, dict]:
         d = self.dir / f"step_{step:09d}"

@@ -32,8 +32,11 @@ ZFP is fixed-rate, so its arena needs no scan: leaf ``l`` owns words
 The host format (:class:`HostArena`, :func:`payload_encode`) is the
 reference's byte for byte, so either package restores the other's
 snapshots.  Compressing functions run on CUDA unless ``device="cpu"`` is
-passed; the sharded (``dist``) variants of the reference wait for the
-port's ``dist`` slice.
+passed.  :func:`sz_encode_rows` and :func:`sz_decode_rows` take the
+reference's distribution hooks, which
+:func:`repro_torch.dist.insitu.sharded_compress_arena` and
+:func:`repro_torch.dist.insitu.sharded_decompress_arena` use for buckets of
+leaves split over a mesh axis.
 """
 
 from __future__ import annotations
@@ -187,19 +190,37 @@ def _row_mask(padded: int, n: torch.Tensor) -> torch.Tensor:
     return torch.arange(padded, device=n.device)[None, :] < n[:, None]
 
 
-def sz_encode_rows(rows: torch.Tensor, n: torch.Tensor, eb, capacity: int):
+def sz_encode_rows(rows: torch.Tensor, n: torch.Tensor, eb, capacity: int, *,
+                   absmax=None, exchange=None):
     """Batched row codec: f32 [B, P] left-justified rows -> ``(arena,
-    widths, offsets, counts, total_bits, eb_i, used)``.  Each row's bound
-    comes from its own masked |x|max and its border is zero: the semantics
-    of ``sz.compress`` on the flat leaf.  (The reference's ``absmax`` and
-    ``exchange`` hooks serve ``dist``, which is not ported yet.)"""
+    widths, offsets, counts, total_bits, eb_i, used)``.
+
+    ``absmax`` and ``exchange`` are the distribution hooks
+    (:func:`repro_torch.dist.insitu.sharded_compress_arena` passes both): the
+    per-row |x|max reduced over the mesh, so every shard derives the same
+    bound, and a callable ``exchange(last) -> prev`` that receives each row's
+    last real quantum (int32 [B, 1]) and returns the left neighbour's (zeros
+    at the mesh edge), one exchange for the whole bucket.  The defaults, the
+    masked local max and a zero border, are the semantics of ``sz.compress``
+    on the flat leaf."""
     mask = _row_mask(rows.shape[1], n)
     x = torch.where(mask, rows.to(torch.float32), 0.0)
-    eb_i = sz_core.internal_bound(x.abs().amax(dim=1), eb)  # [B]
+    if absmax is None:
+        absmax = x.abs().amax(dim=1)
+    eb_i = sz_core.internal_bound(absmax, eb)  # [B]
     # divide, as sz.compress does (a reciprocal multiply differs in ulps)
     q = bitpack.round_i32(x / (2.0 * eb_i[:, None]))
     q = torch.where(mask, q, 0)
-    delta = torch.where(mask, sz_core.lorenzo_residual(q, ndim=1), 0)  # zero border per row
+    prev = None
+    if exchange is not None:
+        last = q.gather(1, (n.to(torch.int64) - 1).clamp(min=0)[:, None])
+        prev = exchange(last)  # [B, 1] from the left shard (zeros at the edge)
+    if prev is None:
+        prev = torch.zeros((rows.shape[0], 1), dtype=torch.int32, device=rows.device)
+    shifted = torch.cat([prev.to(torch.int32), q[:, :-1]], dim=1)
+    # the 1-D Lorenzo difference, wrapping as int32 does, padding zeroed
+    delta = torch.where(mask, sz_core._wrap_i32(q.to(torch.int64) - shifted.to(torch.int64))
+                        .to(torch.int32), 0)
     buf, counts, widths, total_bits = bitpack.pack_codes_rows(delta, n)
     arena, offsets, used = bitpack.compact_streams(buf, counts, capacity)
     return (arena, widths, offsets.to(torch.int32), counts, total_bits, eb_i,
@@ -207,9 +228,17 @@ def sz_encode_rows(rows: torch.Tensor, n: torch.Tensor, eb, capacity: int):
 
 
 def sz_decode_rows(arena: torch.Tensor, widths: torch.Tensor, offsets: torch.Tensor,
-                   counts: torch.Tensor, eb_i: torch.Tensor) -> torch.Tensor:
+                   counts: torch.Tensor, eb_i: torch.Tensor, *, carry=None,
+                   n=None) -> torch.Tensor:
     """Inverse of :func:`sz_encode_rows`: arena + sidecars -> f32 [B, P]
-    rows (entries past each row's ``n`` are meaningless; callers slice)."""
+    rows (entries past each row's ``n`` are meaningless; callers slice).
+
+    ``carry`` is the reconstruction-side distribution hook: a callable that
+    receives each row's inclusive total after the local cumsum (int32
+    [B, 1], taken at ``n - 1``, so ``n`` is required with it) and returns
+    the exclusive cross-shard prefix to add; every add wraps as int32 does,
+    so local cumsum + carry is bitwise the global cumsum.  ``None`` is the
+    single-device case."""
     padded = widths.shape[1] * bitpack.BLOCK
     j = torch.arange(padded + 2, dtype=torch.int64, device=arena.device)
     idx = offsets.to(torch.int64)[:, None] + j[None, :]
@@ -218,6 +247,12 @@ def sz_decode_rows(arena: torch.Tensor, widths: torch.Tensor, offsets: torch.Ten
     buf = torch.where(j[None, :] < counts.to(torch.int64)[:, None], vals, 0)
     delta = bitpack.unpack_codes_rows(buf.view(torch.uint32), widths)
     q = sz_core.lorenzo_reconstruct(delta, ndim=1)  # int32 cumsum, wrapping
+    if carry is not None:
+        if n is None:
+            raise ValueError("sz_decode_rows: carry= needs n=, the rows' lengths")
+        totals = q.gather(1, (torch.as_tensor(n, device=q.device).to(torch.int64) - 1)
+                          .clamp(min=0)[:, None])
+        q = sz_core._wrap_i32(q.to(torch.int64) + carry(totals).to(torch.int64)).to(torch.int32)
     return q.to(torch.float32) * (2.0 * eb_i[:, None])
 
 

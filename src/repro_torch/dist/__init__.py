@@ -1,6 +1,15 @@
 """repro_torch.dist — distribution on ``torch.distributed`` (the port of
-``repro.dist``): :mod:`repro_torch.dist.sharding` maps logical axes onto a
-device mesh, and :mod:`repro_torch.dist.insitu` compresses one field where
-it lives, one shard per rank, with the halo exchange closing the seams.
-The sharded arena and ``repro.dist.collectives`` wait for the port's next
-dist slice."""
+``repro.dist``), one process per rank of a device mesh:
+
+* :mod:`repro_torch.dist.sharding` maps logical axes onto a device mesh;
+* :mod:`repro_torch.dist.insitu` compresses fields where they live, one
+  shard per rank, with the halo exchange closing the seams: one field at a
+  time, or a snapshot's leaves batched into stream arenas;
+* :mod:`repro_torch.dist.collectives` is the compressed cross-pod gradient
+  mean: block-wise int8/int4 codes with error feedback on the wire in place
+  of f32 gradients.
+"""
+
+from repro_torch.dist import collectives, insitu, sharding  # noqa: F401
+
+__all__ = ["collectives", "insitu", "sharding"]

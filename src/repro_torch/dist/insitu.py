@@ -52,14 +52,24 @@ a mesh runs ``gloo`` over CUDA tensors (two ranks sharing one card, as
 NCCL refuses), the faces and scalars cross through host copies, since gloo
 sends and receives CPU tensors; the shard itself stays on its device.
 
-The sharded arena (``ShardedSZArena``, ``plan_arena``) and the raw
-mesh-sharded checkpoint leaf wait for the port's next dist slice.
+A snapshot of many leaves batches them (the reference's stream arena):
+:func:`plan_kernel_buckets` sends 3-D TILE-aligned replicated leaves to K8
+(``core.arena.szk_compress_bucket``), :func:`plan_arena` buckets the rest
+whose flattening splits contiguously over one mesh axis, and
+:func:`sharded_compress_arena` codes a bucket with **one** halo exchange of
+``[B, 1]`` faces and **one** ``all_reduce`` of ``[B]`` bounds, whatever its
+leaf count.  :func:`arena_to_host` gathers the compressed slab and its
+sidecars to the mesh's first rank; :func:`arena_to_host_async` defers that
+gather to the checkpoint manager's drain thread, on a process group of its
+own (two threads issuing collectives on one group can order them
+differently on each rank, and then they hang).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import threading
 from typing import Any, Optional, Sequence
 
 import numpy as np
@@ -73,16 +83,27 @@ from repro_torch.core import zfp as zfp_core
 from repro_torch.device import resolve_device
 from repro_torch.dist import sharding as shardlib
 from repro_torch.kernels.lorenzo3d import TILE
+from repro_torch.obs import trace as obs_trace
 
 # Bytes this process has sent since the last reset, by collective: halo and
-# carry faces (``ppermute``), scalars (``all_reduce``: the global |x|max and
-# the stored-bytes sum) and compressed payloads (``gather``, in ``to_host``).
-sent_bytes = {"ppermute": 0, "all_reduce": 0, "gather": 0}
+# carry faces (``ppermute``), scalars (``all_reduce``: the global |x|max,
+# the bucket bounds and the stored-bytes sum), compressed payloads
+# (``gather``: ``to_host``, ``arena_to_host``) and gradient codes with their
+# scales (``all_gather``: ``dist.collectives``).  The drain thread adds to it
+# too, so every add holds a lock.
+sent_bytes = {"ppermute": 0, "all_reduce": 0, "gather": 0, "all_gather": 0}
+_SENT_LOCK = threading.Lock()
+
+
+def count_sent(kind: str, nbytes: int) -> None:
+    with _SENT_LOCK:
+        sent_bytes[kind] += int(nbytes)
 
 
 def reset_sent_bytes() -> None:
-    for k in sent_bytes:
-        sent_bytes[k] = 0
+    with _SENT_LOCK:
+        for k in sent_bytes:
+            sent_bytes[k] = 0
 
 
 # ------------------------------------------------------------ partition ----
@@ -96,7 +117,7 @@ def _single_axis(ent):
             raise NotImplementedError(
                 f"composed-axis field partition {ent} unsupported: the halo "
                 "shift of a composed shard index needs a carry-propagating "
-                "chain; shard each field dim over a single mesh axis")
+                "permute chain; shard each field dim over a single mesh axis")
         return ent[0] if ent else None
     return ent
 
@@ -168,6 +189,12 @@ def _nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
 
 
+def via_host(group, t: torch.Tensor) -> bool:
+    """Whether ``t`` crosses ``group`` through a host copy: gloo sends,
+    receives and reduces CPU tensors, so a CUDA face, scalar or code does."""
+    return t.device.type != "cpu" and dist.get_backend(group) == "gloo"
+
+
 class DistOps:
     """The collectives of the halo machinery over a device mesh, one process
     per rank (the reference's ``_LaxOps``): ``ppermute`` is point-to-point
@@ -178,25 +205,19 @@ class DistOps:
     def __init__(self, mesh):
         self.mesh = mesh
 
-    @staticmethod
-    def _via_host(group, t: torch.Tensor) -> bool:
-        # gloo sends, receives and reduces CPU tensors: a face or scalar of
-        # a CUDA shard crosses through an explicit host copy
-        return t.device.type != "cpu" and dist.get_backend(group) == "gloo"
-
     def ppermute(self, x: torch.Tensor, axis_name: str, perm) -> torch.Tensor:
         """``x`` from shard ``s`` lands on shard ``d`` for each ``(s, d)``
         of ``perm`` along ``axis_name``; a shard that is no destination
         gets zeros."""
         group = self.mesh.get_group(axis_name)
         me = self.mesh.get_local_rank(axis_name)
-        host = self._via_host(group, x)
+        host = via_host(group, x)
         wire = x.contiguous().cpu() if host else x.contiguous()
         recv, p2p = None, []
         for s, d in perm:
             if s == me:
                 p2p.append(dist.P2POp(dist.isend, wire, dist.get_global_rank(group, d), group))
-                sent_bytes["ppermute"] += _nbytes(wire)
+                count_sent("ppermute", _nbytes(wire))
             if d == me:
                 recv = torch.empty_like(wire)
                 p2p.append(dist.P2POp(dist.irecv, recv, dist.get_global_rank(group, s), group))
@@ -216,10 +237,10 @@ class DistOps:
     def _reduce(self, x: torch.Tensor, axis_names, op) -> torch.Tensor:
         for name in axis_names:
             group = self.mesh.get_group(name)
-            host = self._via_host(group, x)
+            host = via_host(group, x)
             buf = x.detach().cpu().clone() if host else x.detach().clone()
             dist.all_reduce(buf, op=op, group=group)
-            sent_bytes["all_reduce"] += _nbytes(buf)
+            count_sent("all_reduce", _nbytes(buf))
             x = buf.to(x.device) if host else buf
         return x
 
@@ -323,7 +344,7 @@ def _check_mesh_device(mesh, t: torch.Tensor) -> None:
 def _local_field(field, mesh, spec):
     """(this rank's shard, the global shape, the spec) from a ``DTensor``
     or from a local shard plus its spec."""
-    if hasattr(field, "to_local") and hasattr(field, "device_mesh"):
+    if shardlib.is_dtensor(field):
         if field.device_mesh != mesh:
             raise ValueError("the DTensor lives on another mesh")
         own = shardlib.spec_of(field)
@@ -569,7 +590,7 @@ def to_host(stream) -> Optional[HostShardedStream]:
         dst = ranks[0]
         got = [None] * world if dist.get_rank() == dst else None
         if dist.get_rank() != dst:
-            sent_bytes["gather"] += sum(a.nbytes for a in mine[1].values())
+            count_sent("gather", sum(a.nbytes for a in mine[1].values()))
         dist.gather_object(mine, got, dst=dst)
         if got is None:
             return None
@@ -672,31 +693,139 @@ def _rebuild_packed(blobs: dict, n: int, device) -> bitpack.PackedCodes:
                                 int(blobs["total_bits"]), device=device)
 
 
-# ------------------------------------------------------- snapshot buckets --
+# ----------------------------------------------------------- stream arena --
 
 
-def plan_kernel_buckets(entries: Sequence[tuple],
+@dataclasses.dataclass
+class ShardedSZArena:
+    """This rank's stream arena of one snapshot bucket (the reference stacks
+    every shard's on a leading axis; here each rank holds its own).  Row
+    ``b``'s stream is ``arena[offsets[b] : offsets[b] + counts[b]]``, byte
+    for byte the per-leaf ``sharded_compress`` stream of the same flat leaf
+    (and, with ``halo``, the single-device ``sz.compress`` stream of the
+    whole flat leaf, per shard segment)."""
+
+    arena: torch.Tensor  # uint32[cap_loc]
+    widths: torch.Tensor  # uint8[B, P_loc // 64]
+    offsets: torch.Tensor  # int32[B]
+    counts: torch.Tensor  # int32[B]
+    total_bits: torch.Tensor  # int32[B]
+    eb_i: torch.Tensor  # float32[B] bounds from the all-reduced |x|max
+    used: torch.Tensor  # int32[] live words of this rank's arena
+    names: tuple
+    shapes: tuple  # original leaf shapes
+    dtypes: tuple
+    ns: tuple  # global flat element counts
+    padded_loc: int  # P_loc, the per-shard row length
+    axis: Optional[str]  # mesh axis the flat rows are split over (or None)
+    grid: int  # shards
+    halo: bool
+    position: int  # this shard's index along ``axis``
+    mesh: Any
+
+
+@dataclasses.dataclass(frozen=True)
+class ArenaBucket:
+    """A size bucket of arena-eligible leaves sharing one flat partition
+    (``axis``/``grid``) and one per-shard row length ``padded_loc``."""
+
+    names: tuple
+    shapes: tuple
+    dtypes: tuple
+    ns: tuple
+    padded_loc: int
+    axis: Optional[str]
+    grid: int
+
+    @property
+    def rows(self) -> int:
+        return len(self.names)
+
+    @property
+    def nbytes_raw(self) -> int:
+        return sum(math.prod(s) * arena_core.torch_dtype(d).itemsize
+                   for s, d in zip(self.shapes, self.dtypes))
+
+
+def _flat_axis(shape, spec, mesh) -> Optional[str]:
+    """Mesh axis a leaf's row-major flattening is contiguously split over,
+    or ``None`` for replicated leaves.  Only leading-dim single-axis
+    partitions qualify: flattening an axis-0 split keeps every shard a
+    contiguous flat segment, so the 1-D halo is exact; any other partition
+    interleaves flat segments and the leaf is not arena-eligible (the
+    caller falls back to the per-leaf path)."""
+    layout = partition_layout(shape, spec, mesh)
+    if any(a is not None for a in layout[1:]):
+        raise NotImplementedError(
+            f"arena path needs leading-dim (or replicated) partitions; "
+            f"layout {layout} interleaves the flat order")
+    return layout[0] if layout else None
+
+
+def plan_arena(entries: Sequence[tuple], mesh,
+               elem_budget: int = arena_core.ROW_ELEM_BUDGET):
+    """Bucket arena-eligible leaves: ``entries`` are ``(name, shape, dtype,
+    spec)``; returns ``(buckets, skipped)`` where ``skipped`` is a list of
+    ``(name, reason)`` for leaves the arena cannot batch (non-leading-dim
+    partitions, non-divisible dims, oversized rows) — those stay on the
+    per-leaf path."""
+    sizes = shardlib.mesh_sizes(mesh)
+    groups: dict[tuple, list] = {}
+    skipped = []
+    for name, shape, dtype, spec in entries:
+        n = math.prod(shape) if len(shape) else 1
+        try:
+            axis = _flat_axis(shape, spec, mesh)
+        except (NotImplementedError, ValueError) as e:
+            skipped.append((str(name), str(e)))
+            continue
+        g = sizes.get(axis, 1) if axis else 1
+        if g <= 1:
+            axis, g = None, 1
+        n_loc = n // g
+        p_loc = arena_core.row_length(n_loc)
+        if p_loc * 32 >= 2**31:
+            skipped.append((str(name), f"row n={n_loc} too large for int32 bit offsets"))
+            continue
+        groups.setdefault((axis, g, p_loc), []).append(
+            (str(name), tuple(int(s) for s in shape), arena_core.dtype_name(dtype), n))
+    buckets = []
+    for (axis, g, p_loc) in sorted(groups, key=lambda k: (k[0] or "", k[1], k[2])):
+        for sub in arena_core.split_budget(groups[(axis, g, p_loc)], p_loc, elem_budget):
+            buckets.append(ArenaBucket(
+                tuple(e[0] for e in sub), tuple(e[1] for e in sub),
+                tuple(e[2] for e in sub), tuple(e[3] for e in sub),
+                p_loc, axis, g))
+    return buckets, skipped
+
+
+def plan_kernel_buckets(entries: Sequence[tuple], mesh,
                         elem_budget: int = arena_core.ROW_ELEM_BUDGET):
     """Carve out the leaves the fused tile kernel (K8) batches: 3-D,
-    TILE-aligned, small enough for the kernel's int32 bit offsets.
-    ``entries`` are ``(name, shape, dtype)``, every leaf replicated (the
-    sharded form waits for the port's sharded arena).  Returns
-    ``(buckets, rest)``: shape-uniform :class:`repro_torch.core.arena.Bucket`
-    groups (``padded == n``: tile rows carry no pad) for
-    :func:`repro_torch.core.arena.szk_compress_bucket`, plus the remaining
-    entries to feed :func:`repro_torch.core.arena.plan_buckets`.  Those
-    leaves would fit the flat route too, but the tile-blocked coder is the
-    field path of the paper, so it wins the route."""
+    TILE-aligned, replicated (no partitioned dim), small enough for the
+    kernel's int32 bit offsets.  ``entries`` are ``(name, shape, dtype,
+    spec)``.  Returns ``(buckets, rest)``: shape-uniform
+    :class:`repro_torch.core.arena.Bucket` groups (``padded == n``: tile rows
+    carry no pad) for :func:`repro_torch.core.arena.szk_compress_bucket`,
+    plus the remaining entries to feed :func:`plan_arena`.  Those leaves
+    would fit the flat route too, but the tile-blocked coder is the field
+    path of the paper, so it wins the route."""
     tz, ty, tx = TILE
     groups: dict[tuple, list] = {}
     rest = []
-    for name, shape, dtype in entries:
+    for name, shape, dtype, spec in entries:
         shape_t = tuple(int(s) for s in shape)
         n = math.prod(shape_t) if shape_t else 1
         ok = (len(shape_t) == 3 and n * 32 < 2**31
               and shape_t[0] % tz == 0 and shape_t[1] % ty == 0 and shape_t[2] % tx == 0)
+        if ok:
+            try:
+                layout = partition_layout(shape_t, spec, mesh)
+            except (NotImplementedError, ValueError):
+                layout = None
+            ok = layout is not None and all(a is None for a in layout)
         if not ok:
-            rest.append((name, shape, dtype))
+            rest.append((name, shape, dtype, spec))
             continue
         groups.setdefault(shape_t, []).append(
             (str(name), shape_t, arena_core.dtype_name(dtype), n))
@@ -708,3 +837,196 @@ def plan_kernel_buckets(entries: Sequence[tuple],
                 n, tuple(e[0] for e in sub), tuple(e[1] for e in sub),
                 tuple(e[2] for e in sub), tuple(e[3] for e in sub)))
     return buckets, rest
+
+
+def _leaf_layout(shape, axis) -> tuple:
+    return ((axis,) + (None,) * (len(shape) - 1)) if axis else (None,) * len(shape)
+
+
+def _leaf_segment(leaf, mesh, shape, axis, n_loc: int) -> torch.Tensor:
+    """This rank's contiguous flat segment of a bucket leaf: a ``DTensor``'s
+    local part, or the local tensor the caller passed (the whole leaf when
+    the bucket is replicated)."""
+    if shardlib.is_dtensor(leaf):
+        if leaf.device_mesh != mesh:
+            raise ValueError("the DTensor lives on another mesh")
+        got = partition_layout(leaf.shape, shardlib.spec_of(leaf), mesh)
+        if got != _leaf_layout(shape, axis):
+            raise ValueError(f"leaf placed as {got}; the bucket splits dim 0 over {axis!r}")
+        leaf = leaf.to_local()
+    flat = leaf.reshape(-1)
+    if flat.numel() != n_loc:
+        raise ValueError(f"local leaf of {flat.numel()} values, the bucket needs {n_loc}")
+    _check_mesh_device(mesh, flat)
+    return flat
+
+
+def sharded_compress_arena(leaves: Sequence, bucket: ArenaBucket, mesh, eb,
+                           halo: bool = True) -> ShardedSZArena:
+    """Compress a bucket of flat-contiguously-sharded leaves into this
+    rank's stream arena — **one** halo exchange of ``[B, 1]`` int32 faces
+    and **one** ``all_reduce`` of the ``[B]`` float32 |x|max for the whole
+    bucket, whatever its leaf count.  A collective over ``bucket.axis``
+    (none for a replicated bucket): every rank of the mesh calls it with its
+    leaves: ``DTensor`` objects or their local parts."""
+    axis, g = bucket.axis, bucket.grid
+    p_loc = bucket.padded_loc
+    ns_loc = tuple(n // g for n in bucket.ns)
+    segs = [_leaf_segment(leaf, mesh, shape, axis, n_loc)
+            for leaf, shape, n_loc in zip(leaves, bucket.shapes, ns_loc)]
+    device = segs[0].device
+    xs = torch.zeros(len(segs), p_loc, dtype=torch.float32, device=device)
+    for b, seg in enumerate(segs):
+        xs[b, :seg.numel()] = seg
+    # a pinned, non-blocking copy: a pageable one would wait for the stream
+    n_arr = torch.tensor(ns_loc, dtype=torch.int64,
+                         pin_memory=device.type == "cuda").to(device, non_blocking=True)
+    am = torch.where(arena_core._row_mask(p_loc, n_arr), xs.abs(), 0.0).amax(dim=1)
+    ex = None
+    if axis is not None:
+        ops = DistOps(mesh)
+        am = ops.pmax(am, (axis,))
+        if halo:
+            # the per-leaf halo hook on the flat axis: the [B, 1] last-quantum
+            # face goes one shard right in ONE exchange for the whole bucket
+            hx = halo_exchange((axis,), {axis: g}, ops)
+            ex = lambda last: hx(0, last)  # noqa: E731
+    ar, widths, offsets, counts, tb, eb_i, used = arena_core.sz_encode_rows(
+        xs, n_arr, eb, arena_core.sz_capacity(ns_loc), absmax=am, exchange=ex)
+    return ShardedSZArena(ar, widths, offsets, counts.to(torch.int32), tb.to(torch.int32), eb_i,
+                          used, bucket.names, bucket.shapes, bucket.dtypes, bucket.ns, p_loc,
+                          axis, g, bool(halo) if axis else True,
+                          mesh.get_local_rank(axis) if axis else 0, mesh)
+
+
+def sharded_decompress_arena(stream: ShardedSZArena, mesh) -> list:
+    """Inverse of :func:`sharded_compress_arena` on the same mesh (a
+    collective over the bucket's axis): this rank's rows decoded, one
+    log-step carry scan of ``[B, 1]`` int32 faces per bucket, then each row
+    back into its leaf.  Returns one ``DTensor`` per leaf in its original
+    shape and dtype, bitwise the single-device flat round trip for halo
+    arenas."""
+    _check_mesh_device(mesh, stream.arena)
+    axis, g = stream.axis, stream.grid
+    ns_loc = tuple(n // g for n in stream.ns)
+    carry = None
+    if axis is not None and stream.halo:
+        # the per-leaf carry hook (log-step scan), one for the bucket
+        cx = carry_exchange((axis,), {axis: g}, DistOps(mesh))
+        carry = lambda totals: cx(0, totals)  # noqa: E731
+    n_arr = torch.tensor(ns_loc, dtype=torch.int64, device=stream.arena.device)
+    rows = arena_core.sz_decode_rows(stream.arena, stream.widths, stream.offsets, stream.counts,
+                                     stream.eb_i, carry=carry, n=n_arr)
+    sizes = shardlib.mesh_sizes(mesh)
+    out = []
+    for b, (shape, dtype, n_loc) in enumerate(zip(stream.shapes, stream.dtypes, ns_loc)):
+        layout = _leaf_layout(shape, axis)
+        local = rows[b, :n_loc].reshape(_local_shape(shape, layout, sizes))
+        out.append(_as_dtensor(local.to(arena_core.torch_dtype(dtype)), mesh, layout, shape))
+    return out
+
+
+def _arena_sidecars(stream: ShardedSZArena) -> dict:
+    return {"widths": stream.widths, "offsets": stream.offsets.to(torch.int32),
+            "counts": stream.counts.to(torch.int32),
+            "total_bits": stream.total_bits.to(torch.int32)}
+
+
+def _first_rank(mesh) -> int:
+    return int(mesh.mesh.flatten()[0])
+
+
+def is_first_rank(mesh) -> bool:
+    """Whether this process is the mesh's first rank (the one that gathers
+    and writes); ``True`` without a process group."""
+    return not dist.is_initialized() or dist.get_rank() == _first_rank(mesh)
+
+
+def _lead_copy(mesh, axis) -> bool:
+    """Whether this rank is local rank 0 on every mesh axis but ``axis``:
+    the one copy of its shard that goes to the host (ranks along the other
+    axes hold the same shard)."""
+    return all(mesh.get_local_rank(a) == 0 for a in mesh.mesh_dim_names if a != axis)
+
+
+def _gather_arena(stream: ShardedSZArena, shard: dict, eb_i: np.ndarray,
+                  group) -> Optional[arena_core.HostArena]:
+    """This rank's live slab and sidecars to the mesh's first rank: the
+    :class:`repro_torch.core.arena.HostArena` there, ``None`` elsewhere."""
+    first = is_first_rank(stream.mesh)
+    if stream.axis is None:
+        shards = [shard] if first else None  # replicated: the first rank's copy
+    else:
+        ranks = stream.mesh.mesh.flatten().tolist()
+        world = dist.get_world_size(group) if dist.is_initialized() else 1
+        if len(ranks) != world:
+            raise ValueError(f"the mesh holds {len(ranks)} of {world} ranks; arena_to_host "
+                             "gathers over the whole group")
+        mine = (stream.position, shard) if _lead_copy(stream.mesh, stream.axis) else None
+        if world == 1:
+            got = [mine]
+        else:
+            got = [None] * world if first else None
+            if not first and mine is not None:
+                count_sent("gather", sum(a.nbytes for a in shard.values()))
+            dist.gather_object(mine, got, dst=ranks[0], group=group)
+        if not first:
+            return None
+        by_pos = dict(g for g in got if g is not None)
+        shards = [by_pos[p] for p in range(stream.grid)]
+    if shards is None:
+        return None
+    return arena_core.HostArena(
+        arena_core.CODEC_SZ, stream.names, stream.shapes, stream.dtypes, stream.ns,
+        stream.padded_loc * stream.grid, stream.grid, stream.halo,
+        [float(v) for v in eb_i], shards)
+
+
+def arena_to_host(stream: ShardedSZArena, group=None) -> Optional[arena_core.HostArena]:
+    """Gather a sharded bucket arena to the mesh's first rank (a collective
+    over ``group``, the default group when ``None``; the mesh must span it):
+    each rank reads back its ``used`` word count and copies its live slab
+    and sidecars to the host, and the first rank receives the others'.
+    Returns the :class:`repro_torch.core.arena.HostArena` there, equal to the
+    reference's field for field, and ``None`` on every other rank.  A
+    replicated bucket (``axis`` None) gathers nothing: the first rank's
+    copy is the arena."""
+    with obs_trace.span("insitu.arena_to_host", n_fields=len(stream.names),
+                        grid=int(stream.grid)):
+        used = int(stream.used)  # the single readback
+        shard = {"arena": bitpack.to_numpy(stream.arena[:used]),
+                 **{k: bitpack.to_numpy(t) for k, t in _arena_sidecars(stream).items()}}
+    return _gather_arena(stream, shard, stream.eb_i.cpu().numpy(), group)
+
+
+def arena_to_host_async(stream: ShardedSZArena, group=None) -> arena_core.PendingHostArena:
+    """Non-blocking :func:`arena_to_host`: on CUDA it enqueues copies of
+    ``used`` and the sidecars into pinned host buffers behind the bucket's
+    compression and returns a :class:`repro_torch.core.arena.PendingHostArena`
+    whose ``result()`` (on the checkpoint manager's drain thread) reads
+    ``used``, copies the slab and runs the gather over ``group``.  Give it a
+    group that only the drain thread uses: the caller's thread goes on
+    issuing the next snapshot's collectives on the mesh's groups meanwhile,
+    and two threads sharing one group can order their collectives
+    differently on each rank."""
+    if not stream.arena.is_cuda:
+        return arena_core.PendingHostArena(lambda: arena_to_host(stream, group),
+                                           names=stream.names)
+    side = {"used": arena_core._pinned_copy(stream.used),
+            "eb_i": arena_core._pinned_copy(stream.eb_i),
+            **{k: arena_core._pinned_copy(t) for k, t in _arena_sidecars(stream).items()}}
+    done = torch.cuda.Event()
+    done.record(torch.cuda.current_stream(stream.arena.device))
+
+    def fetch():
+        with obs_trace.span("insitu.arena_to_host", n_fields=len(stream.names),
+                            grid=int(stream.grid)):
+            done.synchronize()
+            used = int(side["used"])
+            with torch.cuda.device(stream.arena.device):
+                slab = bitpack.to_numpy(stream.arena[:used])
+            shard = {"arena": slab, **{k: bitpack.to_numpy(side[k]) for k in (
+                "widths", "offsets", "counts", "total_bits")}}
+        return _gather_arena(stream, shard, side["eb_i"].numpy(), group)
+
+    return arena_core.PendingHostArena(fetch, names=stream.names)

@@ -20,14 +20,19 @@ Inference rules (as the reference's):
   replication.
 
 :func:`placements` and :func:`spec_of` translate a spec to and from the
-``Shard``/``Replicate`` placements of a ``DTensor``.  ``tree_shardings``
-and ``batch_sharding`` wait for the port's training slice.
+``Shard``/``Replicate`` placements of a ``DTensor``; :class:`NamedSharding`
+(a mesh and a spec, as ``jax.sharding.NamedSharding``) says where a leaf
+goes, and :func:`place` puts a whole array there (what
+``CheckpointManager.restore(shardings=...)`` does to each leaf).
+``tree_shardings`` and ``batch_sharding`` wait for the port's training
+slice.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
-from typing import Mapping, Optional, Sequence, Union
+from typing import Any, Mapping, Optional, Sequence, Union
 
 # logical axis -> mesh axis (str), composed mesh axes (tuple, outer first),
 # or None (never sharded).  Explicit Nones document intent; unknown logical
@@ -64,6 +69,22 @@ FIELD_AXES: Mapping[int, tuple] = {
     2: ("field_y", "field_x"),
     3: ("field_z", "field_y", "field_x"),
 }
+
+
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    """A device mesh and a partition spec over its axis names: the placement
+    of one array (``jax.sharding.NamedSharding``'s counterpart)."""
+
+    mesh: Any
+    spec: tuple = ()
+
+
+def is_dtensor(x) -> bool:
+    """Whether ``x`` is a ``torch.distributed.tensor.DTensor``."""
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(x, DTensor)
 
 
 def mesh_sizes(mesh) -> dict[str, int]:
@@ -147,3 +168,30 @@ def spec_of(dtensor) -> tuple:
     while spec and spec[-1] is None:
         spec.pop()
     return tuple(spec)
+
+
+def place(t, sh: NamedSharding):
+    """A whole (host) array as a ``DTensor`` on ``sh.mesh``: this rank's
+    block of it, sliced by the placements of ``sh.spec`` (several mesh axes
+    on one dimension split it outer first) and moved to the mesh's device.
+    Every split must be even."""
+    import torch
+    from torch.distributed.tensor import DTensor, Shard
+
+    mesh, shape = sh.mesh, tuple(t.shape)
+    places = placements(sh.spec, mesh)
+    coord = mesh.get_coordinate()
+    start, length = [0] * len(shape), list(shape)
+    for i, p in enumerate(places):
+        if isinstance(p, Shard):
+            size = mesh.size(i)
+            if p.dim >= len(shape) or length[p.dim] % size:
+                raise ValueError(f"spec {tuple(sh.spec)} does not split {shape} evenly")
+            length[p.dim] //= size
+            start[p.dim] += coord[i] * length[p.dim]
+    local = t[tuple(slice(s, s + n) for s, n in zip(start, length))]
+    device = (torch.device("cuda", torch.cuda.current_device()) if mesh.device_type == "cuda"
+              else torch.device(mesh.device_type))
+    return DTensor.from_local(local.contiguous().to(device), mesh, places, run_check=False,
+                              shape=torch.Size(shape),
+                              stride=torch.empty(shape, device="meta").stride())

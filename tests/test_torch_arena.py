@@ -11,6 +11,7 @@ K8 and K9 against their plain versions there.
 
 import collections
 import threading
+import types
 
 import jax
 import jax.numpy as jnp
@@ -190,7 +191,8 @@ def test_plan_kernel_buckets_matches_reference():
     entries += [(f"nyx{i}", (256, 256, 256), "float32") for i in range(6)]
     mesh = jax.sharding.AbstractMesh((1,), ("data",))
     jb, jrest = jinsitu.plan_kernel_buckets([e + (PS(),) for e in entries], mesh)
-    tb, trest = tinsitu.plan_kernel_buckets(entries)
+    tmesh = types.SimpleNamespace(shape=(1,), mesh_dim_names=("data",))
+    tb, trest = tinsitu.plan_kernel_buckets([e + ((),) for e in entries], tmesh)
     assert [_bucket_key(b) for b in jb] == [_bucket_key(b) for b in tb]
     assert [e[0] for e in jrest] == [e[0] for e in trest] == ["misaligned", "flat2d", "huge"]
     assert [b.rows for b in tb if b.shapes[0] == (256, 256, 256)] == [4, 2]

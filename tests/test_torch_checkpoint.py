@@ -233,16 +233,30 @@ class TestDrain:
 
 
 def test_sharded_leaves_and_insitu_codec_wait_for_dist(tmp_path):
-    """A raw mesh-sharded leaf still waits for the next dist slice; an
-    ``insitu-*`` leaf now restores through ``dist.insitu.host_restore``, so
-    a manifest that claims the codec for a plain payload is corruption."""
-    class FakeDTensor(torch.Tensor):
-        placements = ("Shard(0)",)
+    """A ``DTensor`` leaf on a one-rank mesh (one block) saves as a whole
+    leaf, as the reference stores a one-device array, and restores onto the
+    mesh with ``shardings``; an ``insitu-*`` leaf restores through
+    ``dist.insitu.host_restore``, so a manifest that claims the codec for a
+    plain payload is corruption.  (Split leaves across ranks:
+    ``tests/test_torch_checkpoint_sharded.py``.)"""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor, Shard
 
-    mgr = _tmgr(tmp_path)
-    leaf = torch.zeros(4).as_subclass(FakeDTensor)
-    with pytest.raises(NotImplementedError, match="item 1: _ShardedLeaf"):
-        mgr.save(1, {"w": leaf})
+    from repro_torch.dist.sharding import NamedSharding
+
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        mesh = init_device_mesh("cpu", (1,), mesh_dim_names=("data",))
+        x = torch.arange(32, dtype=torch.float32).reshape(8, 4)
+        mgr = _tmgr(tmp_path)
+        mgr.save(1, {"w": DTensor.from_local(x, mesh, [Shard(0)], run_check=False)})
+        assert sorted(p.name for p in (tmp_path / "step_000000001").glob("leaf_*")) == \
+            ["leaf_00000.bin"]
+        out, _ = mgr.restore(state_like={"w": 0}, shardings=NamedSharding(mesh, ("data",)))
+        assert isinstance(out["w"], DTensor) and torch.equal(out["w"].to_local(), x)
+    finally:
+        dist.destroy_process_group()
     mgr.save(2, {"w": torch.zeros(4)})
     mpath = tmp_path / "step_000000002/MANIFEST.json"
     m = json.loads(mpath.read_text())

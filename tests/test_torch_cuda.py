@@ -854,3 +854,111 @@ def test_cuda_one_rank_sharded_compress_equals_single_device(cuda_device):
         assert _same(st.words, r.payload["parts"][0].words) and _same(y, zc.decompress(r))
     finally:
         dist.destroy_process_group()
+
+
+def _one_rank_group():
+    import socket
+
+    import torch.distributed as dist
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", world_size=1, rank=0)
+
+
+@pytest.mark.cuda
+def test_cuda_insitu_hook_writes_the_cpu_files_and_restores_on_the_card(cuda_device, tmp_path):
+    """The in-situ hook on a one-rank mesh on the card (K8 once per kernel
+    bucket, the flat buckets' plain coder) and on the CPU write the same
+    files byte for byte, and a restore with ``shardings`` puts each leaf on
+    the mesh's device, bitwise the CPU's restore."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.dist.sharding import NamedSharding, place
+    from repro_torch.launch.train import build_insitu_hook
+
+    rng = np.random.default_rng(4)
+    values = {"tile": _field((8, 64, 128), 1), "flat": rng.normal(size=3000).astype(np.float32),
+              "half": rng.normal(size=(64, 64)).astype(np.float32)}
+    _one_rank_group()
+    try:
+        restored = {}
+        for dev in ("cuda", "cpu"):
+            mesh = init_device_mesh(dev, (1, 1, 1), mesh_dim_names=("pod", "data", "model"))
+            rep = NamedSharding(mesh, ())
+            state = {k: place(torch.from_numpy(v).to(torch.bfloat16 if k == "half" else
+                                                     torch.float32), rep)
+                     for k, v in values.items()}
+            hook = build_insitu_hook(mesh, str(tmp_path / dev), 1e-2, min_bytes=1024)
+            kernels.reset_launch_counts()
+            hook(1, state)
+            hook.wait()
+            counts = kernels.launch_counts()
+            assert counts["fused_compress_batched"] == int(dev == "cuda")
+            out, _ = hook.manager.restore(step=1, state_like={"arena000": 0, "karena000": 0},
+                                          shardings=rep)
+            for leaves in out.values():
+                for t in leaves.values():
+                    assert t.to_local().device.type == dev
+            restored[dev] = out
+        a, b = tmp_path / "cuda/step_000000001", tmp_path / "cpu/step_000000001"
+        names = sorted(p.name for p in a.iterdir() if not p.name.startswith("obs_"))
+        assert names == sorted(p.name for p in b.iterdir() if not p.name.startswith("obs_"))
+        for n in names:
+            assert (a / n).read_bytes() == (b / n).read_bytes(), n
+        for key, leaves in restored["cuda"].items():
+            for n, t in leaves.items():
+                assert _same(t.to_local(), restored["cpu"][key][n].to_local()), n
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_cuda_gradient_hop_matches_the_cpu(cuda_device):
+    """Both forms of the compressed pod mean on a one-rank mesh: the card's
+    means and error feedback equal the CPU's bitwise at bits 8 and 4, over
+    two steps, and the wire is int8 or packed uint8 codes plus scales."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor, Shard
+
+    from repro_torch.dist import collectives, insitu
+
+    rng = np.random.default_rng(6)
+    grads = {"w": rng.normal(size=(96, 130)).astype(np.float32), "b": rng.normal(size=777)
+             .astype(np.float32)}
+    _one_rank_group()
+    try:
+        got = {}
+        for dev in ("cuda", "cpu"):
+            mesh = init_device_mesh(dev, (1,), mesh_dim_names=("pod",))
+            for bits in (8, 4):
+                cfg = collectives.GradCompressionConfig(enabled=True, bits=bits, block=64)
+                ef = {k: torch.zeros(v.shape, dtype=torch.bfloat16, device=dev)
+                      for k, v in grads.items()}
+                efs = {k: DTensor.from_local(torch.zeros((1,) + v.shape, dtype=torch.bfloat16,
+                                                         device=dev), mesh, [Shard(0)])
+                       for k, v in grads.items()}
+                for step in range(2):
+                    g = {k: torch.from_numpy(v * (step + 1)).to(dev) for k, v in grads.items()}
+                    insitu.reset_sent_bytes()
+                    m, ef = collectives.compressed_pod_mean(g, cfg, ef, mesh=mesh)
+                    wire = insitu.sent_bytes["all_gather"]
+                    ms, efs = collectives.compressed_pod_mean_stacked(
+                        {k: DTensor.from_local(v[None], mesh, [Shard(0)]) for k, v in g.items()},
+                        cfg, efs, mesh)
+                    got[(dev, bits, step)] = (m, ef, ms, {k: v.to_local() for k, v in efs.items()},
+                                              wire)
+        for (dev, bits, step), (m, ef, ms, efs, wire) in got.items():
+            if dev != "cuda":
+                continue
+            cm, cef, cms, cefs, cwire = got[("cpu", bits, step)]
+            for k in grads:
+                assert _same(m[k], cm[k]) and _same(ef[k], cef[k])
+                assert _same(ms[k], cms[k]) and _same(efs[k], cefs[k])
+            n = sum(-(-v.size // 64) * (64 * bits // 8 + 4) for v in grads.values())
+            assert wire == cwire == n
+    finally:
+        dist.destroy_process_group()

@@ -37,7 +37,8 @@ def test_the_walk_sees_the_port():
                    "serving/engine.py", "serving/kv_pages.py", "launch/serve.py",
                    "analysis/halos.py", "foresight/__init__.py", "foresight/cbench.py",
                    "foresight/pat.py", "foresight/cinema.py", "foresight/guideline.py",
-                   "dist/sharding.py", "dist/insitu.py"):
+                   "dist/sharding.py", "dist/insitu.py", "dist/collectives.py",
+                   "launch/train.py"):
         assert f"src/repro_torch/{module}" in names, module
     for example in ("torch_quickstart.py", "torch_foresight_workflow.py"):
         assert f"examples/{example}" in names, example
