@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port of TPU-SZ, TPU-ZFP, the in-situ snapshot
 path, Foresight, in-situ sharded compression, sharded snapshots with the
-compressed gradient hop and blockfloat8 serving on one GPU and check every
+compressed gradient hop, blockfloat8 serving, the multi-replica router
+under the serving fault drill and the trainer on one GPU and check every
 result.
 
     python3 chip_smoke.py
@@ -171,7 +172,8 @@ Needs one CUDA card and ``nvcc``; it builds the hand-written kernels from
     (``tests/test_serving.py``'s bar).  The CPU's ``xla`` path is another
     function in bfloat16 (it rounds attention logits and probabilities to
     bfloat16, as the reference's does), so its agreement is printed only;
-21. prints the ZFP stage times and one JSON line of per-kernel numbers for
+21. (printed last, after phases 22-24) prints the ZFP stage times and one
+    JSON line of per-kernel numbers for
     K1-K10 (launches, max difference from the plain version (K10's at the
     serving shape with its bf16 query), device ms at the main path's
     shapes from CUDA-graph replays (every wrapper captures), the plain
@@ -184,7 +186,47 @@ Needs one CUDA card and ``nvcc``; it builds the hand-written kernels from
     its paged entry, the main path's, and its bound counts the page table's
     bytes; K10's dense entry, both at S=32768, K1's and K10's share of
     their bound and their registers and spills are printed before it) and,
-    last, ``{"ok": true, "device": {...}}``.
+    last, ``{"ok": true, "device": {...}}``;
+22. serves phase 19's 12 requests through ``serving.router.Router`` over two
+    replicas of phase 19's engine configuration sharing one tree of phase
+    19's bf16 weights (drawn again from the seed), each with its own paged
+    blockfloat8 pool: (a) fault-free, real clock, ``integrity_every=1``:
+    every request's tokens equal phase 19's, K10 launches 30 per decode
+    step summed over the replicas, pages are gathered only for prefill, both
+    pools are clean and no replica is quarantined; (b)
+    ``ServeFaultPlan.drill(seed=0, n_replicas=2)`` under a ``DrillClock``
+    (the reference tests' router settings): every request completes or is
+    shed with a typed reason, never-moved requests equal (a) bitwise, a
+    moved request's prefix before its first re-dispatch equals (a), and
+    each stretch after a re-dispatch equals what a fresh replica decodes
+    from the prefix it was handed (not (a)'s tokens: a re-prefill is
+    another bf16 program than K10's decode, and phase 19's plain and K10
+    paths part after the first token with random weights); (c) one
+    ``kv_poison`` of replica 0's zero page at its tick 2: the integrity
+    probe quarantines the replica, no request keeps a token decoded at or
+    after the poisoned tick, and the continuations hold as in (b).  Prints the plan,
+    the faults fired, quarantines, re-dispatches, routed decode tokens/s,
+    ticks and peak memory;
+23. trains minicpm-2b at its published widths (2.72 B parameters; float32
+    state, bfloat16 compute, AdamW under ``wsd``, batch 8 x 256, the
+    launcher's defaults) for 3 steps on a one-rank NCCL ("pod", "data")
+    mesh with the compressed pod hop (bits 8, block 1024, error feedback):
+    finite losses, every parameter leaf changed, and the hop gathers
+    exactly each leaf's codes (padded to whole blocks) plus its scales per
+    step.  Prints step ms, tokens/s and peak memory;
+24. runs ``launch/train.py main`` on the card with ``--insitu-snapshot
+    --ckpt-every 2 --steps 4``: at minicpm-2b's widths cut to one layer,
+    the ``fields/`` snapshot restores within ``--insitu-eb`` (the three
+    embedding leaves, 2^28 points each, are skipped by the hook, as the
+    reference's would be: its 1-D coder refuses 2^26 points or more, which
+    is also why ``--lossy-ckpt`` cannot save this state in either package)
+    and the step-4 checkpoint bitwise; at SMOKE with ``--lossy-ckpt`` too
+    (no leaf reaches its 1 MiB threshold), a restart from the step-2
+    checkpoint reproduces steps 3-4's losses and the whole state bitwise;
+    and a two-process ``gloo`` pair on cuda:0 (``pod`` = 2, each rank this
+    script with ``--train-rank``) takes three compressed-hop steps at SMOKE
+    and ends with bitwise-equal parameters on both ranks.  Each of phases
+    22-24 prints its wall time; their kernel launches join the line of 21.
 
 Any failure raises and exits non-zero; so does a machine without CUDA, and a
 directory without the rest of the repository.
@@ -211,6 +253,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
@@ -228,7 +271,9 @@ from repro_torch.core import sz as sz_core  # noqa: E402
 from repro_torch.core import zfp as zfp_core  # noqa: E402
 from repro_torch.core.api import get_compressor  # noqa: E402
 from repro_torch.data import cosmo, kvc_cases, sz_cases, zfp_cases  # noqa: E402
+from repro_torch.data.tokens import DataConfig, TokenPipeline  # noqa: E402
 from repro_torch.dist import insitu, sharding  # noqa: E402
+from repro_torch.dist.collectives import GradCompressionConfig  # noqa: E402
 from repro_torch.foresight import cbench, cinema, guideline  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels import kvc_attention as k10  # noqa: E402
@@ -237,10 +282,17 @@ from repro_torch.kernels import sz_fused as szf  # noqa: E402
 from repro_torch.kernels import zfp3d as k5  # noqa: E402
 from repro_torch.kernels import ref as kref  # noqa: E402
 from repro_torch.kernels import zfp_fused as zff  # noqa: E402
+from repro_torch.launch import train as launch_train_lib  # noqa: E402
+from repro_torch.launch.mesh import make_mesh  # noqa: E402
 from repro_torch.models import layers as model_layers  # noqa: E402
 from repro_torch.models.spec import init_params, param_count  # noqa: E402
 from repro_torch.obs import metrics as obs_metrics  # noqa: E402
 from repro_torch.serving.engine import EngineConfig, Request, ServingEngine  # noqa: E402
+from repro_torch.serving.faults import DrillClock, ServeFaultInjector, ServeFaultPlan  # noqa: E402
+from repro_torch.serving.router import (SHED_REASONS, Router, RouterConfig,  # noqa: E402
+                                        RouterRequest)
+from repro_torch.train import loop as loop_lib  # noqa: E402
+from repro_torch.train import step as step_lib  # noqa: E402
 
 from cuda_timing import cuda_ms, cuda_times, graph_ms  # noqa: E402  (tools/)
 
@@ -1416,6 +1468,7 @@ def serving_full_width(device) -> dict:
            "prompt_tokens": sum(len(p) for p in ps)}
     print(f"serving {ARCH} full width (auto = K10): " + json.dumps(out))
     print("decode tick profile (8 live lanes): " + json.dumps(profiled))
+    out["tokens"] = toks  # phase 22 holds the routed run to them
     del params, eng
     torch.cuda.empty_cache()
     return out
@@ -2695,6 +2748,480 @@ def foresight_and_insitu(fields: dict, small: dict, hacc, base, eb: float, cpu_p
     return total
 
 
+# --------------------------------------------- the router (phase 22) -----
+
+ROUTER_REPLICAS = 2
+# the reference tests' drill settings; fault-free runs use the real clock and
+# no tick deadline (a first prefill may take longer than any fixed budget)
+ROUTER_DRILL = dict(tick_deadline_s=0.5, max_retries=3, health_failures=2, probe_every=2,
+                    probe_successes=2, integrity_every=1)
+
+
+def routed(model, params, ps, plan=None, cfg=None):
+    """Submit ``ps`` through a router over ROUTER_REPLICAS engines of SERVE
+    sharing ``params``, with ``plan``'s faults under a ``DrillClock`` (real
+    clock and no faults when ``plan`` is None), and drain it; the launch
+    counts, page gathers and the metrics registry are reset just before.
+    Returns (router, engines, injector, result, launches, page gathers, wall s)."""
+    obs_metrics.reset()
+    clock = DrillClock() if plan is not None else time.time
+    injector = ServeFaultInjector(plan, clock=clock) if plan is not None else None
+    engines = [ServingEngine(model, params, EngineConfig(**SERVE), clock=clock,
+                             tick_hook=injector.hook_for(r) if injector else None)
+               for r in range(ROUTER_REPLICAS)]
+    router = Router(engines, cfg or RouterConfig(integrity_every=1), clock=clock)
+    for i, p in enumerate(ps):
+        router.submit(RouterRequest(uid=i, prompt=list(p), max_new_tokens=SERVE_NEW))
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    with GatherCount() as gathers:
+        t0 = time.perf_counter()
+        result = router.run_until_drained(max_ticks=5000)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    check(result.drained, "the router did not drain")
+    check(len(result) == len(ps) and all(r.finished for r in result),
+          f"{len(result)} of {len(ps)} routed requests came back, some unfinished")
+    for r in result:
+        check(r.status == "done" or (r.shed is not None and r.shed.reason in SHED_REASONS),
+              f"request {r.uid} ended {r.status} without a typed reason")
+    return router, engines, injector, result, kernels.launch_counts(), gathers.n, wall
+
+
+def redispatch_chains() -> dict:
+    """{uid: the tokens kept at each of its re-dispatches, in order} from
+    the router's events (each re-dispatch re-prefills prompt + those)."""
+    chains: dict = {}
+    for e in obs_metrics.events("router.redispatch"):
+        chains.setdefault(e["uid"], []).append(e["kept_tokens"])
+    return chains
+
+
+def hold_drill(model, params, ps, result, want: dict, label: str) -> dict:
+    """Never-moved requests equal the fault-free tokens bitwise.  A moved
+    request's prefix before its first re-dispatch equals them, and each
+    later stretch equals what a fresh replica decodes from the prefix that
+    dispatch was handed (one engine of SERVE runs every such continuation):
+    re-dispatch is exact, though not the fault-free tokens, since a
+    re-prefill is another bf16 program than K10's decode (phase 19's
+    ``xla_agree_after_first``).  Returns {uid: (kept per re-dispatch, tokens
+    agreeing with the fault-free run)}."""
+    chains = redispatch_chains()
+    conts = []
+    for r in result:
+        if r.status != "done":
+            continue
+        if r.uid not in chains:
+            check(r.retries == 0 and len(r.attempts) == 1,
+                  f"{label}: request {r.uid} moved without a re-dispatch event")
+            check(r.tokens == want[r.uid], f"{label}: never-moved request {r.uid} differs "
+                  "from the fault-free run")
+            continue
+        ks = chains[r.uid]
+        check(ks == sorted(ks) and len(r.tokens) == SERVE_NEW,
+              f"{label}: request {r.uid} kept {ks} tokens, ended with {len(r.tokens)}")
+        check(r.tokens[:ks[0]] == want[r.uid][:ks[0]],
+              f"{label}: request {r.uid}'s first kept prefix of {ks[0]} tokens differs")
+        for j, k in enumerate(ks):
+            end = ks[j + 1] if j + 1 < len(ks) else SERVE_NEW
+            conts.append((r, k, end, Request(uid=r.uid, prompt=list(ps[r.uid]) + r.tokens[:k],
+                                             max_new_tokens=SERVE_NEW - k, key_offset=k)))
+    if conts:
+        eng = ServingEngine(model, params, EngineConfig(**SERVE))
+        for *_, q in conts:
+            eng.submit(q)
+        check(eng.run_until_drained().drained, f"{label}: the fresh replica did not drain")
+    for r, k, end, q in conts:
+        check(r.tokens[k:end] == q.out_tokens[:end - k],
+              f"{label}: request {r.uid}'s tokens {k}:{end} differ from a fresh replica's "
+              f"continuation of its {k}-token prefix")
+    return {uid: (ks, sum(a == b for a, b in zip(r.tokens, want[uid])))
+            for uid, ks in chains.items() for r in result if r.uid == uid}
+
+
+def router_full_width(device, want: list) -> dict:
+    """Phase 22: starcoder2-3b at its published widths (phase 19's bf16
+    weights, drawn again from SEED on the card) behind the router, two
+    replicas each with its own paged blockfloat8 pool; ``want`` holds
+    phase 19's single-engine tokens."""
+    cfg = registry.get_config(ARCH)
+    model = registry.build_model(cfg)
+    params = init_params(model.specs(), torch.Generator(device=device).manual_seed(SEED),
+                         device, torch.bfloat16)
+    ps = prompts(SERVE_REQUESTS, cfg.vocab, *PROMPT_LEN)
+    ref = dict(enumerate(want))
+    out, launches = {}, 0
+    obs_metrics.enable()
+    try:
+        # (a) fault-free
+        torch.cuda.reset_peak_memory_stats()
+        router, engines, _, result, counts, gathers, wall = routed(model, params, ps)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        steps = sum(e.steps for e in engines)
+        k10_n = counts["kvc_decode_attention"]
+        check(k10_n == cfg.n_layers * steps and k10_n > 0,
+              f"routed: K10 launched {k10_n} times in {steps} decode steps of {cfg.n_layers} layers")
+        pre = obs_metrics.histogram("serving.prefill_s").percentiles()
+        tick = obs_metrics.histogram("serving.tick_s").percentiles()
+        check(gathers == 4 * cfg.n_layers * pre["count"],
+              f"routed: {gathers} page gathers in {pre['count']} prefill calls: decode gathered")
+        check(all(e.check_kv_integrity() for e in engines), "routed: a pool is not clean")
+        check(obs_metrics.counter("router.quarantined").value == 0 and len(router.healthy())
+              == ROUTER_REPLICAS, "routed: a replica was quarantined in a fault-free run")
+        check(not result.shed_requests, "routed: a fault-free run shed requests")
+        diff = [r.uid for r in result if r.tokens != ref[r.uid]]
+        check(not diff, f"routed tokens differ from phase 19's single engine for {diff}")
+        launches += k10_n
+        decode_s = tick["mean"] * tick["count"] - pre["mean"] * pre["count"]
+        out["fault_free"] = {
+            "replicas": ROUTER_REPLICAS, "router_ticks": router.ticks, "decode_steps": steps,
+            "k10_launches": k10_n, "page_gathers": gathers, "prefill_calls": pre["count"],
+            "wall_s": wall, "decode_tokens_per_s": SERVE_REQUESTS * (SERVE_NEW - 1) / decode_s,
+            "peak_gib": peak, "per_replica_requests": [
+                sum(1 for r in result if r.attempts == [e]) for e in range(ROUTER_REPLICAS)]}
+
+        # (b) the canonical drill
+        plan = ServeFaultPlan.drill(seed=0, n_replicas=ROUTER_REPLICAS)
+        router, engines, injector, result, counts, _, wall = routed(
+            model, params, ps, plan, RouterConfig(**ROUTER_DRILL))
+        moved = hold_drill(model, params, ps, result, ref, "drill")
+        launches += counts["kvc_decode_attention"]
+        out["drill"] = {
+            "plan": json.loads(plan.to_json()), "fired": injector.log,
+            "quarantines": obs_metrics.counter("router.quarantined").value,
+            "redispatches": obs_metrics.counter("router.redispatched").value,
+            "readmits": obs_metrics.counter("router.readmitted").value,
+            "completed": len(result.completed), "shed": [(r.uid, r.shed.reason)
+                                                         for r in result.shed_requests],
+            "moved_kept_agree": moved, "router_ticks": router.ticks, "wall_s": wall,
+            "k10_launches": counts["kvc_decode_attention"]}
+        check(len(injector.log) == len(plan.events), f"drill fired {injector.log}")
+
+        # (c) one poison of the zero page: caught, and nothing decoded against it escapes
+        plan = ServeFaultPlan.single("kv_poison", replica=0, tick=2, seed=0)
+        seen: dict = {}
+
+        def watch(engine, _hook=None):
+            if engine.ticks == 2:  # the poisoned tick, before it decodes
+                seen.update({s.uid: len(s.out_tokens) for s in engine.slots if s is not None})
+
+        obs_metrics.reset()
+        clock = DrillClock()
+        injector = ServeFaultInjector(plan, clock=clock)
+        hooks = [injector.hook_for(r) for r in range(ROUTER_REPLICAS)]
+
+        def hook0(engine):
+            watch(engine)
+            hooks[0](engine)
+
+        engines = [ServingEngine(model, params, EngineConfig(**SERVE), clock=clock,
+                                 tick_hook=hook0 if r == 0 else hooks[r])
+                   for r in range(ROUTER_REPLICAS)]
+        router = Router(engines, RouterConfig(**ROUTER_DRILL), clock=clock)
+        for i, p in enumerate(ps):
+            router.submit(RouterRequest(uid=i, prompt=list(p), max_new_tokens=SERVE_NEW))
+        kernels.reset_launch_counts()
+        result = router.run_until_drained(max_ticks=5000)
+        torch.cuda.synchronize()
+        launches += kernels.launch_counts()["kvc_decode_attention"]
+        check(result.drained and all(r.finished for r in result), "poison: not drained")
+        quarantines = obs_metrics.events("router.quarantine")
+        check(injector.log == [(0, 2, "kv_poison")] and any(
+            q["replica"] == 0 and q["cause"].startswith("kv_integrity") for q in quarantines),
+            f"poison: fired {injector.log}, quarantines {quarantines}")
+        chains = redispatch_chains()
+        check(seen and set(seen) <= set(chains), f"poison: live at the poisoned tick {seen}, "
+              f"moved {chains}")
+        for uid, n in seen.items():
+            check(chains[uid][0] <= n, f"poison: request {uid} kept {chains[uid][0]} tokens, "
+                  f"{n} were decoded before the poison")
+        moved = hold_drill(model, params, ps, result, ref, "poison")
+        out["poison"] = {"live_at_poison": seen, "moved_kept_agree": moved,
+                         "quarantines": len(quarantines), "router_ticks": router.ticks}
+    finally:
+        obs_metrics.disable()
+        obs_metrics.reset()
+    del params
+    torch.cuda.empty_cache()
+    print(f"router {ARCH} full width, {ROUTER_REPLICAS} replicas of {SERVE} ({card_line()}): "
+          + json.dumps(out))
+    return {"kvc_decode_attention": launches}
+
+
+# ---------------------------------------------- training (phases 23-24) -----
+
+TRAIN_ARCH = "minicpm-2b"  # the JAX launcher's example (repro/launch/train.py:4)
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 256, 3  # the launcher's defaults; 3 steps
+TRAIN_DIR = SNAPSHOT_DIR.parent / ".chip_smoke_train"  # gitignored; removed at the end
+TRAIN_CUT_LAYERS = 1  # phase 24's depth cut at minicpm-2b's widths (PERF.md §4)
+
+
+def fingerprint(t: torch.Tensor) -> int:
+    return int(t.contiguous().view(torch.int32).sum(dtype=torch.int64))
+
+
+def hop_bytes(sizes, cfg) -> int:
+    """The compressed hop's gather per step and rank: each leaf's codes
+    padded to whole blocks, plus one float32 scale per block."""
+    blocks = [-(-n // cfg.block) for n in sizes]
+    return sum(b * cfg.block * cfg.bits // 8 + 4 * b for b in blocks)
+
+
+def train_full_width(device) -> dict:
+    """Phase 23: minicpm-2b at its published widths, three compressed-hop
+    steps on a one-rank NCCL ("pod", "data") mesh."""
+    cfg = registry.get_config(TRAIN_ARCH)
+    model = registry.build_model(cfg)
+    gc = GradCompressionConfig(enabled=True)
+    scfg = step_lib.TrainStepConfig(peak_lr=3e-4, warmup_steps=max(100 // 20, 1),
+                                    total_steps=100, schedule="wsd", grad_comp=gc)
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated() / 2**30  # by the phases before
+    mesh = make_mesh((1, 1), ("pod", "data"), "cuda")
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state = step_lib.init_state(model, mesh, torch.Generator(device=device).manual_seed(SEED),
+                                    scfg)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        leaves = tree_util.tree_flatten(state["params"])[0]
+        before = [fingerprint(x) for x in leaves]
+        n_params = sum(x.numel() for x in leaves)
+        step = step_lib.build_train_step(model, mesh, scfg)
+        pipe = TokenPipeline(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                                        global_batch=TRAIN_BATCH))
+        want_wire = hop_bytes([x.numel() for x in leaves], gc)
+        losses, ms, peaks = [], [], []
+        state_gib = torch.cuda.memory_allocated() / 2**30
+        kernels.reset_launch_counts()
+        for i in range(TRAIN_STEPS):
+            insitu.reset_sent_bytes()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, pipe.batch_at(i))
+            losses.append(float(m["loss"]))
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            peaks.append(torch.cuda.max_memory_allocated() / 2**30)
+            check(insitu.sent_bytes["all_gather"] == want_wire,
+                  f"train step {i}: the hop gathered {insitu.sent_bytes['all_gather']} B, "
+                  f"want {want_wire}")
+        launches = {k: v for k, v in kernels.launch_counts().items() if v}
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        check(all(math.isfinite(v) for v in losses), f"train losses {losses}")
+        after = [fingerprint(x) for x in tree_util.tree_flatten(state["params"])[0]]
+        unchanged = [i for i, (a, b) in enumerate(zip(before, after)) if a == b]
+        check(not unchanged, f"train: parameter leaves {unchanged} did not change")
+        del state, step
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    out = {"arch": TRAIN_ARCH, "params": n_params, "layers": cfg.n_layers,
+           "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "losses": losses, "step_ms": ms,
+           "tokens_per_s": [TRAIN_BATCH * TRAIN_SEQ / (t / 1e3) for t in ms],
+           "init_s": init_s, "peak_gib": peak, "peak_gib_per_step": peaks,
+           "state_gib": state_gib, "held_before_gib": held, "hop_bytes_per_step": want_wire,
+           "launches": launches}
+    print(f"training {TRAIN_ARCH} full width, f32 state, bf16 compute, AdamW + wsd, "
+          f"compressed pod hop (bits 8, block 1024, error feedback), one-rank NCCL mesh "
+          f"({card_line()}): " + json.dumps(out))
+    return launches
+
+
+class LoopCapture:
+    """Records what ``train.loop.run`` returns while active: the launcher's
+    (state, LoopResult) per call."""
+
+    def __enter__(self):
+        self.runs, self._orig = [], loop_lib.run
+
+        def run(*args, **kwargs):
+            out = self._orig(*args, **kwargs)
+            self.runs.append(out)
+            return out
+
+        loop_lib.run = run
+        return self
+
+    def __exit__(self, *exc):
+        loop_lib.run = self._orig
+
+
+def launch_train(argv: list) -> tuple:
+    with LoopCapture() as cap:
+        check(launch_train_lib.main(argv) == 0, f"launch.train main {argv} failed")
+    check(len(cap.runs) == 1, "the launcher ran the loop more than once")
+    return cap.runs[0]
+
+
+def train_start(dev: str) -> list:
+    """A two-process gloo group (``pod`` = 2) on ``dev``, each rank this
+    script with ``--train-rank``: three compressed-hop steps at SMOKE."""
+    port = free_port()
+    procs = []
+    for rank in range(2):
+        log = open(TRAIN_DIR / f"pair_r{rank}.log", "w")
+        procs.append(subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--train-rank", str(rank), "2",
+             str(port), dev, str(TRAIN_DIR)], stdout=log, stderr=subprocess.STDOUT))
+    CHILD_PROCS.extend(procs)
+    return procs
+
+
+def train_worker(argv: list[str]) -> int:
+    """One rank of :func:`train_start`'s pair; writes its parameters,
+    losses and bytes sent to ``out/pair_rank{rank}.pkl``."""
+    rank, world, port, dev, out = int(argv[0]), int(argv[1]), argv[2], argv[3], Path(argv[4])
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", world_size=world,
+                            rank=rank)
+    try:
+        cfg = registry.get_config(TRAIN_ARCH, smoke=True)
+        model = registry.build_model(cfg, device=dev)
+        mesh = make_mesh((world, 1), ("pod", "data"), torch.device(dev).type)
+        gc = GradCompressionConfig(enabled=True)
+        scfg = step_lib.TrainStepConfig(peak_lr=1e-3, warmup_steps=1, total_steps=10,
+                                        schedule="wsd", grad_comp=gc)
+        state = step_lib.init_state(model, mesh,
+                                    torch.Generator(device=dev).manual_seed(SEED), scfg)
+        step = step_lib.build_train_step(model, mesh, scfg)
+        pipe = TokenPipeline(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                                        global_batch=TRAIN_BATCH))
+        losses = []
+        insitu.reset_sent_bytes()
+        for i in range(TRAIN_STEPS):
+            state, m = step(state, pipe.batch_at(i))
+            losses.append(float(m["loss"]))
+        res = {"losses": losses, "sent": dict(insitu.sent_bytes),
+               "wire": TRAIN_STEPS * hop_bytes([x.numel() for x in tree_util.tree_flatten(
+                   state["params"])[0]], gc),
+               "params": [digest(x) for x in tree_util.tree_flatten(state["params"])[0]],
+               "ef": [digest(x) for x in tree_util.tree_flatten(state["ef"])[0]]}
+        with open(out / f"pair_rank{rank}.pkl", "wb") as f:
+            pickle.dump(res, f)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def train_loop_phase(device) -> dict:
+    """Phase 24: ``launch/train.py main`` on the card (the in-situ hook and a
+    lossy checkpoint at a depth cut of minicpm-2b; a bitwise restart at
+    SMOKE), and a two-process gloo pair of compressed-hop steps."""
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    TRAIN_DIR.mkdir(parents=True)
+    pair = train_start("cuda")
+    out = {}
+    try:
+        # the hook and the lossy checkpoint at minicpm-2b's widths, depth cut
+        # (no --lossy-ckpt here: the 1-D SZ path refuses a leaf of 2^26 points or
+        # more, in the reference as in the port, and the embedding has 2^28)
+        cut = TRAIN_DIR / "cut"
+        flags = ["--arch", TRAIN_ARCH, "--steps", "4", "--ckpt-every", "2", "--insitu-snapshot"]
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        end, res = launch_train(flags + ["--layers", str(TRAIN_CUT_LAYERS),
+                                         "--ckpt-dir", str(cut)])
+        torch.cuda.synchronize()
+        cut_s = time.perf_counter() - t0
+        cut_launches = {k: v for k, v in kernels.launch_counts().items() if v}
+        check(res.final_step == 4 and len(res.losses) == 4 and len(res.snapshot_s) == 2
+              and all(math.isfinite(v) for v in res.losses), f"depth-cut run: {res}")
+        live = dict(launch_train_lib._leaf_entries(end, 1 << 20))
+        kb, rest = insitu.plan_kernel_buckets(
+            [(k, tuple(v.shape), v.dtype, ()) for k, v in live.items()], ONE_DEVICE)
+        fb, skipped = insitu.plan_arena(rest, ONE_DEVICE)
+        # the per-leaf route's 1-D coder refuses n * 32 >= 2^31, as the
+        # reference's does: the hook says so and skips the leaf
+        per_leaf = [k for k, _ in skipped if live[k].numel() * 32 < 2**31]
+        too_big = sorted(k for k, _ in skipped if k not in per_leaf)
+        names = ([f"karena{k:03d}" for k in range(len(kb))]
+                 + [f"arena{k:03d}" for k in range(len(fb))] + per_leaf)
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        back, extra = ckpt.CheckpointManager(cut / "fields").restore(
+            4, state_like=dict.fromkeys(names, 0))
+        torch.cuda.synchronize()
+        fields_ms = (time.perf_counter() - t0) * 1e3
+        fields_launches = {k: v for k, v in kernels.launch_counts().items() if v}
+        eb = 1e-3  # the launcher's --insitu-eb default
+        worst, n = 0.0, 0
+        for key, v in back.items():
+            for name, t in (v.items() if isinstance(v, dict) else [(key, v)]):
+                err = float((t.to(device, torch.float32)
+                             - live[name].to(torch.float32)).abs().max())
+                check(err <= eb * (1 + 1e-5), f"fields restore {name}: max err {err} > {eb}")
+                worst, n = max(worst, err), n + 1
+        check(n == extra["n_fields"] == len(live) - len(too_big),
+              f"fields: {n} restored, {len(live)} live, {too_big} too large")
+        t0 = time.perf_counter()
+        ck, _ = ckpt.CheckpointManager(cut).restore(4, state_like=end)
+        ckpt_ms = (time.perf_counter() - t0) * 1e3
+        check(all(same(a.to(device), b) for a, b in zip(tree_util.tree_flatten(ck)[0],
+                                                        tree_util.tree_flatten(end)[0])),
+              "the step-4 checkpoint does not restore the state bitwise")
+        out["depth_cut"] = {"layers": TRAIN_CUT_LAYERS, "losses": res.losses,
+                            "step_s": res.step_s, "snapshot_dispatch_s": res.snapshot_s,
+                            "wall_s": cut_s, "fields": n, "kernel_buckets": len(kb),
+                            "flat_buckets": len(fb), "per_leaf": len(per_leaf),
+                            "skipped_too_large": too_big,
+                            "fields_restore_ms": fields_ms, "fields_max_err": worst,
+                            "ckpt_restore_ms": ckpt_ms,
+                            "launches": cut_launches, "restore_launches": fields_launches}
+        del end, ck, back, live
+        torch.cuda.empty_cache()
+
+        # restart from the step-2 checkpoint at SMOKE: bitwise steps 3-4
+        smoke = flags + ["--lossy-ckpt", "--smoke"]
+        a_dir, b_dir = TRAIN_DIR / "a", TRAIN_DIR / "b"
+        end_a, res_a = launch_train(smoke + ["--ckpt-dir", str(a_dir)])
+        b_dir.mkdir()
+        shutil.copytree(a_dir / "step_000000002", b_dir / "step_000000002")
+        end_b, res_b = launch_train(smoke + ["--ckpt-dir", str(b_dir)])
+        check(len(res_b.losses) == 2 and res_b.losses == res_a.losses[2:],
+              f"restart losses {res_b.losses} != {res_a.losses[2:]}")
+        check(all(same(x, y) for x, y in zip(tree_util.tree_flatten(end_b)[0],
+                                             tree_util.tree_flatten(end_a)[0])),
+              "restart: the state after step 4 differs from the uninterrupted run's")
+        out["restart"] = {"losses": res_a.losses, "resumed": res_b.losses}
+        if dist.is_initialized():  # the launcher's one-rank host mesh
+            dist.destroy_process_group()
+
+        wait_train(pair)
+        r0, r1 = (pickle.load(open(TRAIN_DIR / f"pair_rank{r}.pkl", "rb")) for r in range(2))
+        check(r0["params"] == r1["params"] and r0["losses"] == r1["losses"],
+              "pair: the two pod ranks' parameters or losses differ")
+        check(r0["ef"] != r1["ef"], "pair: both pods kept the same error feedback")
+        check(r0["sent"]["all_gather"] == r1["sent"]["all_gather"] == r0["wire"],
+              f"pair: gathered {r0['sent']}, want {r0['wire']}")
+        out["pair"] = {"losses": r0["losses"], "all_gather_bytes": r0["wire"]}
+    finally:
+        for p in pair:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    print(f"training loop ({card_line()}): " + json.dumps(out))
+    launches = dict(out["depth_cut"]["launches"])
+    for k, v in out["depth_cut"]["restore_launches"].items():
+        launches[k] = launches.get(k, 0) + v
+    return launches
+
+
+def wait_train(procs: list) -> None:
+    for p in procs:
+        try:
+            rc = p.wait(timeout=600)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            rc = "timeout"
+        if rc != 0:
+            logs = "\n".join(q.read_text()[-3000:] for q in sorted(TRAIN_DIR.glob("pair_r*.log")))
+            raise RuntimeError(f"chip_smoke check failed: train pair rank exited {rc}\n{logs}")
+
+
 def run(device) -> dict:
     t0 = time.perf_counter()
     logs = _build.build(verbose=True)
@@ -2769,6 +3296,16 @@ def run(device) -> dict:
     launches["kvc_decode_attention"] = serving["k10_launches"]
     serving_card_vs_cpu(device)
 
+    for label, fn in (("22 router at full width", lambda: router_full_width(
+                          device, serving["tokens"])),
+                      ("23 training at full width", lambda: train_full_width(device)),
+                      ("24 training loop, checkpoints, the hook and a gloo pair",
+                       lambda: train_loop_phase(device))):
+        t0 = time.perf_counter()
+        for k, v in fn().items():
+            launches[k] = launches.get(k, 0) + v
+        print(f"phase {label}: {time.perf_counter() - t0:.2f} s")
+
     stages = stage_times(base, ebs["baryon_density"])
     print(f"stages at {N}^3 baryon_density (median ms; peak MiB): " + json.dumps(stages))
     stages = zfp_stage_times(base)
@@ -2801,6 +3338,8 @@ def main() -> int:
         return insitu_worker(sys.argv[2:])
     if sys.argv[1:2] == ["--sharded-rank"]:  # one rank of a sharded pair (sharded_start)
         return sharded_worker(sys.argv[2:])
+    if sys.argv[1:2] == ["--train-rank"]:  # one rank of the training pair (train_start)
+        return train_worker(sys.argv[2:])
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs a CUDA card",
               file=sys.stderr)
@@ -2816,6 +3355,7 @@ def main() -> int:
                 p.kill()
                 p.wait()
         shutil.rmtree(SHARDED_DIR, ignore_errors=True)
+        shutil.rmtree(TRAIN_DIR, ignore_errors=True)
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps(report))
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,9 +3,9 @@ the shape cells (the port of ``repro.configs.registry``).
 
 Every arch's config resolves; :func:`build_model` builds the dense family
 (``dense`` and ``vlm``).  The other families wait for their port (ROADMAP
-Queue 1 item 11) and raise ``NotImplementedError``.  The reference's
-``input_specs`` and ``supports`` serve its compile-only dry run and wait for
-it (Queue 1 item 14).
+Queue 1, "The other model families") and raise ``NotImplementedError``.
+The reference's ``input_specs`` and ``supports`` serve its compile-only dry
+run and wait for it (ROADMAP Queue 1, "The cost sweep").
 """
 
 from __future__ import annotations
@@ -68,5 +68,5 @@ def build_model(cfg: ArchConfig, device=None):
     if cfg.family in _WAITING:
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} needs {_WAITING[cfg.family]}, not ported "
-            "yet (ROADMAP Queue 1 item 11)")
+            "yet (ROADMAP Queue 1, 'The other model families')")
     raise ValueError(f"unknown family {cfg.family}")

@@ -1,9 +1,25 @@
-"""The training launcher's in-situ snapshot hook (the port of
-``repro.launch.train``'s ``_leaf_entries`` and ``build_insitu_hook``).
+"""Training launcher (the port of ``repro.launch.train``): the command line,
+the run-wide telemetry switches, and the in-situ snapshot hook.
 
-The trainer itself (the loop, the optimiser and the launcher's command
-line) waits for ROADMAP Queue 1 item 4; until then the hook is driven
-directly, with one process per rank of a ``torch.distributed`` mesh:
+    PYTHONPATH=src python -m repro_torch.launch.train --arch minicpm-2b \\
+        --steps 1000 --batch 32 --seq 512 --ckpt-dir /ckpt \\
+        [--smoke] [--grad-comp] [--lossy-ckpt] [--insitu-snapshot]
+
+It trains on one rank of a one-rank ``("data",)`` mesh
+(``launch.mesh.make_host_mesh``) on ``--device`` (CUDA unless ``cpu``): the
+train step (``train/step.py``), AdamW under the arch's schedule (``wsd`` for
+minicpm-2b, else ``cosine``), and the fault-tolerant loop
+(``train/loop.py``), which resumes from the newest valid checkpoint under
+``--ckpt-dir`` and saves on SIGTERM.  ``--lossy-ckpt`` stores leaves of
+1 MiB or more as TPU-SZ streams at a point-wise relative bound of 1e-4;
+``--insitu-snapshot`` adds :func:`build_insitu_hook` at every checkpoint,
+writing compressed state leaves under ``<ckpt-dir>/fields``.
+``--layers N`` cuts the arch's depth at its published widths.  The
+reference's supervised fault drill (``--supervise`` and its fault flags)
+waits for the port of ``train/supervisor.py``.
+
+The hook, driven directly, with one process per rank of a
+``torch.distributed`` mesh:
 
     hook = build_insitu_hook(mesh, "/ckpt/insitu", eb=1e-3)
     hook(step, state)   # every rank, with the same tree of DTensors
@@ -12,18 +28,30 @@ directly, with one process per rank of a ``torch.distributed`` mesh:
 
 from __future__ import annotations
 
-from typing import Any
+import argparse
+import os
+import tempfile
+from pathlib import Path
+from typing import Any, Optional
 
 import torch
 import torch.distributed as dist
 
 from repro_torch import tree as tree_util
-from repro_torch.checkpoint.manager import CheckpointManager
+from repro_torch.checkpoint.manager import CheckpointManager, CodecPolicy
+from repro_torch.configs import registry
 from repro_torch.core import arena as arena_core
+from repro_torch.data.tokens import DataConfig, TokenPipeline, frontend_stub
+from repro_torch.device import resolve_device
 from repro_torch.dist import insitu
 from repro_torch.dist import sharding as shardlib
+from repro_torch.dist.collectives import GradCompressionConfig
+from repro_torch.launch.mesh import describe, make_host_mesh
+from repro_torch.models.spec import param_count
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as obs_trace
+from repro_torch.train import loop as loop_lib
+from repro_torch.train import step as step_lib
 
 
 def _leaf_entries(state: Any, min_bytes: int) -> list:
@@ -200,3 +228,124 @@ def build_insitu_hook(mesh, out_dir: str, eb: float, min_bytes: int = 1 << 20,
     hook.slots = pool
     hook.group = group
     return hook
+
+
+def _setup_obs(args) -> Optional[Path]:
+    """Wire --metrics-dir / --trace into the process-global observability
+    layer.  Returns the output dir (None when observability is off)."""
+    if args.metrics_dir is None and not args.trace:
+        return None
+    out = Path(args.metrics_dir if args.metrics_dir is not None else args.ckpt_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    # metrics always come on with observability (the registry is the cheap
+    # half); the JSONL sink only attaches when --metrics-dir names a home
+    obs_metrics.enable(out / "metrics.jsonl" if args.metrics_dir is not None else None)
+    if args.trace:
+        obs_trace.enable()
+    return out
+
+
+def _finish_obs(out: Optional[Path], args, tag: str) -> None:
+    """End-of-run export: final metrics line + human summary, and the
+    Chrome-trace JSON (one track per thread — open in chrome://tracing)."""
+    if out is None:
+        return
+    obs_metrics.export_snapshot(final=True)
+    print(obs_metrics.summary())
+    if args.trace:
+        p = obs_trace.export(out / f"trace_{tag}.json")
+        print(f"  trace written to {p} ({len(obs_trace.TRACER.events)} spans)")
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", choices=list(registry.ARCH_IDS), required=True)
+    ap.add_argument("--smoke", action="store_true", help="reduced config")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the depth to this many layers at the arch's widths")
+    ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=256)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--schedule", default=None, help="cosine|wsd (default per arch)")
+    ap.add_argument("--microbatches", type=int, default=1)
+    ap.add_argument("--grad-comp", action="store_true",
+                    help="int8 + error-feedback cross-pod gradient hop (meshes with a "
+                         "'pod' axis; the one-rank host mesh has none)")
+    ap.add_argument("--lossy-ckpt", action="store_true")
+    ap.add_argument("--insitu-snapshot", action="store_true",
+                    help="at every checkpoint, also compress the large state "
+                         "leaves on their devices (TPU-SZ, dist.insitu) into "
+                         "<ckpt-dir>/fields")
+    ap.add_argument("--insitu-eb", type=float, default=1e-3,
+                    help="ABS error bound for --insitu-snapshot")
+    ap.add_argument("--insitu-per-leaf", action="store_true",
+                    help="disable arena batching for --insitu-snapshot: one "
+                         "compress and one stream file per leaf")
+    ap.add_argument("--insitu-sync", action="store_true",
+                    help="disable snapshot overlap for --insitu-snapshot: block "
+                         "the loop for the compress, the host copy and the disk "
+                         "write instead of draining in the background")
+    ap.add_argument("--ckpt-dir", default=os.path.join(tempfile.gettempdir(),
+                                                       "repro_torch_ckpt"))
+    ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--metrics-dir", default=None,
+                    help="enable run-wide telemetry (repro_torch.obs): counters, "
+                         "gauges, step_s/queue-depth histograms exported as "
+                         "JSONL lines into <dir>/metrics.jsonl, plus an "
+                         "end-of-run summary")
+    ap.add_argument("--trace", action="store_true",
+                    help="record nested span timers and write Chrome-trace "
+                         "JSON (trace_*.json, one track per thread) into "
+                         "--metrics-dir (or --ckpt-dir)")
+    args = ap.parse_args(argv)
+
+    device = resolve_device(args.device)
+    obs_out = _setup_obs(args)
+    cfg = registry.get_config(args.arch, smoke=args.smoke)
+    if args.layers is not None:
+        cfg = cfg.scaled(n_layers=args.layers)
+    model = registry.build_model(cfg, device=device)
+    mesh = make_host_mesh(device)
+    schedule = args.schedule or ("wsd" if args.arch == "minicpm-2b" else "cosine")
+    scfg = step_lib.TrainStepConfig(
+        peak_lr=args.lr, warmup_steps=max(args.steps // 20, 1),
+        total_steps=args.steps, schedule=schedule,
+        microbatches=args.microbatches,
+        grad_comp=GradCompressionConfig(enabled=args.grad_comp),
+    )
+    print(f"{cfg.name}: {param_count(model.specs())/1e6:.1f}M params, {cfg.n_layers} layers, "
+          f"{describe(mesh)} ({device}), schedule={schedule}")
+
+    pipe = TokenPipeline(DataConfig(vocab=cfg.vocab, seq_len=args.seq, global_batch=args.batch))
+    extra = {}
+    if cfg.family in ("vlm", "audio"):
+        kind = "vlm" if cfg.family == "vlm" else "audio"
+        extra["prefix" if kind == "vlm" else "frames"] = torch.from_numpy(
+            frontend_stub(cfg, args.batch, 0, kind)).to(torch.bfloat16)
+
+    state = step_lib.init_state(model, mesh, torch.Generator(device=device).manual_seed(0),
+                                step_cfg=scfg)
+    step = step_lib.build_train_step(model, mesh, step_cfg=scfg, extra_keys=tuple(extra))
+    policy = CodecPolicy(mode="sz_pwrel", eb=1e-4) if args.lossy_ckpt else CodecPolicy()
+    ckpt = CheckpointManager(args.ckpt_dir, policy=policy, device=device)
+    hook = (build_insitu_hook(mesh, f"{args.ckpt_dir}/fields", args.insitu_eb,
+                              arena=not args.insitu_per_leaf, overlap=not args.insitu_sync)
+            if args.insitu_snapshot else None)
+    state, res = loop_lib.run(
+        step, state, pipe, ckpt,
+        loop_lib.LoopConfig(total_steps=args.steps, ckpt_every=args.ckpt_every,
+                            snapshot_hook=hook),
+        extra_batch=extra)
+    if res.losses:
+        print(f"done at step {res.final_step}; loss {res.losses[0]:.3f} -> "
+              f"{res.losses[-1]:.3f}{' (preempted)' if res.preempted else ''}")
+    else:
+        print(f"done at step {res.final_step}; no step to run")
+    _finish_obs(obs_out, args, tag="train")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

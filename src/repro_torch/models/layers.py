@@ -578,7 +578,11 @@ def embedding_spec(vocab: int, d_model: int) -> dict:
 
 
 def embed(p: dict, tokens: torch.Tensor, dtype) -> torch.Tensor:
-    return p["table"][tokens.to(torch.int64)].to(dtype)
+    # F.embedding, not p["table"][tokens]: its backward sums a token's rows
+    # in a fixed order, where the index's (index_put_ with accumulate) runs
+    # in parallel on the CPU and gave the table's gradient other bits run to
+    # run.  The forward values are the same gather.
+    return F.embedding(tokens.to(torch.int64), p["table"]).to(dtype)
 
 
 def unembed(p: dict, x: torch.Tensor) -> torch.Tensor:

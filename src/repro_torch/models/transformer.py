@@ -7,6 +7,12 @@ reference, so parameter trees carry across between the packages leaf for
 leaf; a Python loop over the layers replaces ``jax.lax.scan``.  The model
 holds no parameters itself: like the reference, every method takes the
 parameter tree.  It carries the device its caches are made on.
+
+``forward`` / ``loss`` differentiate (the trainer's path): with gradients
+enabled each layer runs under ``torch.utils.checkpoint`` (non-reentrant),
+the counterpart of the reference's per-layer ``jax.checkpoint``, so only a
+layer's input is kept for the backward pass.  ``decode_step`` and
+``prefill`` (the serving path) run without gradients.
 """
 
 from __future__ import annotations
@@ -15,6 +21,7 @@ from typing import Any, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
@@ -81,19 +88,27 @@ class DenseLM(nn.Module):
     def _mlp_block(self, lp: dict, x: torch.Tensor) -> torch.Tensor:
         return x + L.mlp(lp["mlp"], self.norm(lp["mlp_norm"], x), self.cfg.mlp_kind)
 
+    def _layer(self, lp: dict, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+        x = x + L.attention(lp["attn"], self.cfg.attn(), self.norm(lp["attn_norm"], x), positions)
+        return self._mlp_block(lp, x)
+
     # ---------------------------------------------------------- forward --
-    @torch.no_grad()
     def forward(self, params: dict, tokens: torch.Tensor,
                 prefix: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """tokens: (B, S) int32; prefix: (B, P, d) precomputed embeddings."""
+        """tokens: (B, S) int32; prefix: (B, P, d) precomputed embeddings.
+        Differentiable; with gradients enabled each layer is recomputed in
+        the backward pass (per-layer activation checkpointing)."""
         c = self.cfg
         x = L.embed(params["embed"], tokens, self.dtype)
         if prefix is not None:
             x = torch.cat([prefix.to(self.dtype), x], dim=1)
         positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+        remat = torch.is_grad_enabled()
         for lp in unstack(params["layers"], c.n_layers):
-            x = x + L.attention(lp["attn"], c.attn(), self.norm(lp["attn_norm"], x), positions)
-            x = self._mlp_block(lp, x)
+            if remat:
+                x = checkpoint(self._layer, lp, x, positions, use_reentrant=False)
+            else:
+                x = self._layer(lp, x, positions)
         x = self.norm(params["final_norm"], x)
         if prefix is not None:
             x = x[:, prefix.shape[1]:, :]

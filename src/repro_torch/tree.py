@@ -71,18 +71,21 @@ def _children(tree: Any) -> tuple[str, Any, list[tuple[str, Any]]]:
     return "leaf", None, []
 
 
+def _walk(node: Any, path: str, out: list) -> TreeDef:
+    kind, meta, kids = _children(node)
+    if kind == "leaf":
+        out.append((path, node))
+        return TreeDef("leaf")
+    return TreeDef(kind, meta, tuple(_walk(c, path + part, out) for part, c in kids))
+
+
 def tree_flatten_with_path(tree: Any) -> tuple[list[tuple[str, Any]], TreeDef]:
     """``([(keystr path, leaf), ...], treedef)`` in JAX's leaf order."""
+    # module-level recursion: a closure that calls itself is a reference
+    # cycle, which would keep every leaf it saw alive until the next
+    # garbage collection (a whole training state, step after step)
     out: list[tuple[str, Any]] = []
-
-    def walk(node: Any, path: str) -> TreeDef:
-        kind, meta, kids = _children(node)
-        if kind == "leaf":
-            out.append((path, node))
-            return TreeDef("leaf")
-        return TreeDef(kind, meta, tuple(walk(c, path + part) for part, c in kids))
-
-    return out, walk(tree, "")
+    return out, _walk(tree, "", out)
 
 
 def tree_flatten(tree: Any) -> tuple[list[Any], TreeDef]:
@@ -99,20 +102,19 @@ def tree_unflatten(treedef: TreeDef, leaves) -> Any:
     leaves = list(leaves)
     if len(leaves) != treedef.num_leaves:
         raise ValueError(f"tree structure has {treedef.num_leaves} leaves, got {len(leaves)}")
-    it = iter(leaves)
+    return _build(treedef, iter(leaves))
 
-    def build(td: TreeDef) -> Any:
-        if td.kind == "leaf":
-            return next(it)
-        if td.kind == "none":
-            return None
-        kids = [build(c) for c in td.children]
-        if td.kind == "dict":
-            return dict(zip(td.meta, kids))
-        if td.kind == "list":
-            return kids
-        if td.kind == "tuple":
-            return tuple(kids)
-        return td.meta(*kids)
 
-    return build(treedef)
+def _build(td: TreeDef, it) -> Any:
+    if td.kind == "leaf":
+        return next(it)
+    if td.kind == "none":
+        return None
+    kids = [_build(c, it) for c in td.children]
+    if td.kind == "dict":
+        return dict(zip(td.meta, kids))
+    if td.kind == "list":
+        return kids
+    if td.kind == "tuple":
+        return tuple(kids)
+    return td.meta(*kids)

@@ -8,8 +8,10 @@ so that it also runs on a machine that has a card and no JAX.
   against its plain version (K10, whose output is float attention, within
   the reference's tolerance), the default compressors against the plain
   CPU path, wrappers that raise when their kernel library cannot be built
-  or loaded or their inputs are not what the kernel takes, and a serving
-  engine at the SMOKE size whose decode goes through K10.
+  or loaded or their inputs are not what the kernel takes, a serving
+  engine at the SMOKE size whose decode goes through K10, two routed
+  replicas whose fault-free tokens equal one engine's, and a train step
+  whose parameters on the card are close to the CPU's.
 
 The card's cases run with
 ``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py``.
@@ -962,3 +964,82 @@ def test_cuda_gradient_hop_matches_the_cpu(cuda_device):
             assert wire == cwire == n
     finally:
         dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_cuda_router_fault_free_tokens_equal_single_engine(cuda_device):
+    """Two routed replicas sharing one parameter tree on the card (paged
+    blockfloat8, K10 on decode), no fault: every request's tokens equal a
+    single engine's, the router ends with both replicas healthy and clean
+    pools, and K10 launched once per layer and decode step of each replica."""
+    from repro_torch.configs import registry
+    from repro_torch.models.spec import init_params
+    from repro_torch.serving.engine import EngineConfig, Request, ServingEngine
+    from repro_torch.serving.router import Router, RouterConfig, RouterRequest
+
+    cfg = registry.get_config("starcoder2-3b", smoke=True)
+    model = registry.build_model(cfg, device=cuda_device)
+    params = init_params(model.specs(), torch.Generator(device=cuda_device).manual_seed(0),
+                         cuda_device, torch.bfloat16)
+    ecfg = EngineConfig(batch_slots=2, max_len=64, codec="blockfloat8", paged=True)
+    protos = [([3, 1, 4, 1, 5], 6), ([9, 2, 6], 8), ([5, 3, 5, 8, 9, 7], 5), ([2, 7], 7)]
+    single = ServingEngine(model, params, EngineConfig(batch_slots=4, max_len=64,
+                                                       codec="blockfloat8", paged=True))
+    reqs = [Request(uid=u, prompt=list(p), max_new_tokens=m) for u, (p, m) in enumerate(protos)]
+    for r in reqs:
+        single.submit(r)
+    assert single.run_until_drained().drained
+    engines = [ServingEngine(model, params, ecfg) for _ in range(2)]
+    router = Router(engines, RouterConfig(integrity_every=1))
+    for u, (p, m) in enumerate(protos):
+        router.submit(RouterRequest(uid=u, prompt=list(p), max_new_tokens=m))
+    kernels.reset_launch_counts()
+    result = router.run_until_drained(max_ticks=200)
+    assert result.drained and not result.shed_requests
+    assert {r.uid: r.tokens for r in result} == {r.uid: r.out_tokens for r in reqs}
+    assert len(router.healthy()) == 2 and all(e.check_kv_integrity() for e in engines)
+    steps = sum(e.steps for e in engines)
+    assert kernels.launch_counts()["kvc_decode_attention"] == cfg.n_layers * steps > 0
+
+
+@pytest.mark.cuda
+def test_cuda_train_step_close_to_cpu(cuda_device):
+    """Two train steps at minicpm-2b SMOKE in float32 (TF32 off) from one
+    state, on the card and on the CPU: losses within rtol 1e-5 and
+    parameters within 1e-4 absolute (a twentieth of the two steps' largest
+    move at lr 1e-3).  cuBLAS and the CPU's BLAS sum in other orders, and
+    AdamW divides each gradient element by its own root mean square, so an
+    element whose gradient is near zero carries that rounding into a
+    sizeable share of its step: one element of 8192 moved 2.1e-5 apart on
+    the H100, the rest within 1e-5."""
+    from repro_torch import tree as tree_util
+    from repro_torch.configs import registry
+    from repro_torch.data.tokens import DataConfig, TokenPipeline
+    from repro_torch.train import step as step_lib
+
+    cfg = registry.get_config("minicpm-2b", smoke=True).scaled(dtype="float32")
+    scfg = step_lib.TrainStepConfig(peak_lr=1e-3, warmup_steps=0, total_steps=10)
+    pipe = TokenPipeline(DataConfig(vocab=cfg.vocab, seq_len=16, global_batch=4, seed=3))
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        cpu_model = registry.build_model(cfg, device="cpu")
+        init = step_lib.init_state(cpu_model, None, torch.Generator().manual_seed(0), scfg)
+        out = {}
+        for dev in (cuda_device, torch.device("cpu")):
+            def on(t, dev=dev):
+                return {k: on(v) for k, v in t.items()} if isinstance(t, dict) else t.to(dev)
+
+            model = registry.build_model(cfg, device=dev)
+            state = on(init) if dev.type == "cuda" else init
+            step = step_lib.build_train_step(model, None, scfg)
+            losses = []
+            for i in range(2):
+                state, m = step(state, pipe.batch_at(i))
+                losses.append(float(m["loss"]))
+            out[dev.type] = (losses, [x.cpu() for x in tree_util.tree_flatten(state["params"])[0]])
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=1e-5)
+    for a, b in zip(out["cuda"][1], out["cpu"][1]):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=0, atol=1e-4)

@@ -38,9 +38,12 @@ def test_the_walk_sees_the_port():
                    "analysis/halos.py", "foresight/__init__.py", "foresight/cbench.py",
                    "foresight/pat.py", "foresight/cinema.py", "foresight/guideline.py",
                    "dist/sharding.py", "dist/insitu.py", "dist/collectives.py",
-                   "launch/train.py"):
+                   "launch/train.py", "launch/mesh.py", "serving/router.py",
+                   "serving/faults.py", "optim/adamw.py", "optim/schedules.py",
+                   "data/tokens.py", "train/step.py", "train/loop.py", "train/elastic.py"):
         assert f"src/repro_torch/{module}" in names, module
-    for example in ("torch_quickstart.py", "torch_foresight_workflow.py"):
+    for example in ("torch_quickstart.py", "torch_foresight_workflow.py",
+                    "torch_serve_batched.py", "torch_train_lm_compressed.py"):
         assert f"examples/{example}" in names, example
     assert _forbidden("jax.numpy") and _forbidden("repro.core") and not _forbidden("repro_torch.core")
 
