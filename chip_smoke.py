@@ -2,8 +2,8 @@
 """Drive the PyTorch/CUDA port of TPU-SZ, TPU-ZFP, the in-situ snapshot
 path, Foresight, in-situ sharded compression, sharded snapshots with the
 compressed gradient hop, blockfloat8 serving, the multi-replica router
-under the serving fault drill and the trainer on one GPU and check every
-result.
+under the serving fault drill, the trainer and its supervised fault drill
+on one GPU and check every result.
 
     python3 chip_smoke.py
 
@@ -225,8 +225,28 @@ Needs one CUDA card and ``nvcc``; it builds the hand-written kernels from
     checkpoint reproduces steps 3-4's losses and the whole state bitwise;
     and a two-process ``gloo`` pair on cuda:0 (``pod`` = 2, each rank this
     script with ``--train-rank``) takes three compressed-hop steps at SMOKE
-    and ends with bitwise-equal parameters on both ranks.  Each of phases
-    22-24 prints its wall time; their kernel launches join the line of 21.
+    and ends with bitwise-equal parameters on both ranks;
+25. runs ``launch/train.py main --supervise --fault-seed 0`` on the card at
+    minicpm-2b's widths cut to one layer (``--steps 8 --ckpt-every 2
+    --grow-back-after 2 --insitu-snapshot``, flight recorder on): the plan's
+    transient drain writes and fetch stall at step 3, its corruption of the
+    newest snapshot and a pod loss of nothing (a one-rank mesh) at step 6.
+    The injector's log equals the plan, one shrink restores step 4 past the
+    one quarantined snapshot, the replayed step's loss holds
+    (``shrink-restore``), the grow-back fires at step 6, every loss is
+    finite and no kernel launches.  Prints step, snapshot dispatch, quiesce,
+    restore and grow-back ms (trace spans) and peak memory;
+26. runs the reference's ``test_fault_drill_8dev`` plan on 4 ``gloo`` ranks
+    (this script with ``--drill-rank``) on cuda:0 at minicpm-2b SMOKE: its
+    ``{"pod": 2, "data": 2, "model": 2}`` mesh without the model axis, which
+    the port's data-parallel trainer refuses above 1.  Pod loss at step 9,
+    the truncated step-8 snapshot quarantined, step 4 restored onto
+    ``{"pod": 1, "data": 2}`` (ranks 2-3 wait), grow-back at step 8, step 18
+    reached; every rank holds the reference's values and the same state bit
+    for bit, and the same drill's CPU group (started beside phases 2-15)
+    gives the same transitions and step trace.  Each rank has a timeout.
+    Each of phases 22-26 prints its wall time; their kernel launches join
+    the line of 21 (25-26 launch none).
 
 Any failure raises and exits non-zero; so does a machine without CUDA, and a
 directory without the rest of the repository.
@@ -234,6 +254,7 @@ directory without the rest of the repository.
 
 from __future__ import annotations
 
+import dataclasses
 import importlib.util
 import json
 import math
@@ -287,12 +308,15 @@ from repro_torch.launch.mesh import make_mesh  # noqa: E402
 from repro_torch.models import layers as model_layers  # noqa: E402
 from repro_torch.models.spec import init_params, param_count  # noqa: E402
 from repro_torch.obs import metrics as obs_metrics  # noqa: E402
+from repro_torch.obs import trace as obs_trace  # noqa: E402
 from repro_torch.serving.engine import EngineConfig, Request, ServingEngine  # noqa: E402
 from repro_torch.serving.faults import DrillClock, ServeFaultInjector, ServeFaultPlan  # noqa: E402
 from repro_torch.serving.router import (SHED_REASONS, Router, RouterConfig,  # noqa: E402
                                         RouterRequest)
+from repro_torch.train import faults as faults_lib  # noqa: E402
 from repro_torch.train import loop as loop_lib  # noqa: E402
 from repro_torch.train import step as step_lib  # noqa: E402
+from repro_torch.train import supervisor as sup  # noqa: E402
 
 from cuda_timing import cuda_ms, cuda_times, graph_ms  # noqa: E402  (tools/)
 
@@ -3222,6 +3246,242 @@ def wait_train(procs: list) -> None:
             raise RuntimeError(f"chip_smoke check failed: train pair rank exited {rc}\n{logs}")
 
 
+# ------------------------------------ the supervised drill (phases 25-26) -----
+
+DRILL_DIR = SNAPSHOT_DIR.parent / ".chip_smoke_drill"  # gitignored; removed at the end
+# phase 25: FaultPlan.drill(0, 8, 2) loses its pod at step 6, after the second snapshot
+DRILL_STEPS, DRILL_EVERY, DRILL_GROW = 8, 2, 2
+DRILL_RANKS = 4  # phase 26: the reference's 8-device drill without its model axis
+DRILL_SHAPE = {"pod": 2, "data": 2}
+DRILL_SPANS = ("train.step", "snapshot.dispatch", "supervisor.quiesce", "supervisor.restore",
+               "supervisor.grow_back")
+
+
+def span_ms() -> dict:
+    """Milliseconds of this process's recorded spans, by name."""
+    out: dict = {}
+    for ev in obs_trace.TRACER.events:
+        if ev.get("ph") == "X" and ev["name"] in DRILL_SPANS:
+            out.setdefault(ev["name"], []).append(ev["dur"] / 1e3)
+    return out
+
+
+class SuperviseCapture:
+    """Records what ``train.supervisor.run_supervised`` returns while active,
+    with the injector it was given."""
+
+    def __enter__(self):
+        self.runs, self._orig = [], sup.run_supervised
+
+        def run(*args, **kwargs):
+            state, res = self._orig(*args, **kwargs)
+            self.runs.append((state, res, kwargs.get("injector")))
+            return state, res
+
+        sup.run_supervised = run
+        return self
+
+    def __exit__(self, *exc):
+        sup.run_supervised = self._orig
+
+
+def supervised_phase(device) -> dict:
+    """Phase 25: ``launch/train.py main --supervise`` with the seeded drill at
+    minicpm-2b's widths cut to one layer, one rank on the card."""
+    ckdir = DRILL_DIR / "one"
+    plan = faults_lib.FaultPlan.drill(0, DRILL_STEPS, DRILL_EVERY)
+    (fault,) = [e for e in plan.events if e.kind == "pod_loss"]
+    # the corrupted snapshot is the newest at the fault; the restore falls
+    # back one interval past it
+    want_restored = fault.step // DRILL_EVERY * DRILL_EVERY - DRILL_EVERY
+    flags = ["--arch", TRAIN_ARCH, "--layers", str(TRAIN_CUT_LAYERS), "--supervise",
+             "--fault-seed", "0", "--steps", str(DRILL_STEPS), "--ckpt-every", str(DRILL_EVERY),
+             "--grow-back-after", str(DRILL_GROW), "--insitu-snapshot", "--ckpt-dir", str(ckdir),
+             "--metrics-dir", str(DRILL_DIR / "obs"), "--trace"]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        with SuperviseCapture() as cap:
+            check(launch_train_lib.main(flags) == 0, f"launch.train main {flags} failed")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: v for k, v in kernels.launch_counts().items() if v}
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        spans = span_ms()
+    finally:
+        obs_metrics.disable()
+        obs_trace.disable()
+        obs_trace.clear()
+        if dist.is_initialized():  # the launcher's one-rank host mesh
+            dist.destroy_process_group()
+    check(len(cap.runs) == 1, "the launcher ran the supervisor more than once")
+    _, res, inj = cap.runs.pop()
+    check(inj.log == [(e.step, e.kind) for e in plan.events],
+          f"injector log {inj.log} != the plan {plan.to_json()}")
+    shrinks = [t for t in res.transitions if t.kind == "shrink"]
+    grows = [t for t in res.transitions if t.kind == "grow"]
+    check(len(shrinks) == 1 and shrinks[0].at_step == fault.step
+          and shrinks[0].restored_step == want_restored and shrinks[0].quarantined == 1,
+          f"shrink transitions {shrinks}, want one at {fault.step} restoring {want_restored}")
+    check(len(grows) == 1 and grows[0].at_step == want_restored + DRILL_GROW,
+          f"grow transitions {grows}")
+    quarantined = sorted(p.name for p in ckdir.glob("quarantine/step_*"))
+    check(quarantined == [f"step_{fault.step // DRILL_EVERY * DRILL_EVERY:09d}"],
+          f"quarantine holds {quarantined}")
+    check(any(k == "shrink-restore" for *_, k in res.continuity),
+          f"no shrink-restore continuity check in {res.continuity}")
+    check(res.final_step == DRILL_STEPS and all(math.isfinite(v) for _, v in res.loss_trace),
+          f"final step {res.final_step}, losses {res.loss_trace}")
+    check(not launches, f"the supervised drill launched {launches}")
+    out = {"arch": TRAIN_ARCH, "layers": TRAIN_CUT_LAYERS, "plan": json.loads(plan.to_json()),
+           "wall_s": wall, "final_step": res.final_step,
+           "steps": [s for s, _ in res.loss_trace], "losses": [v for _, v in res.loss_trace],
+           "transitions": [dataclasses.asdict(t) for t in res.transitions],
+           "quarantined": quarantined, "step_ms": spans.get("train.step"),
+           "snapshot_dispatch_ms": spans.get("snapshot.dispatch"),
+           "quiesce_ms": spans.get("supervisor.quiesce"),
+           "restore_ms": spans.get("supervisor.restore"),
+           "grow_back_ms": spans.get("supervisor.grow_back"),
+           "fetch_stall_s": [e.stall_s for e in plan.events if e.kind == "fetch_stall"],
+           "peak_gib": peak, "launches": launches}
+    print(f"supervised drill, one rank ({card_line()}): " + json.dumps(out))
+    return launches
+
+
+def drill_start(dev: str) -> list:
+    """Phase 26's group: ``DRILL_RANKS`` gloo ranks on ``dev`` (on the card all
+    on cuda:0), each this script with ``--drill-rank``."""
+    (DRILL_DIR / dev).mkdir(parents=True, exist_ok=True)
+    port = free_port()
+    procs = []
+    for rank in range(DRILL_RANKS):
+        log = open(DRILL_DIR / dev / f"r{rank}.log", "w")
+        procs.append(subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--drill-rank", str(rank),
+             str(DRILL_RANKS), str(port), dev, str(DRILL_DIR / dev)],
+            stdout=log, stderr=subprocess.STDOUT))
+    CHILD_PROCS.extend(procs)
+    return procs
+
+
+def drill_worker(argv: list[str]) -> int:
+    """One rank of :func:`drill_start`'s group: the reference's
+    ``test_fault_drill_8dev`` plan at minicpm-2b SMOKE under
+    ``run_supervised``; writes its result to ``out/rank{rank}.pkl``."""
+    import functools
+    import hashlib
+
+    rank, world, port, dev, out = int(argv[0]), int(argv[1]), argv[2], argv[3], Path(argv[4])
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", world_size=world,
+                            rank=rank)
+    try:
+        cfg = registry.get_config(TRAIN_ARCH, smoke=True)
+        model = registry.build_model(cfg, device=dev)
+        scfg = step_lib.TrainStepConfig(peak_lr=1e-3, warmup_steps=1)
+        plan = faults_lib.FaultPlan.from_events([
+            faults_lib.FaultEvent(step=5, kind="drain_io", count=1),
+            faults_lib.FaultEvent(step=9, kind="corrupt_payload", mode="truncate", seed=3),
+            faults_lib.FaultEvent(step=9, kind="pod_loss", lost_pods=1),
+        ])
+        ckdir = out / "ckpt"
+        inj = faults_lib.FaultInjector(plan, ckpt_dir=ckdir)
+        ckpt_mgr = ckpt.CheckpointManager(ckdir, async_save=True, write_bytes=inj.write_bytes,
+                                          fetch_hook=inj.fetch_hook, retry_backoff_s=0.01,
+                                          device=dev, group=dist.new_group(backend="gloo"))
+        inj.manager = ckpt_mgr
+        builder = functools.partial(sup.make_trainer, model, vocab=cfg.vocab, seq_len=16,
+                                    step_cfg=scfg)
+        obs_trace.enable()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        state, res = sup.run_supervised(
+            builder, DRILL_SHAPE, 8, ckpt_mgr,
+            sup.SupervisorConfig(total_steps=18, ckpt_every=4, drain_deadline_s=30.0,
+                                 grow_back_after=4),
+            injector=inj, log=print if rank == 0 else (lambda s: None))
+        ckpt_mgr.wait()
+        wall = time.perf_counter() - t0
+        digests = [hashlib.sha256(x.detach().reshape(-1).view(torch.uint8).cpu().numpy()
+                                  .tobytes()).hexdigest()
+                   for x in tree_util.tree_flatten(state)[0]]
+        result = {"final_step": res.final_step, "log": inj.log, "wall_s": wall,
+                  "transitions": [dataclasses.asdict(t) for t in res.transitions],
+                  "loss_trace": res.loss_trace, "continuity": res.continuity,
+                  "digests": digests, "spans_ms": span_ms(),
+                  "launches": {k: v for k, v in kernels.launch_counts().items() if v},
+                  "quarantined": sorted(p.name for p in ckdir.glob("quarantine/step_*"))}
+        with open(out / f"rank{rank}.pkl", "wb") as f:
+            pickle.dump(result, f)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def drill_results(procs: list, dev: str) -> list:
+    """Wait for a group of :func:`drill_start` (a timeout per rank) and
+    return each rank's result; a rank that exits non-zero fails the run."""
+    for p in procs:
+        try:
+            rc = p.wait(timeout=600)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            p.wait()
+            rc = "timeout"
+        if rc != 0:
+            logs = "\n".join(q.read_text()[-3000:] for q in sorted((DRILL_DIR / dev).glob("r*.log")))
+            raise RuntimeError(f"chip_smoke check failed: {dev} drill rank exited {rc}\n{logs}")
+    return [pickle.load(open(DRILL_DIR / dev / f"rank{r}.pkl", "rb")) for r in range(DRILL_RANKS)]
+
+
+def hold_drill_group(runs: list, dev: str) -> None:
+    """The reference's expected values of ``test_fault_drill_8dev`` on every
+    rank, and bitwise-equal state on all of them."""
+    for r, run in enumerate(runs):
+        check(run["final_step"] == 18, f"{dev} rank {r}: final step {run['final_step']}")
+        check(run["log"] == [(5, "drain_io"), (9, "corrupt_payload"), (9, "pod_loss")],
+              f"{dev} rank {r}: injector log {run['log']}")
+        shrink, grow = run["transitions"]
+        check(shrink["kind"] == "shrink" and shrink["at_step"] == 9
+              and shrink["restored_step"] == 4 and shrink["quarantined"] == 1
+              and shrink["mesh_shape"] == {"pod": 1, "data": 2} and shrink["global_batch"] == 8,
+              f"{dev} rank {r}: shrink {shrink}")
+        check(grow["kind"] == "grow" and grow["at_step"] == 8 and grow["mesh_shape"] == DRILL_SHAPE,
+              f"{dev} rank {r}: grow {grow}")
+        check(any(k == "shrink-restore" for *_, k in run["continuity"]),
+              f"{dev} rank {r}: no shrink-restore continuity check")
+        check(all(math.isfinite(v) for _, v in run["loss_trace"])
+              and [s for s, _ in run["loss_trace"]] == list(range(9)) + list(range(4, 18)),
+              f"{dev} rank {r}: step trace {run['loss_trace']}")
+        check(run["digests"] == runs[0]["digests"], f"{dev} rank {r}: state differs from rank 0's")
+        check(not run["launches"], f"{dev} rank {r} launched {run['launches']}")
+    check(runs[0]["quarantined"] == ["step_000000008"],
+          f"{dev}: quarantine holds {runs[0]['quarantined']}")
+
+
+def drill_phase(cpu_group: list) -> dict:
+    """Phase 26: the shrink and grow-back drill on 4 gloo ranks on the card,
+    held to the reference's values and to the same drill's CPU group."""
+    card = drill_results(drill_start("cuda"), "cuda")
+    hold_drill_group(card, "cuda")
+    cpu = drill_results(cpu_group, "cpu")
+    hold_drill_group(cpu, "cpu")
+    check(card[0]["transitions"] == cpu[0]["transitions"]
+          and [s for s, _ in card[0]["loss_trace"]] == [s for s, _ in cpu[0]["loss_trace"]],
+          "the card group's transitions or step trace differ from the CPU group's")
+    out = {"ranks": DRILL_RANKS, "mesh": DRILL_SHAPE, "transitions": card[0]["transitions"],
+           "losses": [v for _, v in card[0]["loss_trace"]],
+           "cpu_losses": [v for _, v in cpu[0]["loss_trace"]],
+           "wall_s": [r["wall_s"] for r in card], "cpu_wall_s": [r["wall_s"] for r in cpu],
+           "rank0_spans_ms": {k: v for k, v in card[0]["spans_ms"].items() if k != "train.step"},
+           "rank0_step_ms": card[0]["spans_ms"].get("train.step"),
+           "rank2_spans_ms": {k: v for k, v in card[2]["spans_ms"].items() if k != "train.step"}}
+    print(f"supervised drill, {DRILL_RANKS} gloo ranks ({card_line()}): " + json.dumps(out))
+    return {}
+
+
 def run(device) -> dict:
     t0 = time.perf_counter()
     logs = _build.build(verbose=True)
@@ -3248,6 +3508,9 @@ def run(device) -> dict:
     sharded_data(fields, hacc, small)
     cpu_pair = sharded_start("cpu")  # runs beside phases 2-15 on the host's free cores
     print(f"sharded CPU pair started ({SHARDED_POD} gloo ranks; state in {SHARDED_DIR.name}/)")
+    shutil.rmtree(DRILL_DIR, ignore_errors=True)
+    cpu_drill = drill_start("cpu")  # phase 26's CPU group, beside phases 2-15 like the pair
+    print(f"drill CPU group started ({DRILL_RANKS} gloo ranks; state in {DRILL_DIR.name}/)")
 
     launches = main_path(fields, device)
     agrees_with_cpu(small, device)
@@ -3300,7 +3563,10 @@ def run(device) -> dict:
                           device, serving["tokens"])),
                       ("23 training at full width", lambda: train_full_width(device)),
                       ("24 training loop, checkpoints, the hook and a gloo pair",
-                       lambda: train_loop_phase(device))):
+                       lambda: train_loop_phase(device)),
+                      ("25 supervised drill, one rank", lambda: supervised_phase(device)),
+                      ("26 shrink and grow-back drill, 4 gloo ranks",
+                       lambda: drill_phase(cpu_drill))):
         t0 = time.perf_counter()
         for k, v in fn().items():
             launches[k] = launches.get(k, 0) + v
@@ -3340,6 +3606,8 @@ def main() -> int:
         return sharded_worker(sys.argv[2:])
     if sys.argv[1:2] == ["--train-rank"]:  # one rank of the training pair (train_start)
         return train_worker(sys.argv[2:])
+    if sys.argv[1:2] == ["--drill-rank"]:  # one rank of the drill group (drill_start)
+        return drill_worker(sys.argv[2:])
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs a CUDA card",
               file=sys.stderr)
@@ -3356,6 +3624,7 @@ def main() -> int:
                 p.wait()
         shutil.rmtree(SHARDED_DIR, ignore_errors=True)
         shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+        shutil.rmtree(DRILL_DIR, ignore_errors=True)
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps(report))
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -441,7 +441,7 @@ class CheckpointManager:
         self._raise_pending()
         leaves, treedef = tree_util.tree_flatten(state)
         self._join_group(leaves)
-        writer = self._is_writer()
+        writer = self.is_writer()
         # raw leaves copied here; a rank that writes nothing keeps only the
         # leaves whose save is a collective
         host = [_to_host(x) if writer or _needs_gather(x) else None for x in leaves]
@@ -469,7 +469,9 @@ class CheckpointManager:
             # every rank saves the same tree, so every rank creates it here
             self._group = dist.new_group(backend="gloo")
 
-    def _is_writer(self) -> bool:
+    def is_writer(self) -> bool:
+        """Whether this process writes the files: the group's first rank
+        (every process without a group)."""
         return self._group is None or dist.get_rank(self._group) == 0
 
     def _shard_payloads(self, leaf: _ShardedLeaf) -> Optional[list]:
@@ -484,7 +486,7 @@ class CheckpointManager:
             if size == 1:
                 got = [mine]
             else:
-                writer = self._is_writer()
+                writer = self.is_writer()
                 got = [None] * size if writer else None
                 if not writer:
                     insitu.count_sent("gather", sum(len(p) for _, p, _ in mine))
@@ -543,7 +545,7 @@ class CheckpointManager:
         retried.  ``_write`` cleans its tmp dir on failure, so every
         attempt starts from a blank slate.  A rank that writes nothing only
         takes its part in the save's collectives."""
-        if not self._is_writer():
+        if not self.is_writer():
             self._participate(step, host)
             return
         for attempt in range(self.io_retries):

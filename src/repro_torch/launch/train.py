@@ -14,9 +14,11 @@ minicpm-2b, else ``cosine``), and the fault-tolerant loop
 1 MiB or more as TPU-SZ streams at a point-wise relative bound of 1e-4;
 ``--insitu-snapshot`` adds :func:`build_insitu_hook` at every checkpoint,
 writing compressed state leaves under ``<ckpt-dir>/fields``.
-``--layers N`` cuts the arch's depth at its published widths.  The
-reference's supervised fault drill (``--supervise`` and its fault flags)
-waits for the port of ``train/supervisor.py``.
+``--layers N`` cuts the arch's depth at its published widths.
+``--supervise`` runs the loop under ``train.supervisor.run_supervised``:
+a detected fault quiesces the checkpoint drain, shrinks the mesh, restores
+the newest valid snapshot and grows back; ``--fault-seed`` (or
+``--fault-plan``) injects the seeded drill of ``train/faults.py``.
 
 The hook, driven directly, with one process per rank of a
 ``torch.distributed`` mesh:
@@ -113,7 +115,8 @@ def build_insitu_hook(mesh, out_dir: str, eb: float, min_bytes: int = 1 << 20,
     The hook exposes ``hook.wait()`` (drain everything; every rank calls
     it), ``hook.manager``, ``hook.slots`` and ``hook.group``."""
     multi = dist.is_initialized() and dist.get_world_size() > 1
-    group = dist.new_group(backend="gloo") if multi else None
+    # over the mesh's ranks: a supervised run's shrunk mesh leaves ranks out
+    group = dist.new_group(ranks=mesh.mesh.flatten().tolist(), backend="gloo") if multi else None
     first = insitu.is_first_rank(mesh)
     device = torch.device(mesh.device_type)
     snap = CheckpointManager(out_dir, keep_last=2, async_save=overlap, max_in_flight=slots,
@@ -257,6 +260,24 @@ def _finish_obs(out: Optional[Path], args, tag: str) -> None:
         print(f"  trace written to {p} ({len(obs_trace.TRACER.events)} spans)")
 
 
+def _arch_config(args):
+    """The arch's config (``--smoke``: reduced), cut to ``--layers``."""
+    cfg = registry.get_config(args.arch, smoke=args.smoke)
+    return cfg if args.layers is None else cfg.scaled(n_layers=args.layers)
+
+
+def _step_config(args) -> step_lib.TrainStepConfig:
+    """AdamW under ``--schedule`` (the arch's default: ``wsd`` for
+    minicpm-2b, else ``cosine``), warmup over a twentieth of the steps."""
+    schedule = args.schedule or ("wsd" if args.arch == "minicpm-2b" else "cosine")
+    return step_lib.TrainStepConfig(
+        peak_lr=args.lr, warmup_steps=max(args.steps // 20, 1),
+        total_steps=args.steps, schedule=schedule,
+        microbatches=args.microbatches,
+        grad_comp=GradCompressionConfig(enabled=args.grad_comp),
+    )
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", choices=list(registry.ARCH_IDS), required=True)
@@ -290,6 +311,25 @@ def main(argv=None) -> int:
     ap.add_argument("--ckpt-dir", default=os.path.join(tempfile.gettempdir(),
                                                        "repro_torch_ckpt"))
     ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--supervise", action="store_true",
+                    help="run under train.supervisor.run_supervised: detected "
+                         "faults quiesce the checkpoint drain, shrink the "
+                         "mesh, restore the newest *valid* snapshot, resume, "
+                         "and grow back — instead of crashing the run")
+    ap.add_argument("--fault-seed", type=int, default=None,
+                    help="with --supervise: inject the canonical seeded "
+                         "fault drill (train.faults.FaultPlan.drill)")
+    ap.add_argument("--fault-plan", default=None,
+                    help="with --supervise: JSON fault plan file "
+                         "(FaultPlan.to_json) — exact replay of a prior run")
+    ap.add_argument("--fault-lost-pods", type=int, default=0)
+    ap.add_argument("--fault-lost-data-rows", type=int, default=0)
+    ap.add_argument("--drain-deadline", type=float, default=30.0,
+                    help="seconds the supervisor waits for the checkpoint "
+                         "drain to quiesce after a fault")
+    ap.add_argument("--grow-back-after", type=int, default=None,
+                    help="degraded-mesh steps before resharding back onto "
+                         "the full mesh (default: stay degraded)")
     ap.add_argument("--metrics-dir", default=None,
                     help="enable run-wide telemetry (repro_torch.obs): counters, "
                          "gauges, step_s/queue-depth histograms exported as "
@@ -303,20 +343,18 @@ def main(argv=None) -> int:
 
     device = resolve_device(args.device)
     obs_out = _setup_obs(args)
-    cfg = registry.get_config(args.arch, smoke=args.smoke)
-    if args.layers is not None:
-        cfg = cfg.scaled(n_layers=args.layers)
+    if args.supervise:
+        try:
+            return _main_supervised(args, device)
+        finally:
+            _finish_obs(obs_out, args, tag="supervised")
+
+    cfg = _arch_config(args)
     model = registry.build_model(cfg, device=device)
     mesh = make_host_mesh(device)
-    schedule = args.schedule or ("wsd" if args.arch == "minicpm-2b" else "cosine")
-    scfg = step_lib.TrainStepConfig(
-        peak_lr=args.lr, warmup_steps=max(args.steps // 20, 1),
-        total_steps=args.steps, schedule=schedule,
-        microbatches=args.microbatches,
-        grad_comp=GradCompressionConfig(enabled=args.grad_comp),
-    )
+    scfg = _step_config(args)
     print(f"{cfg.name}: {param_count(model.specs())/1e6:.1f}M params, {cfg.n_layers} layers, "
-          f"{describe(mesh)} ({device}), schedule={schedule}")
+          f"{describe(mesh)} ({device}), schedule={scfg.schedule}")
 
     pipe = TokenPipeline(DataConfig(vocab=cfg.vocab, seq_len=args.seq, global_batch=args.batch))
     extra = {}
@@ -344,6 +382,74 @@ def main(argv=None) -> int:
     else:
         print(f"done at step {res.final_step}; no step to run")
     _finish_obs(obs_out, args, tag="train")
+    return 0
+
+
+def _main_supervised(args, device: torch.device) -> int:
+    """--supervise: the elastic fault drill / supervised production loop, on
+    the one-rank host mesh of ``device``."""
+    import functools
+
+    # lazy: the supervisor pulls in faults/elastic; keep the plain path lean
+    from repro_torch.train import faults as faults_lib
+    from repro_torch.train import supervisor as sup
+
+    cfg = _arch_config(args)
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
+        raise SystemExit("--supervise currently drives token-LM families only "
+                         f"(got {cfg.family})")
+    model = registry.build_model(cfg, device=device)
+    mesh = make_host_mesh(device)
+    full_shape = shardlib.mesh_sizes(mesh)
+    if args.grad_comp and (args.fault_lost_pods or args.fault_lost_data_rows):
+        # ef state is per pod — it cannot be restored across a pod-count
+        # change (DESIGN.md §10, out of scope)
+        raise SystemExit("--supervise with mesh shrink requires grad_comp "
+                         "disabled (per-pod error-feedback state does not "
+                         "survive a pod-count change)")
+    scfg = _step_config(args)
+    print(f"{cfg.name}: {param_count(model.specs())/1e6:.1f}M params, {cfg.n_layers} layers, "
+          f"{describe(mesh)} ({device}, supervised), schedule={scfg.schedule}")
+
+    injector = None
+    if args.fault_plan is not None:
+        plan = faults_lib.FaultPlan.from_json(Path(args.fault_plan).read_text())
+    elif args.fault_seed is not None:
+        plan = faults_lib.FaultPlan.drill(
+            args.fault_seed, args.steps, args.ckpt_every,
+            lost_pods=args.fault_lost_pods,
+            lost_data_rows=args.fault_lost_data_rows)
+    else:
+        plan = None
+    if plan is not None:
+        injector = faults_lib.FaultInjector(plan, ckpt_dir=args.ckpt_dir)
+        print(f"  fault plan: {plan.to_json()}")
+
+    policy = CodecPolicy(mode="sz_pwrel", eb=1e-4) if args.lossy_ckpt else CodecPolicy()
+    ckpt = CheckpointManager(
+        args.ckpt_dir, policy=policy, device=device,
+        write_bytes=injector.write_bytes if injector else None,
+        fetch_hook=injector.fetch_hook if injector else None)
+    if injector is not None:
+        injector.manager = ckpt  # deterministic corrupt-newest under async
+
+    builder = functools.partial(
+        sup.make_trainer, model, vocab=cfg.vocab, seq_len=args.seq,
+        step_cfg=scfg,
+        insitu_dir=f"{args.ckpt_dir}/fields" if args.insitu_snapshot else None,
+        insitu_eb=args.insitu_eb, insitu_overlap=not args.insitu_sync)
+    scfg_sup = sup.SupervisorConfig(
+        total_steps=args.steps, ckpt_every=args.ckpt_every,
+        drain_deadline_s=args.drain_deadline,
+        grow_back_after=args.grow_back_after)
+    _, res = sup.run_supervised(builder, full_shape, args.batch, ckpt,
+                                scfg_sup, injector=injector)
+    shrinks = [t for t in res.transitions if t.kind == "shrink"]
+    grows = [t for t in res.transitions if t.kind == "grow"]
+    print(f"done at step {res.final_step}; {len(shrinks)} shrink / "
+          f"{len(grows)} grow transition(s), "
+          f"{sum(t.quarantined for t in shrinks)} snapshot(s) quarantined; "
+          f"loss {res.loss_trace[0][1]:.3f} -> {res.loss_trace[-1][1]:.3f}")
     return 0
 
 

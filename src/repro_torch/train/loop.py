@@ -15,10 +15,10 @@ Posture for 1000+ nodes, as the reference's:
 The loss is read back once per step (``float(metrics["loss"])``, which
 waits for the device), as the reference blocks on it.  A restored state
 comes back from the checkpoint manager as host tensors and is moved onto
-the devices of the state the caller passed.  :class:`TrainingFault` is the
-base of the faults a ``fault_check`` raises to abort into a supervisor;
-the seeded fault drill (the reference's ``train/faults.py``) derives its
-faults from it.
+the devices of the state the caller passed.  :class:`TrainingFault`
+(defined in ``train/faults.py``, one class for both modules) is the base of
+the faults a ``fault_check`` raises to abort into the supervisor
+(``train/supervisor.py``).
 """
 
 from __future__ import annotations
@@ -38,12 +38,7 @@ from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.data.tokens import TokenPipeline
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as obs_trace
-
-
-class TrainingFault(RuntimeError):
-    """A detected (or injected) fault that aborts the loop into its
-    supervisor.  The loop re-raises it without waiting on the checkpoint
-    drain, with the partial segment's ``LoopResult`` as ``e.partial``."""
+from repro_torch.train.faults import TrainingFault
 
 
 @dataclasses.dataclass

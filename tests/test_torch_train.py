@@ -446,8 +446,9 @@ def test_train_launcher_smoke_and_resume(tmp_path, one_rank, capsys):
         "step_000000002", "step_000000004"]
     assert launch.main(argv + ["--steps", "6"]) == 0
     assert "done at step 6" in capsys.readouterr().out
-    with pytest.raises(SystemExit):
-        launch.main(["--arch", "minicpm-2b", "--supervise"])  # waits for the supervisor
+    with pytest.raises(SystemExit, match="grad_comp"):  # the supervised half's refusal
+        launch.main(argv + ["--steps", "6", "--supervise", "--grad-comp",
+                            "--fault-lost-pods", "1"])
 
 
 # --------------------------------------------------------------- elastic --
