@@ -2,8 +2,9 @@
 """Drive the PyTorch/CUDA port of TPU-SZ, TPU-ZFP, the in-situ snapshot
 path, Foresight, in-situ sharded compression, sharded snapshots with the
 compressed gradient hop, blockfloat8 serving, the multi-replica router
-under the serving fault drill, the trainer and its supervised fault drill
-on one GPU and check every result.
+under the serving fault drill, the trainer and its supervised fault drill,
+and the MoE, RWKV6, Hymba and enc-dec model families on one GPU and check
+every result.
 
     python3 chip_smoke.py
 
@@ -150,7 +151,11 @@ Needs one CUDA card and ``nvcc``; it builds the hand-written kernels from
     2e-6, and the same query in f32 within the f32 tolerance) and at
     S=32768 (``decode_32k``); the paged entry reads a pool of 16-token
     pages through a permuted page table with a page id used twice and an
-    unmapped entry at the zero page, against the gather + plain K10;
+    unmapped entry at the zero page, against the gather + plain K10.  The
+    other paths' shapes are held the same way: qwen3-moe's paged decode of
+    phase 27 (B=8, S=2048, H=32, Hkv=4, D=128) and whisper-base's dense
+    decode of phase 28 (B=8, S=17, H=Hkv=8, D=64, a lane at position 0, one
+    free);
 19. serves starcoder2-3b at full width (random bf16 weights drawn on the
     card from a seeded ``torch.Generator``) through ``ServingEngine``:
     8 slots, max_len 2048, paged blockfloat8 pool of 16-token pages,
@@ -172,7 +177,7 @@ Needs one CUDA card and ``nvcc``; it builds the hand-written kernels from
     (``tests/test_serving.py``'s bar).  The CPU's ``xla`` path is another
     function in bfloat16 (it rounds attention logits and probabilities to
     bfloat16, as the reference's does), so its agreement is printed only;
-21. (printed last, after phases 22-24) prints the ZFP stage times and one
+21. (printed last, after phases 22-28) prints the ZFP stage times and one
     JSON line of per-kernel numbers for
     K1-K10 (launches, max difference from the plain version (K10's at the
     serving shape with its bf16 query), device ms at the main path's
@@ -245,8 +250,46 @@ Needs one CUDA card and ``nvcc``; it builds the hand-written kernels from
     reached; every rank holds the reference's values and the same state bit
     for bit, and the same drill's CPU group (started beside phases 2-15)
     gives the same transitions and step trace.  Each rank has a timeout.
-    Each of phases 22-26 prints its wall time; their kernel launches join
-    the line of 21 (25-26 launch none).
+    Each of phases 22-28 prints its wall time; their kernel launches join
+    the line of 21 (25-26 launch none);
+27. serves qwen3-moe-30b-a3b at its published widths and depth (48 layers,
+    d_model 2048, heads 32/4, head dim 128, 128 experts top-8, d_ff 768 per
+    expert, vocab 151,936: 30.5 B parameters, random bf16 weights drawn on
+    the card, the expert stacks a layer slice at a time) through phase 19's
+    traffic and engine configuration, after every earlier phase's tensors
+    are freed.  ``attention="auto"`` must pick K10, K10 launch exactly 48
+    times per decode step, decode gather no pages, the pool be clean after
+    the drain, a second run give the same tokens (the routed combine adds in
+    a fixed order) and the ``attention="xla"`` run launch no K10 and give the
+    same first tokens.  The second run, untimed, holds every K10 call
+    against the same function in float64 on the same inputs (half a bf16
+    ulp plus 2^-24 * V * (L + S): ``K10Held``) and counts the routed
+    assignments dropped past an expert's capacity, in decode and in
+    prefill.  Prints the share of later tokens that agree with the ``xla``
+    run, the drop shares, the median tick, decode tokens/s, prefill ms,
+    peak GiB and a profiled tick (launches, device busy share);
+28. serves rwkv6-1.6b and hymba-1.5b at their published widths through the
+    engine's token-by-token fallback (no prefill, no paged pool, no K10
+    route: blockfloat8 ``attention="auto"`` must not pick K10), 6 requests
+    through 4 slots (prompts of 8-24 tokens, 12 new), twice with identical
+    tokens and clean free lanes; takes one float32 hymba-1.5b decode step at
+    its published widths over a random blockfloat8 cache with two lanes
+    past the 1024-token window (positions 1250 and 1100, one lane at 300):
+    redrawing the positions the windowed layers drop changes nothing bit for
+    bit, redrawing them in the three global layers moves the lanes past the
+    window, and layer by layer from the card's inputs (its cache writes and
+    each layer's input pinned on the CPU) every layer's attention, SSD and
+    output and the logits agree card vs CPU within 1e-4 of their largest
+    magnitude; runs whisper-base's encoder over 1500 random frames for 8
+    lanes, fills the cross-attention memory (``init_cache(params=,
+    frames=)``) and decodes 16 greedy steps with a (B,) index at blockfloat8 through K10's dense entry
+    (D = 64; exactly 6 launches a step, repeated with the same tokens and
+    every K10 call held to float64 as in 27) and through plain attention
+    (no K10, the same first tokens); then each of the five new archs at
+    SMOKE size, the same bf16 parameters on the card and on the
+    CPU: forward logits and every one of 8 blockfloat8 decode steps (K10
+    where the model has the route, its plain version on the CPU) within 4
+    bf16 ulps of the CPU's largest |logit|.
 
 Any failure raises and exits non-zero; so does a machine without CUDA, and a
 directory without the rest of the repository.
@@ -254,7 +297,9 @@ directory without the rest of the repository.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import gc
 import importlib.util
 import json
 import math
@@ -306,6 +351,7 @@ from repro_torch.kernels import zfp_fused as zff  # noqa: E402
 from repro_torch.launch import train as launch_train_lib  # noqa: E402
 from repro_torch.launch.mesh import make_mesh  # noqa: E402
 from repro_torch.models import layers as model_layers  # noqa: E402
+from repro_torch.models import moe as moe_lib  # noqa: E402
 from repro_torch.models.spec import init_params, param_count  # noqa: E402
 from repro_torch.obs import metrics as obs_metrics  # noqa: E402
 from repro_torch.obs import trace as obs_trace  # noqa: E402
@@ -1290,6 +1336,15 @@ def serving_index(b: int, s: int, seed: int = SEED) -> list[int]:
     return [int(i) for i in idx]
 
 
+def short_index(b: int, s: int, seed: int = SEED) -> list[int]:
+    """Per-lane positions over a short cache (whisper's decode): lane 0 at
+    position 0 (one key), the last lane at the cache's end, one lane free."""
+    rng = np.random.default_rng(seed + 2)
+    idx = rng.integers(1, s - 1, size=b)
+    idx[0], idx[1], idx[-1] = 0, -1, s - 1
+    return [int(i) for i in idx]
+
+
 def long_index(b: int, s: int, seed: int = SEED) -> list[int]:
     rng = np.random.default_rng(seed + 1)
     idx = rng.integers(s // 2, s, size=b)
@@ -1329,14 +1384,16 @@ def k10_vs_plain(device) -> float:
     hold_f32("(2, 128, 4, 64) dead lane", 2, 128, 4, 4, 64, [-1, 64])
     print("K10 vs plain at the reference tests' shapes (f32 q): within rtol 2e-5 / atol 2e-6")
 
-    for label, s, index in (("serving", KVC_SERVE_SHAPE[1], serving_index),
-                            ("decode_32k", KVC_LONG_S, long_index)):
-        b, _, h, hkv, d = KVC_SERVE_SHAPE
+    for label, (b, s, h, hkv, d), index in (
+            ("serving", KVC_SERVE_SHAPE, serving_index),
+            ("decode_32k", KVC_SERVE_SHAPE[:1] + (KVC_LONG_S,) + KVC_SERVE_SHAPE[2:], long_index),
+            (f"{WHISPER} decode", whisper_kvc_shape(), short_index)):
         idx = index(b, s)
         q, kc, ks, vc, vs, ix = kvc_inputs(b, s, h, hkv, d, torch.bfloat16, idx, device)
         got = k10.kvc_decode_attention(q, kc, ks, vc, vs, ix)
         want = kref.kvc_decode_attention_ref(q, kc, ks, vc, vs, ix)
-        check(bool((got[0] == 0).all()), f"K10 free lane not exactly 0 at {label}")
+        free = [i for i, n in enumerate(idx) if n < 0]
+        check(bool((got[free] == 0).all()), f"K10 free lane not exactly 0 at {label}")
         ulps = bf16_check(got, want)
         q32 = q.float()
         got32 = k10.kvc_decode_attention(q32, kc, ks, vc, vs, ix)
@@ -1352,9 +1409,10 @@ def k10_vs_plain(device) -> float:
               f"(max |diff| {err16:.3g}); f32 q max |diff| {err:.3g}")
         del q, kc, ks, vc, vs, got, want, got32, want32
 
-    for label, s, index in (("serving", KVC_SERVE_SHAPE[1], serving_index),
-                            ("decode_32k", KVC_LONG_S, long_index)):
-        b, _, h, hkv, d = KVC_SERVE_SHAPE
+    for label, (b, s, h, hkv, d), index in (
+            ("serving", KVC_SERVE_SHAPE, serving_index),
+            ("decode_32k", KVC_SERVE_SHAPE[:1] + (KVC_LONG_S,) + KVC_SERVE_SHAPE[2:], long_index),
+            (f"{MOE_ARCH} serving", moe_kvc_shape(), serving_index)):
         idx = index(b, s)
         errs = {}
         for qdtype in (torch.bfloat16, torch.float32):
@@ -1373,7 +1431,8 @@ def k10_vs_plain(device) -> float:
         if label == "serving":
             serving_err = errs[str(torch.bfloat16)]
         print(f"K10 paged vs plain (gather + plain K10) at {label} (B={b}, capacity {s} in "
-              f"{SERVE['page_size']}-token pages, permuted table, a page id used twice): free "
+              f"{SERVE['page_size']}-token pages, H={h}, Hkv={hkv}, D={d}, index {idx}, "
+              f"permuted table, a page id used twice): free "
               f"lane exactly 0, bf16 q within {errs['ulps']} ulps (max |diff| "
               f"{errs[str(torch.bfloat16)]:.3g}), f32 q max |diff| {errs[str(torch.float32)]:.3g}")
     torch.cuda.synchronize()
@@ -3482,6 +3541,514 @@ def drill_phase(cpu_group: list) -> dict:
     return {}
 
 
+# ------------------------- the other model families (phases 27-28) -----------
+
+MOE_ARCH = "qwen3-moe-30b-a3b"  # the one MoE config that fits one card at its published size
+SERIAL_ARCHS = ("rwkv6-1.6b", "hymba-1.5b")  # token-by-token engine fallback, no K10 route
+SERIAL = dict(batch_slots=4, max_len=128, codec="blockfloat8")
+SERIAL_REQUESTS, SERIAL_NEW, SERIAL_PROMPT = 6, 12, (8, 24)
+WHISPER = "whisper-base"
+WHISPER_LANES, WHISPER_STEPS = 8, 16
+FAMILY_SMOKE = ("qwen3-moe-30b-a3b", "phi3.5-moe-42b-a6.6b", "rwkv6-1.6b", "hymba-1.5b",
+                WHISPER)
+SMOKE_ULPS = 4  # card vs CPU at SMOKE: bf16 ulps of the largest |logit|
+FAMILY_STEPS = 8  # SMOKE decode steps held card vs CPU
+HYMBA = "hymba-1.5b"
+HYMBA_INDEX = (1250, 1100, 300)  # two lanes past the 1024-token window, one inside it
+HYMBA_REL = 1e-4  # float32 card vs CPU, of the largest |logit|
+
+
+def moe_kvc_shape() -> tuple:
+    """K10's (B, S, H, Hkv, D) on phase 27's decode: qwen3-moe in phase 19's engine."""
+    c = registry.get_config(MOE_ARCH)
+    return (SERVE["batch_slots"], SERVE["max_len"], c.n_heads, c.n_kv_heads, c.hd)
+
+
+def whisper_kvc_shape() -> tuple:
+    """K10's (B, S, H, Hkv, D) on phase 28's whisper decode (dense entry)."""
+    c = registry.get_config(WHISPER)
+    return (WHISPER_LANES, WHISPER_STEPS + 1, c.n_heads, c.n_kv_heads, c.hd)
+
+
+def bf16_ulp(x: float) -> float:
+    return 2.0 ** (math.floor(math.log2(x)) - 7) if x > 0 else 0.0
+
+
+def k10_exact(q, kc, ks, vc, vs, index):
+    """K10's function in float64 on a dense cache, with the terms of
+    :class:`K10Held`'s bar: (out, L, V, S) where L is the largest
+    D^-0.5 * sum |q_d k_d| (a bound on |logit|) and V the largest |v| over
+    the positions a lane attends to, S the longest such stretch."""
+    n_rep = q.shape[1] // kc.shape[2]
+    k = torch.repeat_interleave(kc.double() * ks.double()[..., None], n_rep, dim=2)
+    v = torch.repeat_interleave(vc.double() * vs.double()[..., None], n_rep, dim=2)
+    scale = q.shape[-1] ** -0.5
+    idx = torch.as_tensor(index, dtype=torch.int32, device=q.device).reshape(-1)
+    idx = idx.expand(q.shape[0]) if idx.numel() == 1 else idx
+    mask = torch.arange(k.shape[1], device=q.device)[None, :] <= idx[:, None]  # (B, S)
+    logits = torch.einsum("bhd,bshd->bhs", q.double(), k) * scale
+    p = torch.softmax(logits.masked_fill(~mask[:, None, :], -math.inf), dim=-1)
+    out = torch.einsum("bhs,bshd->bhd", torch.nan_to_num(p) * mask[:, None, :], v)
+    bound = torch.einsum("bhd,bshd->bhs", q.double().abs(), k.abs()) * scale
+    lmax = float(bound.masked_fill(~mask[:, None, :], 0).max())
+    vmax = float(v.abs().masked_fill(~mask[:, :, None, None], 0).max())
+    return out, lmax, vmax, int((idx + 1).clamp_min(0).max())
+
+
+class K10Held:
+    """While active, holds every call of K10's two entries (``kernels.ops``,
+    which the models call) against the same function in float64 on the same
+    inputs (:func:`k10_exact`): within half an ulp of the output's dtype
+    (its rounding) plus 2^-24 * V * (L + S), about what float32 rounding of
+    the logits (L) and of the sum over S positions moves a softmax-weighted
+    mean of values up to V by.  The plain float32 version's own distance
+    from float64 is recorded beside it.  The kernel's output is returned;
+    the comparison launches no K10."""
+
+    def __enter__(self):
+        self._orig = (ops.kvc_attention, ops.kvc_attention_paged)
+        self.calls, self.err, self.plain_err, self.share = 0, 0.0, 0.0, 0.0
+
+        def held(fn, paged):
+            def call(*args):
+                got = fn(*args)
+                dense = ((args[0], *(kref.gather_pages(t, args[5]) for t in args[1:5]), args[6])
+                         if paged else args)
+                ex, lmax, vmax, slen = k10_exact(*dense)
+                half = torch.finfo(got.dtype).eps * torch.ldexp(torch.ones_like(ex),
+                                                                torch.frexp(ex.abs())[1] - 2)
+                bar = 2.0 ** -24 * vmax * (lmax + slen)
+                excess = float(((got.double() - ex).abs() - half).max())
+                check(excess <= bar, f"K10 call {self.calls} ({'paged' if paged else 'dense'}, "
+                      f"cache {tuple(dense[1].shape)}) is {excess} beyond its output rounding "
+                      f"from float64 (bar {bar}: L {lmax}, V {vmax}, S {slen})")
+                plain = kref.kvc_decode_attention_ref(dense[0].float(), *dense[1:])
+                self.plain_err = max(self.plain_err, float((plain.double() - ex).abs().max()))
+                self.err = max(self.err, float((got.double() - ex).abs().max()))
+                self.share = max(self.share, max(excess, 0.0) / bar)
+                self.calls += 1
+                return got
+            return call
+
+        ops.kvc_attention = held(self._orig[0], False)
+        ops.kvc_attention_paged = held(self._orig[1], True)
+        return self
+
+    def __exit__(self, *exc):
+        ops.kvc_attention, ops.kvc_attention_paged = self._orig
+
+    def summary(self) -> dict:
+        return {"calls": self.calls, "max_abs_from_f64": self.err,
+                "plain_f32_max_abs_from_f64": self.plain_err,
+                "largest_share_of_bar": self.share}
+
+
+class DropCount:
+    """Counts the routed MLP's assignments and the ones dropped past an
+    expert's capacity while active, decode calls (``lanes`` rows) apart
+    from prefill calls; the sums stay on the device until read."""
+
+    def __init__(self, lanes: int, device):
+        self.lanes, self.device = lanes, device
+
+    def __enter__(self):
+        self._orig = moe_lib.route
+        self.kept = {k: torch.zeros((), dtype=torch.int64, device=self.device)
+                     for k in ("decode", "prefill")}
+        self.total = {"decode": 0, "prefill": 0}
+
+        def counted(p, c, xf):
+            r = self._orig(p, c, xf)
+            kind = "decode" if xf.shape[0] == self.lanes else "prefill"
+            self.kept[kind] += r.valid.sum()
+            self.total[kind] += r.valid.numel()
+            return r
+
+        moe_lib.route = counted
+        return self
+
+    def __exit__(self, *exc):
+        moe_lib.route = self._orig
+
+    def dropped_share(self) -> dict:
+        return {k: 1 - int(self.kept[k]) / self.total[k] if self.total[k] else None
+                for k in self.total}
+
+
+def moe_full_width(device) -> dict:
+    """Phase 27: qwen3-moe-30b-a3b at its published widths and depth through
+    the engine, phase 19's traffic, K10 on its decode path."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated() / 2**30
+    cfg = registry.get_config(MOE_ARCH)
+    model = registry.build_model(cfg)
+    check(isinstance(model, moe_lib.MoELM) and model.device.type == "cuda",
+          f"{MOE_ARCH} did not build as a MoELM on the card")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(model.specs(), torch.Generator(device=device).manual_seed(SEED), device,
+                         torch.bfloat16)
+    torch.cuda.synchronize()
+    init_s, init_peak = time.perf_counter() - t0, torch.cuda.max_memory_allocated() / 2**30
+    n_params = param_count(model.specs())
+    print(f"{MOE_ARCH}: {n_params} parameters ({n_params * 2 / 2**30:.3f} GiB bf16), "
+          f"{cfg.n_layers} layers, d_model {cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads}, "
+          f"{cfg.n_experts} experts top-{cfg.top_k}, d_ff {cfg.d_ff}, vocab {cfg.vocab}; "
+          f"init on the card {init_s:.2f} s, peak {init_peak:.3f} GiB "
+          f"({held:.3f} GiB held before)")
+    ps = prompts(SERVE_REQUESTS, cfg.vocab, *PROMPT_LEN)
+    obs_metrics.enable()
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        with GatherCount() as gathers:
+            eng, reqs, counts, stats, wall = serve(model, params, EngineConfig(**SERVE), ps,
+                                                   SERVE_NEW)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        check(eng._fused, "attention='auto' did not pick K10 for the MoE model on the card")
+        k10_n = counts["kvc_decode_attention"]
+        check(k10_n == cfg.n_layers * eng.steps and k10_n > 0,
+              f"K10 launched {k10_n} times in {eng.steps} decode steps of {cfg.n_layers} layers")
+        prefills = stats["prefill"]["count"]
+        check(gathers.n == 4 * cfg.n_layers * prefills,
+              f"{gathers.n} page gathers in {prefills} prefill calls: decode gathered pages")
+        check(eng.check_kv_integrity(), "the MoE model's KV pool is not clean after the drain")
+        steps, ticks, pool_bytes = eng.steps, eng.ticks, eng.pool.nbytes()
+        toks = [r.out_tokens for r in reqs]
+        del eng
+        # The repeat, untimed, counts the drops and holds every K10 call to float64.
+        with DropCount(SERVE["batch_slots"], device) as drops, K10Held() as held:
+            _, again, again_counts, _, _ = serve(model, params, EngineConfig(**SERVE), ps,
+                                                 SERVE_NEW)
+        check([r.out_tokens for r in again] == toks,
+              "a second identical MoE run gave other tokens (the combine is not deterministic)")
+        check(drops.total["decode"] > 0 and drops.total["prefill"] > 0,
+              f"the drop count saw no routed assignments ({drops.total}): route was not called "
+              "through moe_lib.route")
+        check(held.calls == again_counts["kvc_decode_attention"] == k10_n,
+              f"{held.calls} K10 calls held, {again_counts['kvc_decode_attention']} launched in "
+              f"the repeat, {k10_n} in the first run")
+        plain_eng, plain, plain_counts, plain_stats, plain_wall = serve(
+            model, params, EngineConfig(**SERVE, attention="xla"), ps, SERVE_NEW)
+        del plain_eng
+        check(plain_counts["kvc_decode_attention"] == 0, "attention='xla' launched K10")
+        check(all(a.out_tokens[0] == b[0] for a, b in zip(plain, toks)),
+              "first tokens (from prefill) differ between attention auto and xla")
+        rest = [(a, b) for r, tk in zip(plain, toks) for a, b in zip(r.out_tokens[1:], tk[1:])]
+        agree = sum(a == b for a, b in rest) / len(rest)
+        profiled = tick_profile(model, params, ps, ticks=2)  # ~8000 launches a tick
+    finally:
+        obs_metrics.disable()
+        obs_metrics.reset()
+    pre, tick = stats["prefill"], stats["tick"]
+    decode_s = tick["mean"] * tick["count"] - pre["mean"] * pre["count"]
+    out = {"params": n_params, "steps": steps, "ticks": ticks, "k10_launches": k10_n,
+           "page_gathers": gathers.n, "prefill_calls": pre["count"],
+           "prefill_ms_mean": pre["mean"] * 1e3, "prefill_ms_max": pre["max"] * 1e3,
+           "tick_ms_median": tick["p50"] * 1e3,
+           "decode_tokens_per_s": SERVE_REQUESTS * (SERVE_NEW - 1) / decode_s, "wall_s": wall,
+           "dropped_share": drops.dropped_share(),
+           "assignments": drops.total, "k10_held": held.summary(), "pool_bytes": pool_bytes, "peak_gib": peak,
+           "init_peak_gib": init_peak, "xla_tick_ms_median": plain_stats["tick"]["p50"] * 1e3,
+           "xla_wall_s": plain_wall, "xla_agree_after_first": agree,
+           "prompt_tokens": sum(len(p) for p in ps)}
+    print(f"serving {MOE_ARCH} full width (auto = K10): " + json.dumps(out))
+    print("MoE decode tick profile (8 live lanes): " + json.dumps(profiled))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"kvc_decode_attention": k10_n}
+
+
+def serial_family(arch: str, device) -> dict:
+    """Phase 28a: an arch without prefill or paged pool at its published
+    widths through the engine's token-by-token fallback, run twice."""
+    cfg = registry.get_config(arch)
+    model = registry.build_model(cfg)
+    params = init_params(model.specs(), torch.Generator(device=device).manual_seed(SEED), device,
+                         torch.bfloat16)
+    ps = prompts(SERIAL_REQUESTS, cfg.vocab, *SERIAL_PROMPT)
+    obs_metrics.enable()
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        eng, reqs, counts, stats, wall = serve(model, params, EngineConfig(**SERIAL), ps,
+                                               SERIAL_NEW)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        check(not eng.paged and not eng._can_prefill and not eng._fused,
+              f"{arch}: the engine took a paged, prefill or K10 path")
+        check(counts["kvc_decode_attention"] == 0, f"{arch}: K10 launched")
+        check(eng.check_kv_integrity(), f"{arch}: a free lane's state is not zero after the drain")
+        _, again, _, _, _ = serve(model, params, EngineConfig(**SERIAL), ps, SERIAL_NEW)
+        check([r.out_tokens for r in again] == [r.out_tokens for r in reqs],
+              f"{arch}: a second identical run gave other tokens")
+    finally:
+        obs_metrics.disable()
+        obs_metrics.reset()
+    n_params = param_count(model.specs())
+    out = {"params": n_params, "gib_bf16": n_params * 2 / 2**30, "steps": eng.steps,
+           "tick_ms_median": stats["tick"]["p50"] * 1e3,
+           "tokens_per_s": (sum(len(p) for p in ps) + SERIAL_REQUESTS * SERIAL_NEW) / wall,
+           "wall_s": wall, "peak_gib": peak}
+    print(f"serving {arch} full width, token by token: " + json.dumps(out))
+    return out
+
+
+def whisper_full_width(device) -> int:
+    """Phase 28c: whisper-base's encoder over 1500 random frames for 8 lanes,
+    then greedy decode with a (B,) index through K10's dense entry (D = 64)
+    and through plain attention; the untimed repeat holds every K10 call
+    to float64 (:class:`K10Held`).  Returns K10's launches."""
+    cfg = registry.get_config(WHISPER)
+    model = registry.build_model(cfg)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    params = init_params(model.specs(), gen, device, torch.bfloat16)
+    frames = torch.randn((WHISPER_LANES, cfg.encoder_len, cfg.d_model), generator=gen,
+                         device=device).to(torch.bfloat16)
+    codec = model_layers.KVCodecConfig("blockfloat8")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cache0 = model.init_cache(WHISPER_LANES, WHISPER_STEPS + 1, codec, params=params,
+                              frames=frames)
+    torch.cuda.synchronize()
+    encode_ms = (time.perf_counter() - t0) * 1e3
+    start = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, cfg.vocab, WHISPER_LANES).astype(np.int32)).to(device)
+    toks, launches, step_ms = {}, {}, {}
+    for label, attention in (("fused", "fused"), ("fused again", "fused"), ("xla", "xla")):
+        cache = {k: v.clone() for k, v in cache0.items()}
+        tok, out = start, []
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        # The repeat, untimed, holds every K10 call to float64.
+        with K10Held() if label == "fused again" else contextlib.nullcontext() as held:
+            t0 = time.perf_counter()
+            for t in range(WHISPER_STEPS):
+                index = torch.full((WHISPER_LANES,), t, dtype=torch.int32, device=device)
+                logits, cache = model.decode_step(params, cache, tok, index, codec,
+                                                  attention=attention)
+                tok = torch.argmax(logits, dim=-1).to(torch.int32)
+                out.append(tok)
+            torch.cuda.synchronize()
+            step_ms[label] = (time.perf_counter() - t0) / WHISPER_STEPS * 1e3
+        launches[label] = kernels.launch_counts()["kvc_decode_attention"]
+        toks[label] = torch.stack(out, 1).cpu().tolist()
+        if held is not None:
+            check(held.calls == launches[label], f"whisper: {held.calls} K10 calls held, "
+                  f"{launches[label]} launched")
+            k10_held = held.summary()
+    check(launches["fused"] == cfg.n_layers * WHISPER_STEPS,
+          f"whisper: K10 launched {launches['fused']} times in {WHISPER_STEPS} steps of "
+          f"{cfg.n_layers} layers")
+    check(launches["xla"] == 0, "whisper: attention='xla' launched K10")
+    check(toks["fused again"] == toks["fused"], "whisper: a repeated K10 decode gave other tokens")
+    check(all(a[0] == b[0] for a, b in zip(toks["fused"], toks["xla"])),
+          "whisper: first tokens differ between K10 and plain attention")
+    pairs = [(a, b) for x, y in zip(toks["fused"], toks["xla"]) for a, b in zip(x[1:], y[1:])]
+    out = {"params": param_count(model.specs()), "encode_and_memory_ms": encode_ms,
+           "decode_step_ms": step_ms, "k10_launches": launches["fused"], "k10_held": k10_held,
+           "xla_agree_after_first": sum(a == b for a, b in pairs) / len(pairs)}
+    print(f"{WHISPER} full width, {cfg.encoder_len} frames x {WHISPER_LANES} lanes: "
+          + json.dumps(out))
+    return launches["fused"] + launches["fused again"]
+
+
+def family_inputs(cfg, seed: int = SEED):
+    rng = np.random.default_rng(seed)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, size=(2, 16)).astype(np.int32))
+    frames = (torch.from_numpy(rng.normal(size=(2, cfg.encoder_len, cfg.d_model))
+                               .astype(np.float32)).to(torch.bfloat16)
+              if cfg.family == "audio" else None)
+    return tokens, frames
+
+
+def hymba_window(device) -> dict:
+    """Phase 28b: one hymba-1.5b decode step at its published widths, in
+    float32, over a blockfloat8 cache filled at random, two of three lanes
+    past the 1024-token window.  Redrawing the positions a windowed layer
+    drops leaves the card's logits bit for bit; redrawing the same positions
+    of the global layers moves the lanes past the window.  Card against CPU
+    layer by layer: the CPU's cache writes take the card's new K/V and each
+    of its layers starts from the card's output of the layer before, so
+    each layer's attention, SSD and layer output, and the logits, are held
+    from the same inputs within ``HYMBA_REL`` of their largest magnitude.
+    (End to end the two part further: the codec's rounding is a step
+    function, and 32 layers of random weights amplify a 1e-7 difference;
+    that distance is printed.)"""
+    cfg = dataclasses.replace(registry.get_config(HYMBA), dtype="float32")
+    model = registry.build_model(cfg)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    params = init_params(model.specs(), gen, device, torch.float32)
+    codec = model_layers.KVCodecConfig("blockfloat8")
+    b, s = len(HYMBA_INDEX), max(HYMBA_INDEX) + 30
+
+    def redraw(cache, layers, lane, stop):
+        for name, leaf in cache.items():
+            if not name.startswith("attn_"):
+                continue
+            part = leaf[layers, lane, :stop]
+            if leaf.dtype == torch.int8:
+                new = torch.randint(-127, 128, part.shape, generator=gen, device=device,
+                                    dtype=torch.int8)
+            else:  # per-(token, head) scales
+                new = torch.rand(part.shape, generator=gen, device=device) * 1.9e-2 + 1e-3
+            leaf[layers, lane, :stop] = new
+
+    cache = model.init_cache(b, s, codec)
+    redraw(cache, slice(None), slice(None), s)
+    cache["ssd_state"].copy_(torch.randn(cache["ssd_state"].shape, generator=gen,
+                                         device=device) * 0.1)
+    rng = np.random.default_rng(SEED)
+    token = torch.from_numpy(rng.integers(0, cfg.vocab, b).astype(np.int32))
+    index = torch.from_numpy(np.asarray(HYMBA_INDEX, np.int32))
+
+    def step(m, p, c, dev):
+        c = {k: v.clone() for k, v in c.items()}
+        logits, _ = m.decode_step(p, c, token.to(dev), index.to(dev), codec)
+        return logits.float()
+
+    def pinned_step(m, p, c, dev, pins=None):
+        """``step`` recording every cache write's K/V and every layer's
+        (attention, SSD, layer) output; given ``pins`` (another device's
+        record), writes take its K/V and each layer continues from its
+        layer output."""
+        writes, outs = [], []
+        orig_update = model_layers.cache_update
+
+        def update(cache_, codec_, k, v, idx):
+            if pins is not None:
+                k, v = (t.to(k.device) for t in pins["writes"][len(writes)])
+            writes.append((k.cpu(), v.cpu()))
+            return orig_update(cache_, codec_, k, v, idx)
+
+        def fuse(lp, x, a_out, s_out):
+            y = type(m)._fuse(m, lp, x, a_out, s_out)
+            outs.append(tuple(t.float().cpu() for t in (a_out, s_out, y)))
+            return y if pins is None else pins["layers"][len(outs) - 1][2].to(y.device, y.dtype)
+
+        model_layers.cache_update, m._fuse = update, fuse
+        try:
+            logits = step(m, p, c, dev)
+        finally:
+            model_layers.cache_update = orig_update
+            del m._fuse
+        return {"writes": writes, "layers": outs, "logits": logits.cpu()}
+
+    kernels.reset_launch_counts()
+    base = step(model, params, cache, device)
+    windows = model._windows()
+    local = [i for i, w in enumerate(windows) if w < s]
+    wide = [i for i, w in enumerate(windows) if w >= s]
+    globals_ = {0, cfg.n_layers // 2, cfg.n_layers - 1}
+    check(local and wide == sorted(globals_) and len({windows[i] for i in local}) == 1,
+          f"hymba windows {windows}: not global first, middle and last layers, the rest one window")
+    past = [lane for lane, i in enumerate(HYMBA_INDEX) if i >= windows[local[0]]]
+    blind, seen = ({k: v.clone() for k, v in cache.items()} for _ in range(2))
+    for lane in past:
+        stop = HYMBA_INDEX[lane] - windows[local[0]] + 1  # positions <= index - window
+        redraw(blind, local, lane, stop)
+        redraw(seen, wide, lane, stop)
+    blind_logits, seen_logits = step(model, params, blind, device), step(model, params, seen,
+                                                                           device)
+    check(kernels.launch_counts()["kvc_decode_attention"] == 0, "hymba: K10 launched")
+    check(torch.equal(blind_logits, base),
+          "hymba: positions outside a windowed layer's window moved the logits")
+    moved = [float((seen_logits[lane] - base[lane]).abs().max()) for lane in range(b)]
+    card = pinned_step(model, params, cache, device)
+    check(torch.equal(card["logits"], base.cpu()), "hymba: recording changed the card's step")
+    cpu_dev = torch.device("cpu")
+    cpu_model = registry.build_model(cfg, device=cpu_dev)
+    cpu_params, cpu_cache = on_device(params, cpu_dev), on_device(cache, cpu_dev)
+    cpu = pinned_step(cpu_model, cpu_params, cpu_cache, cpu_dev, pins=card)
+
+    def rel(a, b_):
+        return float((a - b_).abs().max()) / max(float(a.abs().max()), 1e-30)
+
+    held = {f"{what} {kind}": max(rel(x[i], y[i]) for n, (x, y) in enumerate(
+                zip(card["layers"], cpu["layers"])) if (n in local) == (kind == "windowed"))
+            for i, what in enumerate(("attention", "ssd", "layer"))
+            for kind in ("windowed", "global")}
+    held["logits"] = rel(card["logits"], cpu["logits"])
+    check(len(cpu["layers"]) == cfg.n_layers and all(v <= HYMBA_REL for v in held.values()),
+          f"hymba at width past the window, card vs CPU layer by layer (bar {HYMBA_REL}): {held}")
+    scale = float(base.abs().max())
+    check(all(moved[lane] > HYMBA_REL * scale for lane in past) and moved[-1] == 0.0,
+          f"hymba: redrawing the global layers' early positions moved the logits by {moved}")
+    free = rel(base.cpu(), step(cpu_model, cpu_params, cpu_cache, cpu_dev))
+    out = {"index": list(HYMBA_INDEX), "cache_len": s, "window": windows[local[0]],
+           "windowed_layers": len(local), "card_vs_cpu_per_layer_rel": held,
+           "card_vs_cpu_end_to_end_rel": free, "logit_scale": scale,
+           "global_redraw_moved": moved}
+    print(f"{HYMBA} full width, float32, one decode step past the window: " + json.dumps(out))
+    return out
+
+
+def families_card_vs_cpu(device) -> int:
+    """Phase 28d: each new family at SMOKE size, the same bf16 parameters on
+    the card and on the CPU: forward logits, then 8 blockfloat8 decode
+    steps with a (B,) index (K10 where the model has the route, its plain
+    version on the CPU), every step's logits held.  The bar is
+    ``SMOKE_ULPS`` bf16 ulps of the CPU's largest |logit|.  Returns K10's
+    launches."""
+    k10 = 0
+    worst = {}
+    for arch in FAMILY_SMOKE:
+        cfg = registry.get_config(arch, smoke=True)
+        specs = registry.build_model(cfg, device="cpu").specs()
+        params = init_params(specs, torch.Generator().manual_seed(SEED), "cpu", torch.bfloat16)
+        tokens, frames = family_inputs(cfg)
+        codec = model_layers.KVCodecConfig("blockfloat8")
+        got = {}
+        for dev in (device, torch.device("cpu")):
+            model = registry.build_model(cfg, device=dev)
+            p = on_device(params, dev)
+            extra = () if frames is None else (frames.to(dev),)
+            with torch.no_grad():
+                logits = model.forward(p, tokens.to(dev), *extra).float().cpu()
+            attention = "fused" if model.supports_fused_attention else "xla"
+            cache = (model.init_cache(2, FAMILY_STEPS, codec, params=p, frames=extra[0])
+                     if extra else model.init_cache(2, FAMILY_STEPS, codec))
+            kernels.reset_launch_counts()
+            steps = []
+            for t in range(FAMILY_STEPS):
+                index = torch.full((2,), t, dtype=torch.int32, device=dev)
+                step, cache = model.decode_step(p, cache, tokens[:, t].to(dev), index, codec,
+                                                attention=attention)
+                steps.append(step)
+            n = kernels.launch_counts()["kvc_decode_attention"]
+            want_n = (FAMILY_STEPS * cfg.n_layers if (dev.type == "cuda" and attention == "fused")
+                      else 0)
+            check(n == want_n, f"{arch} SMOKE on {dev.type}: K10 launched {n} times, not {want_n}")
+            k10 += n
+            got[dev.type] = (logits, torch.stack(steps).float().cpu())
+        for i, what in enumerate(("forward", "decode")):
+            a, b = got[device.type][i], got["cpu"][i]
+            scale = float(b.abs().max())
+            bar = SMOKE_ULPS * bf16_ulp(scale)
+            diff = float((a - b).abs().max())
+            check(diff <= bar, f"{arch} SMOKE {what} logits: card and CPU differ by {diff} "
+                  f"(bar {SMOKE_ULPS} bf16 ulps of {scale}: {bar})")
+            worst[f"{arch} {what}"] = [diff, bar]
+    print(f"SMOKE card vs CPU ([max |logit difference|, bar = {SMOKE_ULPS} bf16 ulps of the "
+          f"largest |logit|], bf16; decode over {FAMILY_STEPS} steps): " + json.dumps(worst))
+    return k10
+
+
+def other_families(device) -> dict:
+    """Phase 28: rwkv6 and hymba at their published widths, whisper-base's
+    encoder and K10 decode, and the five new archs card against CPU."""
+    for arch in SERIAL_ARCHS:
+        serial_family(arch, device)
+        gc.collect()
+        torch.cuda.empty_cache()
+    hymba_window(device)
+    gc.collect()
+    torch.cuda.empty_cache()
+    k10 = whisper_full_width(device)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"kvc_decode_attention": k10 + families_card_vs_cpu(device)}
+
+
 def run(device) -> dict:
     t0 = time.perf_counter()
     logs = _build.build(verbose=True)
@@ -3566,7 +4133,11 @@ def run(device) -> dict:
                        lambda: train_loop_phase(device)),
                       ("25 supervised drill, one rank", lambda: supervised_phase(device)),
                       ("26 shrink and grow-back drill, 4 gloo ranks",
-                       lambda: drill_phase(cpu_drill))):
+                       lambda: drill_phase(cpu_drill)),
+                      ("27 qwen3-moe-30b-a3b at its published size", lambda: moe_full_width(
+                          device)),
+                      ("28 rwkv6, hymba, whisper and the new families card vs CPU",
+                       lambda: other_families(device))):
         t0 = time.perf_counter()
         for k, v in fn().items():
             launches[k] = launches.get(k, 0) + v

@@ -1,11 +1,11 @@
 """Architecture registry: ``--arch <id>`` resolution, model construction and
 the shape cells (the port of ``repro.configs.registry``).
 
-Every arch's config resolves; :func:`build_model` builds the dense family
-(``dense`` and ``vlm``).  The other families wait for their port (ROADMAP
-Queue 1, "The other model families") and raise ``NotImplementedError``.
-The reference's ``input_specs`` and ``supports`` serve its compile-only dry
-run and wait for it (ROADMAP Queue 1, "The cost sweep").
+Every arch's config resolves and :func:`build_model` builds every family:
+``DenseLM`` (``dense``, ``vlm``), ``MoELM`` (``moe``), ``RWKV6LM``
+(``ssm``), ``HymbaLM`` (``hybrid``) and ``EncDecLM`` (``audio``,
+``encdec``).  The reference's ``input_specs`` and ``supports`` serve its
+compile-only dry run and wait for it (ROADMAP Queue 1, "The cost sweep").
 """
 
 from __future__ import annotations
@@ -29,11 +29,6 @@ _MODULES = {
 }
 
 ARCH_IDS = tuple(_MODULES)
-
-# families whose model module is not ported yet, and the model each needs
-_WAITING = {"moe": "MoELM (models/moe.py)", "ssm": "RWKV6LM (models/rwkv6.py)",
-            "hybrid": "HymbaLM (models/hybrid.py)", "audio": "EncDecLM (models/encdec.py)",
-            "encdec": "EncDecLM (models/encdec.py)"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,8 +60,20 @@ def build_model(cfg: ArchConfig, device=None):
         from repro_torch.models.transformer import DenseLM
 
         return DenseLM(cfg, device=device)
-    if cfg.family in _WAITING:
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} needs {_WAITING[cfg.family]}, not ported "
-            "yet (ROADMAP Queue 1, 'The other model families')")
+    if cfg.family == "moe":
+        from repro_torch.models.moe import MoELM
+
+        return MoELM(cfg, device=device)
+    if cfg.family == "ssm":
+        from repro_torch.models.rwkv6 import RWKV6LM
+
+        return RWKV6LM(cfg, device=device)
+    if cfg.family == "hybrid":
+        from repro_torch.models.hybrid import HymbaLM
+
+        return HymbaLM(cfg, device=device)
+    if cfg.family in ("audio", "encdec"):
+        from repro_torch.models.encdec import EncDecLM
+
+        return EncDecLM(cfg, device=device)
     raise ValueError(f"unknown family {cfg.family}")

@@ -20,8 +20,14 @@ parameter tree; each owns its cache or page pool.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch starcoder2-3b --smoke \\
         --device cpu --replicas 2 --fault-seed 0
 
-``--device`` defaults to CUDA; on a CUDA device blockfloat8 decode attention
-runs through K10.
+``--arch`` takes every registered arch.  The dense and MoE families
+(``DenseLM``, ``MoELM``) prefill prompts in one call into a paged pool;
+rwkv6 (``RWKV6LM``), hymba (``HymbaLM``) and whisper (``EncDecLM``) feed
+prompts token by token into a dense per-slot cache (``--paged on`` is
+refused for them).  ``--device`` defaults to CUDA; there blockfloat8 decode
+attention runs through K10 for the dense, MoE and enc-dec families (whisper
+decodes with an empty encoder memory here); rwkv6 has no attention and
+hymba decodes with its own windowed attention, so neither has a K10 route.
 """
 
 from __future__ import annotations
@@ -42,7 +48,9 @@ from repro_torch.serving.router import Router, RouterConfig, RouterRequest
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", choices=list(registry.ARCH_IDS), required=True)
+    ap.add_argument("--arch", choices=list(registry.ARCH_IDS), required=True,
+                    help="any registered arch; the dense and MoE families take the paged "
+                         "pool, and with blockfloat8 on CUDA K10 (as does whisper)")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     ap.add_argument("--requests", type=int, default=8)

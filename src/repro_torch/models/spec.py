@@ -72,18 +72,33 @@ def _truncated_normal(shape, generator: torch.Generator, device) -> torch.Tensor
     return u.erfinv_().mul_(math.sqrt(2.0)).clamp_(-3.0, 3.0)
 
 
+# A leaf of this many values or more is drawn one slice of its leading axis
+# at a time: its whole float32 draw (8 GiB and up) would not fit beside the
+# tree on one card (qwen3-moe's expert stacks are 9.66e9 values each).  Every
+# smaller leaf, starcoder2-3b's and minicpm-2b's included, is drawn whole.
+SLICED_DRAW_NUMEL = 1 << 31
+
+
 def _init_leaf(p: P, generator: torch.Generator, device, dtype: torch.dtype) -> torch.Tensor:
     if p.init == "zeros":
         return torch.zeros(p.shape, dtype=dtype, device=device)
     if p.init == "ones":
         return torch.ones(p.shape, dtype=dtype, device=device)
-    return _truncated_normal(p.shape, generator, device).mul_(_std(p)).to(dtype)
+    if math.prod(p.shape) < SLICED_DRAW_NUMEL or len(p.shape) < 2:
+        return _truncated_normal(p.shape, generator, device).mul_(_std(p)).to(dtype)
+    # peak: the destination plus one float32 slice
+    out = torch.empty(p.shape, dtype=dtype, device=device)
+    for row in out:
+        row.copy_(_truncated_normal(row.shape, generator, device).mul_(_std(p)))
+    return out
 
 
 def init_params(specs: Any, generator: torch.Generator, device=None,
                 dtype: torch.dtype = torch.float32) -> Any:
     """Materialize ``specs`` on ``device`` (default: the generator's) in
-    ``dtype``; leaves are drawn in :func:`spec_items` order."""
+    ``dtype``; leaves are drawn in :func:`spec_items` order, a leaf of
+    ``SLICED_DRAW_NUMEL`` values or more one leading-axis slice after
+    another, each written straight into ``dtype``."""
     device = torch.device(device) if device is not None else generator.device
     out: dict = {}
     for path, p in spec_items(specs):

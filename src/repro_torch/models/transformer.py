@@ -52,6 +52,8 @@ class DenseLM(nn.Module):
     # decode routes every KV access through layers.decode_attention, so the
     # serving tier can swap the dense (B, S) cache for a paged pool
     supports_paged_kv = True
+    # blockfloat8 decode attention has a K10 route (``attention="fused"``)
+    supports_fused_attention = True
 
     def __init__(self, cfg: ArchConfig, device=None):
         super().__init__()

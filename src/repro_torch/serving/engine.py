@@ -28,17 +28,23 @@ ladder (`serving/admission.py`).
 
 Anything with ``decode_step`` / ``init_cache`` serves through the engine;
 ``model.supports_paged_kv`` / ``model.prefill`` unlock the paged and
-chunked-prefill fast paths (the dense family so far).
+chunked-prefill fast paths (``DenseLM`` and ``MoELM``; ``RWKV6LM``,
+``HymbaLM`` and ``EncDecLM`` feed prompts token by token into a dense
+per-slot cache), and ``model.supports_fused_attention`` declares a K10
+route for blockfloat8 decode attention (``DenseLM``, ``MoELM``,
+``EncDecLM``).
 
 What differs from the reference:
 
 * The cache lives on the model's device and is written in place; a step
   returns the same tensors.
 * ``attention="auto"`` sends blockfloat8 decode attention through K10 on a
-  CUDA model and the plain path on the CPU (the reference picks its Pallas
-  kernel only on the TPU); ``"fused"`` asks for K10 on either (on the CPU
-  it runs K10's plain version).  The choice is an argument of the model's
-  ``decode_step`` / ``prefill``, not a trace-time flag.
+  CUDA model that declares a K10 route and the plain path otherwise (the
+  reference picks its Pallas kernel only on the TPU); ``"fused"`` asks for
+  K10 on either device (on the CPU it runs K10's plain version) and is
+  refused with ``ValueError`` for a model without the route.  The choice is
+  an argument of the model's ``decode_step`` / ``prefill``, not a
+  trace-time flag.
 * Sampled decoding keeps the reference's contract, not its bits: output
   token t of request ``uid`` draws Gumbel noise from a ``torch.Generator``
   seeded with a pure function of ``(sample_seed, uid, key_offset + t)``,
@@ -193,8 +199,13 @@ class ServingEngine:
         self.admission = AdmissionController(
             AdmissionConfig(tuple(cfg.ladder), cfg.max_live_batches),
             cfg.batch_slots)
-        # K10 on CUDA ("auto"), or wherever "fused" asks for it
-        self._fused = cfg.codec == "blockfloat8" and (
+        # K10 on CUDA ("auto"), or wherever "fused" asks for it, on a model
+        # that has the route; an explicit "fused" without one is refused
+        fused_ok = bool(getattr(model, "supports_fused_attention", False))
+        if cfg.attention == "fused" and not fused_ok:
+            raise ValueError(f"{type(model).__name__} has no K10 route "
+                             "(no supports_fused_attention); use attention='auto' or 'xla'")
+        self._fused = fused_ok and cfg.codec == "blockfloat8" and (
             cfg.attention == "fused"
             or (cfg.attention == "auto" and self.device.type == "cuda"))
         self._attention = "fused" if self._fused else "xla"

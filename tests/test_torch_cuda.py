@@ -790,6 +790,94 @@ def _to_device(tree, device):
     return tree.to(device)
 
 
+def _decode_run(cfg, params, dev, tokens, index_of, codec, paged: bool, frames=None):
+    """Greedy-free decode of ``tokens`` (B, T) through ``attention="fused"``
+    on ``dev``; returns the stacked logits and K10's launches."""
+    from repro_torch.configs import registry
+    from repro_torch.models import layers as L
+
+    model = registry.build_model(cfg, device=dev)
+    p = _to_device(params, dev)
+    b, t = tokens.shape
+    if frames is not None:
+        cache = model.init_cache(b, t + 1, codec, params=p, frames=frames.to(dev))
+    elif paged:
+        cache = model.init_cache(b * 2 + 1, 16, codec)
+    else:
+        cache = model.init_cache(b, t + 1, codec)
+    table = torch.arange(1, 2 * b + 1, dtype=torch.int32).reshape(b, 2).to(dev)
+    kernels.reset_launch_counts()
+    out = []
+    for i in range(t):
+        pos = index_of(i).to(dev)
+        index = L.PagedKV(pos, table) if paged else pos
+        logits, cache = model.decode_step(p, cache, tokens[:, i].to(dev), index, codec,
+                                          attention="fused")
+        out.append(logits.float().cpu())
+    return torch.stack(out, 1), kernels.launch_counts()["kvc_decode_attention"]
+
+
+@pytest.mark.cuda
+def test_cuda_moe_smoke_decode_through_k10_repeats_bitwise(cuda_device):
+    """qwen3-moe SMOKE (bf16) decodes through K10's paged entry on the card:
+    one launch per layer and step, logits within the bf16 decode bar
+    (rtol 0.15, atol 0.35) of K10's plain version on the CPU, and a repeated
+    run gives bit-equal logits (the routed combine adds in a fixed order)."""
+    from repro_torch.configs import registry
+    from repro_torch.models import layers as L
+    from repro_torch.models.spec import init_params
+
+    cfg = registry.get_config("qwen3-moe-30b-a3b", smoke=True)
+    params = init_params(registry.build_model(cfg, device="cpu").specs(),
+                         torch.Generator().manual_seed(0), "cpu", torch.bfloat16)
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, size=(4, 12)).astype(np.int32))
+    codec = L.KVCodecConfig("blockfloat8")
+
+    def index_of(i):  # lane 3 free throughout
+        return torch.tensor([i, i, i, -1], dtype=torch.int32)
+
+    card, n = _decode_run(cfg, params, cuda_device, tokens, index_of, codec, paged=True)
+    again, _ = _decode_run(cfg, params, cuda_device, tokens, index_of, codec, paged=True)
+    cpu, n_cpu = _decode_run(cfg, params, torch.device("cpu"), tokens, index_of, codec,
+                             paged=True)
+    assert n == cfg.n_layers * tokens.shape[1] and n_cpu == 0
+    assert torch.equal(card, again)
+    assert torch.allclose(card[:3], cpu[:3], rtol=0.15, atol=0.35)
+
+
+@pytest.mark.cuda
+def test_cuda_whisper_decode_through_k10_dense_entry_at_d64(cuda_device):
+    """whisper SMOKE widened to head_dim 64 (d_model 256, 4 heads): decode
+    with a (B,) index and its encoder memory runs K10's dense entry once
+    per layer and step, within the bf16 decode bar of the CPU's plain K10."""
+    from repro_torch.configs import registry
+    from repro_torch.models import layers as L
+    from repro_torch.models.spec import init_params
+
+    cfg = registry.get_config("whisper-base", smoke=True).scaled(d_model=256, n_heads=4,
+                                                                  n_kv_heads=4)
+    assert cfg.hd == 64
+    params = init_params(registry.build_model(cfg, device="cpu").specs(),
+                         torch.Generator().manual_seed(0), "cpu", torch.bfloat16)
+    rng = np.random.default_rng(2)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, size=(3, 8)).astype(np.int32))
+    frames = torch.from_numpy(rng.normal(size=(3, cfg.encoder_len, cfg.d_model))
+                              .astype(np.float32)).to(torch.bfloat16)
+    codec = L.KVCodecConfig("blockfloat8")
+
+    def index_of(i):  # lane 1 one step behind, lane 2 free
+        return torch.tensor([i, i - 1 if i else -1, -1], dtype=torch.int32)
+
+    card, n = _decode_run(cfg, params, cuda_device, tokens, index_of, codec, paged=False,
+                          frames=frames)
+    cpu, _ = _decode_run(cfg, params, torch.device("cpu"), tokens, index_of, codec,
+                         paged=False, frames=frames)
+    assert n == cfg.n_layers * tokens.shape[1]
+    assert torch.allclose(card[:1], cpu[:1], rtol=0.15, atol=0.35)
+    assert torch.allclose(card[1, 1:], cpu[1, 1:], rtol=0.15, atol=0.35)
+
+
 # ------------------------------------------- Foresight and in-situ (card) ----
 
 

@@ -41,7 +41,8 @@ def test_the_walk_sees_the_port():
                    "launch/train.py", "launch/mesh.py", "serving/router.py",
                    "serving/faults.py", "optim/adamw.py", "optim/schedules.py",
                    "data/tokens.py", "train/step.py", "train/loop.py", "train/elastic.py",
-                   "train/faults.py", "train/supervisor.py"):
+                   "train/faults.py", "train/supervisor.py", "models/moe.py",
+                   "models/rwkv6.py", "models/hybrid.py", "models/encdec.py"):
         assert f"src/repro_torch/{module}" in names, module
     for example in ("torch_quickstart.py", "torch_foresight_workflow.py",
                     "torch_serve_batched.py", "torch_train_lm_compressed.py"):

@@ -393,12 +393,99 @@ def test_configs_and_param_counts_match(arch):
         assert dataclasses.asdict(tc) == dataclasses.asdict(jc)
         assert (tc.hd, tc.padded_vocab) == (jc.hd, jc.padded_vocab)
         assert dataclasses.asdict(tc.attn()) == dataclasses.asdict(jc.attn())
-    if jc.family in ("dense", "vlm"):
         assert tspec.param_count(treg.build_model(tc, device="cpu").specs()) == \
             jspec.param_count(jreg.build_model(jc).specs())
-    else:
-        with pytest.raises(NotImplementedError, match="The other model families"):
-            treg.build_model(tc, device="cpu")
+    assert type(treg.build_model(tc, device="cpu")).__name__ == \
+        type(jreg.build_model(jc)).__name__
+
+
+NEW_FAMILIES = ("qwen3-moe-30b-a3b", "phi3.5-moe-42b-a6.6b", "rwkv6-1.6b", "hymba-1.5b",
+                "whisper-base")
+
+
+@pytest.mark.parametrize("arch", NEW_FAMILIES)
+def test_params_from_jax_carries_every_family_tree(arch):
+    """The reference's SMOKE tree of each non-dense family crosses leaf for
+    leaf (``meta``, ``beta_*``, ``ssd``, ``time``/``channel``,
+    ``enc_layers``/``dec_layers``, ``dec_pos``, ``cross_attn``, ``moe``);
+    a missing or an extra leaf is refused."""
+    jm = jreg.build_model(jreg.get_config(arch, smoke=True))
+    jp = jax.tree.map(np.asarray, jspec.init_params(jm.specs(), jax.random.key(3), jnp.float32))
+    tm = treg.build_model(treg.get_config(arch, smoke=True), device="cpu")
+    tp = params_from_jax(jp, tm.specs(), "cpu", torch.float32)
+    paths = [path for path, _ in tspec.spec_items(tm.specs())]
+    assert len(paths) == len(jax.tree.leaves(jp))
+    for path in paths:
+        want, got = jp, tp
+        for k in path:
+            want, got = want[k], got[k]
+        np.testing.assert_array_equal(got.numpy(), want)
+    names = {k for path in paths for k in path}
+    expect = {"qwen3-moe-30b-a3b": {"moe", "router"}, "phi3.5-moe-42b-a6.6b": {"moe"},
+              "rwkv6-1.6b": {"time", "channel", "u", "wA"},
+              "hymba-1.5b": {"meta", "beta_attn", "beta_ssd", "ssd", "a_log"},
+              "whisper-base": {"enc_layers", "dec_layers", "dec_pos", "cross_attn"}}[arch]
+    assert expect <= names
+    top = next(iter(jp))
+    with pytest.raises(KeyError):
+        params_from_jax({k: v for k, v in jp.items() if k != top}, tm.specs(), "cpu",
+                        torch.float32)
+    with pytest.raises(KeyError):
+        params_from_jax({**jp, "junk": np.zeros(1)}, tm.specs(), "cpu", torch.float32)
+
+
+def test_init_params_draws_a_large_leaf_by_slices(monkeypatch):
+    """A leaf of ``SLICED_DRAW_NUMEL`` values or more is drawn one leading
+    slice at a time straight into the destination dtype: right shape and
+    dtype, the init's std, the same tensor from the same seed; smaller
+    leaves keep the whole draw (their values do not change)."""
+    specs = {"big": tspec.P((6, 64, 48), ("layers", "embed", "mlp")),
+             "small": tspec.P((40, 24), ("embed", "mlp")),
+             "ones": tspec.P((8,), ("embed",), "ones")}
+    whole = tspec.init_params(specs, torch.Generator().manual_seed(5), "cpu", torch.bfloat16)
+    monkeypatch.setattr(tspec, "SLICED_DRAW_NUMEL", 6 * 64 * 48)
+    sliced = tspec.init_params(specs, torch.Generator().manual_seed(5), "cpu", torch.bfloat16)
+    again = tspec.init_params(specs, torch.Generator().manual_seed(5), "cpu", torch.bfloat16)
+    big = sliced["big"]
+    assert big.shape == (6, 64, 48) and big.dtype == torch.bfloat16
+    assert torch.equal(big, again["big"])
+    std = 1 / np.sqrt(64)  # fan-in scaling over the embed axis; truncation at 3 sigma
+    assert float(big.float().std()) == pytest.approx(std * 0.9866, rel=0.05)
+    assert float(big.float().abs().max()) <= 3 * std * 1.01
+    # every slice is a fresh draw
+    assert not torch.equal(big[0], big[1])
+    assert torch.equal(sliced["ones"], whole["ones"])
+    # a leaf under the threshold is drawn whole: its values are those of the whole draw
+    monkeypatch.setattr(tspec, "SLICED_DRAW_NUMEL", 10**9)
+    assert torch.equal(tspec.init_params(specs, torch.Generator().manual_seed(5), "cpu",
+                                         torch.bfloat16)["small"], whole["small"])
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "hymba-1.5b"])
+def test_engine_refuses_fused_attention_without_a_k10_route(arch):
+    from repro_torch.serving.engine import EngineConfig, ServingEngine
+
+    cfg = treg.get_config(arch, smoke=True)
+    model = treg.build_model(cfg, device="cpu")
+    assert not model.supports_fused_attention and not model.supports_paged_kv
+    params = tspec.init_params(model.specs(), torch.Generator().manual_seed(0), "cpu")
+    with pytest.raises(ValueError, match="no K10 route"):
+        ServingEngine(model, params, EngineConfig(codec="blockfloat8", attention="fused"))
+    eng = ServingEngine(model, params, EngineConfig(codec="blockfloat8", attention="auto"))
+    assert not eng._fused and eng._attention == "xla"
+    with pytest.raises(ValueError, match="supports_paged_kv"):
+        ServingEngine(model, params, EngineConfig(codec="blockfloat8", paged=True))
+
+
+@pytest.mark.parametrize("arch", NEW_FAMILIES)
+def test_serve_launcher_smoke_on_the_cpu(arch, capsys):
+    from repro_torch.launch import serve
+
+    assert serve.main(["--arch", arch, "--smoke", "--device", "cpu", "--codec", "blockfloat8",
+                       "--requests", "3", "--max-new", "4"]) == 0
+    out = capsys.readouterr().out
+    assert "3 requests, 12 tokens" in out and "attention=xla" in out
+    assert ("paged KV" in out) == (treg.get_config(arch).family == "moe")
 
 
 def test_registry_rejects_unknown_and_shapes():
