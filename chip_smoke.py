@@ -3,8 +3,8 @@
 path, Foresight, in-situ sharded compression, sharded snapshots with the
 compressed gradient hop, blockfloat8 serving, the multi-replica router
 under the serving fault drill, the trainer and its supervised fault drill,
-and the MoE, RWKV6, Hymba and enc-dec model families on one GPU and check
-every result.
+the MoE, RWKV6, Hymba and enc-dec model families, and the dry run's
+predictions on one GPU and check every result.
 
     python3 chip_smoke.py
 
@@ -250,8 +250,8 @@ Needs one CUDA card and ``nvcc``; it builds the hand-written kernels from
     reached; every rank holds the reference's values and the same state bit
     for bit, and the same drill's CPU group (started beside phases 2-15)
     gives the same transitions and step trace.  Each rank has a timeout.
-    Each of phases 22-28 prints its wall time; their kernel launches join
-    the line of 21 (25-26 launch none);
+    Each of phases 22-29 prints its wall time; their kernel launches join
+    the line of 21 (25-26 and 29 launch none);
 27. serves qwen3-moe-30b-a3b at its published widths and depth (48 layers,
     d_model 2048, heads 32/4, head dim 128, 128 experts top-8, d_ff 768 per
     expert, vocab 151,936: 30.5 B parameters, random bf16 weights drawn on
@@ -289,7 +289,24 @@ Needs one CUDA card and ``nvcc``; it builds the hand-written kernels from
     SMOKE size, the same bf16 parameters on the card and on the
     CPU: forward logits and every one of 8 blockfloat8 decode steps (K10
     where the model has the route, its plain version on the CPU) within 4
-    bf16 ulps of the CPU's largest |logit|.
+    bf16 ulps of the CPU's largest |logit|;
+29. holds the dry run (``repro_torch.launch.dryrun``) against the card.  For
+    each cell it traces the step on ``meta`` in this process with the dry
+    run's counters, then runs the same step on the card: ``empty_cache`` and
+    ``reset_peak_memory_stats`` first, a step under ``FlopCounterMode``,
+    then a timed one (ended by ``synchronize``).  Cells: (a) minicpm-2b's
+    train step at phase 23's 8 x 256 (one rank, f32 state, bf16 compute);
+    (b) one train step each of rwkv6-1.6b, hymba-1.5b and whisper-base at
+    their published widths and depths, 8 x 128 (the chunk loops' meta
+    traces cost host time per operation); (c) starcoder2-3b's decode step
+    at decode_32k's single-mesh card cell (8 rows, a 32768-position cache,
+    codec none); (d) the ``dryrun`` and ``costrun`` CLIs on one train,
+    prefill and decode cell each, into a scratch folder (every cell ``ok``;
+    the CLI's decode cell predicts (c)).  The meta FLOP count must equal
+    the card's and the predicted peak lie within ``DRYRUN_PEAK_TOL`` of
+    ``max_memory_allocated``; the card's ``total_memory`` must be
+    ``dryrun.DEVICE_MEMORY_BYTES``.  Prints both peaks, their ratio, the
+    FLOPs, the step ms and TFLOP/s.
 
 Any failure raises and exits non-zero; so does a machine without CUDA, and a
 directory without the rest of the repository.
@@ -321,6 +338,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 import torch.nn.functional as F
+from torch.utils.flop_counter import FlopCounterMode
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 sys.path.insert(0, str(Path(__file__).resolve().parent / "tools"))
@@ -348,6 +366,7 @@ from repro_torch.kernels import sz_fused as szf  # noqa: E402
 from repro_torch.kernels import zfp3d as k5  # noqa: E402
 from repro_torch.kernels import ref as kref  # noqa: E402
 from repro_torch.kernels import zfp_fused as zff  # noqa: E402
+from repro_torch.launch import costrun, dryrun  # noqa: E402
 from repro_torch.launch import train as launch_train_lib  # noqa: E402
 from repro_torch.launch.mesh import make_mesh  # noqa: E402
 from repro_torch.models import layers as model_layers  # noqa: E402
@@ -4049,6 +4068,178 @@ def other_families(device) -> dict:
     return {"kvc_decode_attention": k10 + families_card_vs_cpu(device)}
 
 
+# ------------------------------------- the dry run against the card (phase 29) -----
+
+DRYRUN_PEAK_TOL = 0.10  # |predicted / measured peak - 1| (PERF.md, written before the first run)
+# (arch, batch, length) of the train steps: (a) phase 23's shape; (b) the
+# other families, cut to a length whose meta trace fits the phase's time
+# (rwkv6's and hymba's Python chunk loops cost host time per operation)
+DRYRUN_TRAIN = (("minicpm-2b", TRAIN_BATCH, TRAIN_SEQ), ("rwkv6-1.6b", 8, 128),
+                ("hymba-1.5b", 8, 128), ("whisper-base", 8, 128))
+DRYRUN_DECODE = ("starcoder2-3b", "decode_32k")  # (c): its single-mesh card cell
+DRYRUN_ROWS = registry.SHAPES["decode_32k"].global_batch // dryrun.SINGLE_POD[0]  # 8
+DRYRUN_CLI = (("whisper-base", "train_4k"), ("whisper-base", "prefill_32k"),
+              ("starcoder2-3b", "decode_32k"))  # (d): one cell of each kind
+DRYRUN_DIR = SNAPSHOT_DIR.parent / ".chip_smoke_dryrun"  # gitignored; removed at the end
+
+
+def random_batch(cfg, shape, seed: int = SEED) -> dict:
+    """A host batch of ``input_specs``' shapes and dtypes: tokens and labels
+    uniform over the vocabulary, frames and prefixes standard normal."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    for k, v in registry.input_specs(cfg, shape).items():
+        if v.dtype == torch.int32:
+            out[k] = torch.from_numpy(rng.integers(0, cfg.vocab, size=v.shape, dtype=np.int32))
+        else:
+            out[k] = torch.from_numpy(rng.standard_normal(v.shape, dtype=np.float32)).to(v.dtype)
+    return out
+
+
+def free_card() -> int:
+    """Bytes still allocated once everything unreferenced is freed."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_allocated()
+
+
+def hold_prediction(label: str, pred: dict, trace_s: float, flops: float, held: int,
+                    ms: float) -> dict:
+    """Phase 29's check of one cell: the meta FLOPs equal the card's, the
+    predicted peak within ``DRYRUN_PEAK_TOL`` of the card's (both over what
+    was allocated before the cell's state)."""
+    peak = torch.cuda.max_memory_allocated() - held
+    ratio = pred["peak"] / peak
+    row = {"predicted_peak_bytes": pred["peak"], "measured_peak_bytes": peak,
+           "predicted_peak_gib": pred["peak"] / 2**30, "measured_peak_gib": peak / 2**30,
+           "ratio": ratio, "argument_gib": pred["argument_bytes"] / 2**30,
+           "flops_meta": pred["flops"], "flops_card": flops, "step_ms": ms,
+           "tflops_per_s": flops / ms / 1e9, "trace_s": trace_s}
+    print(f"dry run vs card, {label} ({card_line()}): " + json.dumps(row))
+    check(flops == pred["flops"], f"{label}: meta counts {pred['flops']} FLOPs, the card {flops}")
+    check(abs(ratio - 1) <= DRYRUN_PEAK_TOL,
+          f"{label}: predicted peak {pred['peak']} B against the card's {peak} B "
+          f"(ratio {ratio:.4f}, tolerance {DRYRUN_PEAK_TOL})")
+    return row
+
+
+def dryrun_train(arch: str, batch: int, seq: int, device) -> dict:
+    """Phase 29a/b: one train step (f32 state, the config's compute dtype,
+    one rank) predicted on meta, then run on the card twice: the first
+    under ``FlopCounterMode``, the second timed."""
+    cfg = registry.get_config(arch)
+    shape = registry.ShapeCell("phase29", seq, batch, "train")
+    t0 = time.perf_counter()
+    pred = dryrun.train_cost(registry.build_model(cfg, device="meta"), cfg, shape, None, 1, 1,
+                             param_dtype=torch.float32)
+    trace_s = time.perf_counter() - t0
+    model = registry.build_model(cfg)
+    scfg = step_lib.TrainStepConfig()
+    held = free_card()
+    state = step_lib.init_state(model, None, torch.Generator(device=device).manual_seed(SEED),
+                                scfg)
+    step = step_lib.build_train_step(model, None, scfg, extra_keys=dryrun.extra_keys(cfg))
+    host = random_batch(cfg, shape)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with FlopCounterMode(display=False) as counter:
+        state, m1 = step(state, host)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, m2 = step(state, host)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    losses = [float(m1["loss"]), float(m2["loss"])]
+    check(all(math.isfinite(v) for v in losses), f"{arch} train step losses {losses}")
+    row = hold_prediction(f"{arch} train {batch} x {seq}", pred, trace_s,
+                          float(counter.get_total_flops()), held, ms)
+    del state, step, m1, m2
+    free_card()
+    return dict(row, losses=losses)
+
+
+def dryrun_decode(device) -> dict:
+    """Phase 29c: starcoder2-3b's decode step at decode_32k's single-mesh
+    card cell (8 rows, a 32768-position cache, codec none), every lane at
+    the last position."""
+    arch, shape_name = DRYRUN_DECODE
+    cfg = registry.get_config(arch)
+    shape = dataclasses.replace(registry.SHAPES[shape_name], global_batch=DRYRUN_ROWS)
+    t0 = time.perf_counter()
+    pred = dryrun.decode_cost(registry.build_model(cfg, device="meta"), cfg, shape, None)
+    trace_s = time.perf_counter() - t0
+    model = registry.build_model(cfg)
+    codec = model_layers.KVCodecConfig("none")
+    held = free_card()
+    params = init_params(model.specs(), torch.Generator(device=device).manual_seed(SEED), device,
+                         torch.bfloat16)
+    cache = model.init_cache(DRYRUN_ROWS, shape.seq_len, codec)
+    token = torch.randint(0, cfg.vocab, (DRYRUN_ROWS,), dtype=torch.int32, device=device,
+                          generator=torch.Generator(device=device).manual_seed(SEED))
+    index = torch.full((DRYRUN_ROWS,), shape.seq_len - 1, dtype=torch.int32, device=device)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with FlopCounterMode(display=False) as counter:
+        logits, _ = model.decode_step(params, cache, token, index, codec, attention="xla")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    again, _ = model.decode_step(params, cache, token, index, codec, attention="xla")
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    check(tuple(logits.shape) == (DRYRUN_ROWS, cfg.padded_vocab)
+          and bool(torch.isfinite(logits).all()) and torch.equal(logits, again),
+          f"{arch} decode logits: shape {tuple(logits.shape)}, finite and repeatable")
+    row = hold_prediction(f"{arch} decode {DRYRUN_ROWS} rows x {shape.seq_len}", pred, trace_s,
+                          float(counter.get_total_flops()), held, ms)
+    del params, cache, logits, again
+    free_card()
+    return row
+
+
+def dryrun_clis(decode: dict) -> dict:
+    """Phase 29d: the dryrun and costrun CLIs on one cell of each kind into
+    a scratch folder; every cell ``ok``, and the CLI's decode cell predicts
+    29c's step (the same rows and cache)."""
+    out = {}
+    for arch, shape in DRYRUN_CLI:
+        for name, mod in (("dryrun", dryrun), ("costrun", costrun)):
+            t0 = time.perf_counter()
+            rc = mod.main(["--arch", arch, "--shape", shape, "--out", str(DRYRUN_DIR / name)])
+            cell = json.loads((DRYRUN_DIR / name / f"{arch}__{shape}__single.json").read_text())
+            check(rc == 0 and cell["status"] == "ok", f"{name} {arch} {shape}: rc {rc}, {cell}")
+            out[f"{name} {arch} {shape}"] = {
+                "wall_s": time.perf_counter() - t0, "flops_per_device": cell["flops_per_device"],
+                "peak_bytes": cell.get("peak_bytes_per_device"),
+                "fits_device": cell.get("fits_device"), "microbatches": cell.get("microbatches")}
+    cli = json.loads((DRYRUN_DIR / "dryrun" / f"{'__'.join(DRYRUN_DECODE)}__single.json"
+                      ).read_text())
+    check(cli["flops_per_device"] == decode["flops_meta"]
+          and cli["peak_bytes_per_device"] == decode["predicted_peak_bytes"],
+          f"the dryrun CLI's decode cell ({cli['flops_per_device']} FLOPs, "
+          f"{cli['peak_bytes_per_device']} B) is not 29c's prediction")
+    print("dryrun and costrun CLIs (one cell of each kind, single mesh): " + json.dumps(out))
+    return out
+
+
+def dryrun_vs_card(device) -> dict:
+    """Phase 29: the dry run against the card (module docstring)."""
+    check(torch.cuda.get_device_properties(0).total_memory == dryrun.DEVICE_MEMORY_BYTES,
+          f"the card's total_memory {torch.cuda.get_device_properties(0).total_memory} is not "
+          f"dryrun.DEVICE_MEMORY_BYTES {dryrun.DEVICE_MEMORY_BYTES}")
+    kernels.reset_launch_counts()
+    try:
+        for arch, batch, seq in DRYRUN_TRAIN:
+            dryrun_train(arch, batch, seq, device)
+        dryrun_clis(dryrun_decode(device))
+    finally:
+        shutil.rmtree(DRYRUN_DIR, ignore_errors=True)
+    launched = {k: v for k, v in kernels.launch_counts().items() if v}
+    check(not launched, f"phase 29 launched kernels: {launched} (no kernel is on its path)")
+    return {}
+
+
 def run(device) -> dict:
     t0 = time.perf_counter()
     logs = _build.build(verbose=True)
@@ -4137,7 +4328,8 @@ def run(device) -> dict:
                       ("27 qwen3-moe-30b-a3b at its published size", lambda: moe_full_width(
                           device)),
                       ("28 rwkv6, hymba, whisper and the new families card vs CPU",
-                       lambda: other_families(device))):
+                       lambda: other_families(device)),
+                      ("29 the dry run against the card", lambda: dryrun_vs_card(device))):
         t0 = time.perf_counter()
         for k, v in fn().items():
             launches[k] = launches.get(k, 0) + v
@@ -4196,6 +4388,7 @@ def main() -> int:
         shutil.rmtree(SHARDED_DIR, ignore_errors=True)
         shutil.rmtree(TRAIN_DIR, ignore_errors=True)
         shutil.rmtree(DRILL_DIR, ignore_errors=True)
+        shutil.rmtree(DRYRUN_DIR, ignore_errors=True)
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps(report))
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,14 +4,20 @@ the shape cells (the port of ``repro.configs.registry``).
 Every arch's config resolves and :func:`build_model` builds every family:
 ``DenseLM`` (``dense``, ``vlm``), ``MoELM`` (``moe``), ``RWKV6LM``
 (``ssm``), ``HymbaLM`` (``hybrid``) and ``EncDecLM`` (``audio``,
-``encdec``).  The reference's ``input_specs`` and ``supports`` serve its
-compile-only dry run and wait for it (ROADMAP Queue 1, "The cost sweep").
+``encdec``), on the card, the CPU or the abstract ``meta`` device.
+:func:`supports` says which (arch, shape) cells run, with the reference's
+reasons, and :func:`input_specs` gives a cell's inputs as ``meta`` tensors
+(the reference's ``ShapeDtypeStruct`` stand-ins) for the cost sweep
+(:mod:`repro_torch.launch.dryrun`, :mod:`repro_torch.launch.costrun`).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import importlib
+from typing import Optional
+
+import torch
 
 from repro_torch.models.config import ArchConfig
 
@@ -46,6 +52,10 @@ SHAPES = {
     "long_500k": ShapeCell("long_500k", 524_288, 1, "decode"),
 }
 
+# long-context decode needs sub-quadratic attention: run only for
+# SSM / hybrid archs; full-attention archs skip (DESIGN.md §5).
+_SUBQUADRATIC_FAMILIES = {"ssm", "hybrid"}
+
 
 def get_config(arch: str, smoke: bool = False) -> ArchConfig:
     if arch not in _MODULES:
@@ -55,7 +65,8 @@ def get_config(arch: str, smoke: bool = False) -> ArchConfig:
 
 
 def build_model(cfg: ArchConfig, device=None):
-    """The model of ``cfg``'s family on ``device`` (CUDA unless ``"cpu"``)."""
+    """The model of ``cfg``'s family on ``device`` (CUDA unless ``"cpu"`` or
+    ``"meta"``)."""
     if cfg.family in ("dense", "vlm"):
         from repro_torch.models.transformer import DenseLM
 
@@ -77,3 +88,34 @@ def build_model(cfg: ArchConfig, device=None):
 
         return EncDecLM(cfg, device=device)
     raise ValueError(f"unknown family {cfg.family}")
+
+
+def supports(cfg: ArchConfig, shape: ShapeCell) -> tuple[bool, str]:
+    """Whether this (arch, shape) cell is runnable; else the documented skip."""
+    if shape.name == "long_500k" and shape.kind == "decode":
+        if cfg.family not in _SUBQUADRATIC_FAMILIES:
+            return False, "full-attention arch: 500k decode needs sub-quadratic attention (DESIGN.md §5)"
+    return True, ""
+
+
+def _spec(shape: tuple, dtype: torch.dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def input_specs(cfg: ArchConfig, shape: ShapeCell,
+                batch_override: Optional[int] = None) -> dict[str, torch.Tensor]:
+    """``meta`` stand-ins (shape and dtype, no data) for every model input
+    of this cell; ``batch_override`` replaces the cell's global batch."""
+    b = batch_override or shape.global_batch
+    s = shape.seq_len
+    if shape.kind in ("train", "prefill"):
+        specs = {"tokens": _spec((b, s), torch.int32)}
+        if shape.kind == "train":
+            specs["labels"] = _spec((b, s), torch.int32)
+        if cfg.family == "vlm":
+            specs["prefix"] = _spec((b, cfg.prefix_len, cfg.d_model), torch.bfloat16)
+        if cfg.family == "audio":
+            specs["frames"] = _spec((b, cfg.encoder_len, cfg.d_model), torch.bfloat16)
+        return specs
+    # decode: one new token against a cache of seq_len
+    return {"token": _spec((b,), torch.int32), "index": _spec((), torch.int32)}

@@ -2,7 +2,8 @@
 (the port of ``repro.models.spec``).
 
 Models declare a nested dict of ``P`` leaves; :func:`init_params`
-materializes tensors from an explicit ``torch.Generator`` on a given device.
+materializes tensors from an explicit ``torch.Generator`` on a given device,
+and :func:`empty_params` gives the shapes without data (the ``meta`` device).
 The draws are truncated normals with the reference's per-init standard
 deviation, not the reference's bits (``jax.random`` and ``torch`` give
 different numbers from one seed); tests that compare the two packages carry
@@ -107,6 +108,12 @@ def init_params(specs: Any, generator: torch.Generator, device=None,
             node = node.setdefault(k, {})
         node[path[-1]] = _init_leaf(p, generator, device, dtype)
     return out
+
+
+def empty_params(specs: Any, device, dtype: torch.dtype = torch.float32) -> Any:
+    """``specs`` as uninitialised tensors on ``device``: on ``"meta"``, the
+    parameters of the cost sweep (shapes and dtypes, no data, no draw)."""
+    return map_specs(lambda p: torch.empty(p.shape, dtype=dtype, device=device), specs)
 
 
 def param_count(specs: Any) -> int:

@@ -126,6 +126,15 @@ def init_state(model, mesh=None, generator: Optional[torch.Generator] = None,
     return state
 
 
+def empty_state(model, mesh=None, step_cfg: TrainStepConfig = TrainStepConfig()) -> dict:
+    """The state of :func:`make_state_specs` as uninitialised tensors on the
+    model's device: on ``meta``, the cost sweep's state (no data, no draw)."""
+    state_abs, _ = make_state_specs(model, mesh, step_cfg)
+    leaves, treedef = tree_util.tree_flatten(state_abs)
+    return tree_util.tree_unflatten(treedef, [
+        torch.empty(s.shape, dtype=s.dtype, device=model.device) for s in leaves])
+
+
 def _schedule(step_cfg: TrainStepConfig):
     fn = schedules.SCHEDULES[step_cfg.schedule]
     return functools.partial(fn, peak_lr=step_cfg.peak_lr, warmup_steps=step_cfg.warmup_steps,
@@ -148,7 +157,12 @@ def build_train_step(model, mesh=None, step_cfg: TrainStepConfig = TrainStepConf
     batch (numpy arrays or tensors, leading dim the batch), of which this
     rank uses its rows.  extra_keys: additional batch entries (prefix /
     frames) fed to loss.  Metrics: ``loss`` (the global mean), ``lr`` and
-    ``grad_norm``, float32 scalars on the model's device."""
+    ``grad_norm``, float32 scalars on the model's device.
+
+    ``step(state, batch, trace_microbatches=n)`` runs only the first ``n``
+    of the ``microbatches`` iterations, then the rest of the step: a cost
+    trace (:mod:`repro_torch.launch.dryrun`), since every iteration runs the
+    same operations; its update is not the step's."""
     sizes = _sizes(mesh)
     for axis, n in sizes.items():
         if axis not in ("pod", "data") and n > 1:
@@ -187,13 +201,13 @@ def build_train_step(model, mesh=None, step_cfg: TrainStepConfig = TrainStepConf
         grads = torch.autograd.grad(loss, req)
         return loss.detach(), list(grads)
 
-    def grads_of(leaves, treedef, micro):
+    def grads_of(leaves, treedef, micro, runs):
         if k == 1:
             return loss_grads(leaves, treedef, {key: v[0] for key, v in micro.items()})
         # gradient accumulation: k microbatches, float32 accumulator
         loss = torch.zeros((), dtype=torch.float32, device=device)
         acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device) for p in leaves]
-        for i in range(k):
+        for i in range(runs):
             l, g = loss_grads(leaves, treedef, {key: v[i] for key, v in micro.items()})
             loss = loss + l
             for a, gi in zip(acc, g):
@@ -202,11 +216,13 @@ def build_train_step(model, mesh=None, step_cfg: TrainStepConfig = TrainStepConf
         kk = torch.full((), float(k), dtype=torch.float32, device=device)
         return loss / kk, [a / kk for a in acc]
 
-    def train_step(state: dict, batch) -> tuple[dict, dict]:
+    def train_step(state: dict, batch, *, trace_microbatches: Optional[int] = None
+                   ) -> tuple[dict, dict]:
         params = state["params"]
         leaves, treedef = tree_util.tree_flatten(params)
         leaves = [_local(p) for p in leaves]
-        loss, grads = grads_of(leaves, treedef, local_batch(batch))
+        runs = k if trace_microbatches is None else min(max(1, trace_microbatches), k)
+        loss, grads = grads_of(leaves, treedef, local_batch(batch), runs)
         if n_data > 1:
             grads = [_mean_over(g, mesh, "data") for g in grads]
             loss = _mean_over(loss, mesh, "data")

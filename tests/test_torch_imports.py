@@ -42,7 +42,8 @@ def test_the_walk_sees_the_port():
                    "serving/faults.py", "optim/adamw.py", "optim/schedules.py",
                    "data/tokens.py", "train/step.py", "train/loop.py", "train/elastic.py",
                    "train/faults.py", "train/supervisor.py", "models/moe.py",
-                   "models/rwkv6.py", "models/hybrid.py", "models/encdec.py"):
+                   "models/rwkv6.py", "models/hybrid.py", "models/encdec.py",
+                   "launch/dryrun.py", "launch/costrun.py"):
         assert f"src/repro_torch/{module}" in names, module
     for example in ("torch_quickstart.py", "torch_foresight_workflow.py",
                     "torch_serve_batched.py", "torch_train_lm_compressed.py"):
