@@ -241,16 +241,19 @@ Needs one CUDA card and ``nvcc``; it builds the hand-written kernels from
     (``shrink-restore``), the grow-back fires at step 6, every loss is
     finite and no kernel launches.  Prints step, snapshot dispatch, quiesce,
     restore and grow-back ms (trace spans) and peak memory;
-26. runs the reference's ``test_fault_drill_8dev`` plan on 4 ``gloo`` ranks
-    (this script with ``--drill-rank``) on cuda:0 at minicpm-2b SMOKE: its
-    ``{"pod": 2, "data": 2, "model": 2}`` mesh without the model axis, which
-    the port's data-parallel trainer refuses above 1.  Pod loss at step 9,
-    the truncated step-8 snapshot quarantined, step 4 restored onto
-    ``{"pod": 1, "data": 2}`` (ranks 2-3 wait), grow-back at step 8, step 18
-    reached; every rank holds the reference's values and the same state bit
+26. runs the reference's ``test_fault_drill_8dev`` plan on 8 ``gloo`` ranks
+    (this script with ``--drill-rank``) on cuda:0 at minicpm-2b SMOKE, at
+    its ``{"pod": 2, "data": 2, "model": 2}`` mesh with the state sharded as
+    the reference's (FSDP over ``data``, tensor and expert axes over
+    ``model``).  Pod loss at step 9, the truncated step-8 snapshot
+    quarantined, step 4 restored onto ``{"pod": 1, "data": 2, "model": 2}``
+    (ranks 4-7 wait), grow-back at step 8 (each rejoining rank gets the
+    blocks of the pod-0 rank at its (data, model) coordinate), step 18
+    reached; every rank holds the reference's values and the same losses,
+    the two ranks at each (data, model) coordinate hold the same blocks bit
     for bit, and the same drill's CPU group (started beside phases 2-15)
     gives the same transitions and step trace.  Each rank has a timeout.
-    Each of phases 22-29 prints its wall time; their kernel launches join
+    Each of phases 22-30 prints its wall time; their kernel launches join
     the line of 21 (25-26 and 29 launch none);
 27. serves qwen3-moe-30b-a3b at its published widths and depth (48 layers,
     d_model 2048, heads 32/4, head dim 128, 128 experts top-8, d_ff 768 per
@@ -306,7 +309,27 @@ Needs one CUDA card and ``nvcc``; it builds the hand-written kernels from
     the card's and the predicted peak lie within ``DRYRUN_PEAK_TOL`` of
     ``max_memory_allocated``; the card's ``total_memory`` must be
     ``dryrun.DEVICE_MEMORY_BYTES``.  Prints both peaks, their ratio, the
-    FLOPs, the step ms and TFLOP/s.
+    FLOPs, the step ms and TFLOP/s;
+30. takes phi3.5-moe-42b-a6.6b's sharded train step (the reference's FSDP
+    over ``data``, tensor and expert axes over ``model``) at its published
+    widths cut to 1 layer (1.56 B parameters; f32 state and compute, TF32
+    off) on 4 ``gloo`` ranks on cuda:0 as ``{"data": 2, "model": 2}``
+    (this script with ``--step-rank``), 3 steps of 8 x 256 tokens at lr
+    1e-3, then the same steps on one replicated rank once the others have
+    freed the card; that rank receives every block over gloo.  Held:
+    each rank's local leaf shapes equal its specs; losses equal on the four
+    ranks; the steps at the initial parameters within ``STEP_TOL`` of the
+    replicated run's, the state after the first update element by element
+    (at most ``STEP_SHARE`` outside), later losses and the final
+    parameters within the AdamW bounds (``STEP_TOL``'s comment says why);
+    rank 0's peak within ``DRYRUN_PEAK_TOL`` of the dry run's prediction
+    for the same mesh (a fake 4-rank group on ``meta``) and its
+    ``FlopCounterMode`` count equal to the trace's.  One in-situ snapshot
+    of the params through ``build_insitu_hook``, restored with
+    ``restore(shardings=)``: coded leaves within the bound, every leaf of 1
+    MiB or more coded or named once as skipped, the small leaves saved raw
+    and restored bitwise.  Prints the bytes each rank sent, step ms, peaks
+    and the kernel launches (none on this path).
 
 Any failure raises and exits non-zero; so does a machine without CUDA, and a
 directory without the rest of the repository.
@@ -318,6 +341,7 @@ import contextlib
 import dataclasses
 import gc
 import importlib.util
+import io
 import json
 import math
 import multiprocessing
@@ -356,7 +380,7 @@ from repro_torch.core import zfp as zfp_core  # noqa: E402
 from repro_torch.core.api import get_compressor  # noqa: E402
 from repro_torch.data import cosmo, kvc_cases, sz_cases, zfp_cases  # noqa: E402
 from repro_torch.data.tokens import DataConfig, TokenPipeline  # noqa: E402
-from repro_torch.dist import insitu, sharding  # noqa: E402
+from repro_torch.dist import insitu, sharding, spmd  # noqa: E402
 from repro_torch.dist.collectives import GradCompressionConfig  # noqa: E402
 from repro_torch.foresight import cbench, cinema, guideline  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
@@ -3329,8 +3353,8 @@ def wait_train(procs: list) -> None:
 DRILL_DIR = SNAPSHOT_DIR.parent / ".chip_smoke_drill"  # gitignored; removed at the end
 # phase 25: FaultPlan.drill(0, 8, 2) loses its pod at step 6, after the second snapshot
 DRILL_STEPS, DRILL_EVERY, DRILL_GROW = 8, 2, 2
-DRILL_RANKS = 4  # phase 26: the reference's 8-device drill without its model axis
-DRILL_SHAPE = {"pod": 2, "data": 2}
+DRILL_RANKS = 8  # phase 26: the reference's 8-device drill at its mesh
+DRILL_SHAPE = {"pod": 2, "data": 2, "model": 2}
 DRILL_SPANS = ("train.step", "snapshot.dispatch", "supervisor.quiesce", "supervisor.restore",
                "supervisor.grow_back")
 
@@ -3481,10 +3505,13 @@ def drill_worker(argv: list[str]) -> int:
             injector=inj, log=print if rank == 0 else (lambda s: None))
         ckpt_mgr.wait()
         wall = time.perf_counter() - t0
-        digests = [hashlib.sha256(x.detach().reshape(-1).view(torch.uint8).cpu().numpy()
-                                  .tobytes()).hexdigest()
-                   for x in tree_util.tree_flatten(state)[0]]
+        leaves = tree_util.tree_flatten(state)[0]
+        digests = [hashlib.sha256(sharding.local(x).detach().reshape(-1).view(torch.uint8).cpu()
+                                  .numpy().tobytes()).hexdigest() for x in leaves]
         result = {"final_step": res.final_step, "log": inj.log, "wall_s": wall,
+                  "split": sum(sharding.is_dtensor(x) for x in leaves),
+                  "meshes": sorted({tuple(x.device_mesh.shape) for x in leaves
+                                    if sharding.is_dtensor(x)}),
                   "transitions": [dataclasses.asdict(t) for t in res.transitions],
                   "loss_trace": res.loss_trace, "continuity": res.continuity,
                   "digests": digests, "spans_ms": span_ms(),
@@ -3516,7 +3543,8 @@ def drill_results(procs: list, dev: str) -> list:
 
 def hold_drill_group(runs: list, dev: str) -> None:
     """The reference's expected values of ``test_fault_drill_8dev`` on every
-    rank, and bitwise-equal state on all of them."""
+    rank, the same losses on all of them, and bitwise-equal blocks on the two
+    ranks (one per pod) at each (data, model) coordinate."""
     for r, run in enumerate(runs):
         check(run["final_step"] == 18, f"{dev} rank {r}: final step {run['final_step']}")
         check(run["log"] == [(5, "drain_io"), (9, "corrupt_payload"), (9, "pod_loss")],
@@ -3524,7 +3552,8 @@ def hold_drill_group(runs: list, dev: str) -> None:
         shrink, grow = run["transitions"]
         check(shrink["kind"] == "shrink" and shrink["at_step"] == 9
               and shrink["restored_step"] == 4 and shrink["quarantined"] == 1
-              and shrink["mesh_shape"] == {"pod": 1, "data": 2} and shrink["global_batch"] == 8,
+              and shrink["mesh_shape"] == {"pod": 1, "data": 2, "model": 2}
+              and shrink["global_batch"] == 8,
               f"{dev} rank {r}: shrink {shrink}")
         check(grow["kind"] == "grow" and grow["at_step"] == 8 and grow["mesh_shape"] == DRILL_SHAPE,
               f"{dev} rank {r}: grow {grow}")
@@ -3533,14 +3562,18 @@ def hold_drill_group(runs: list, dev: str) -> None:
         check(all(math.isfinite(v) for _, v in run["loss_trace"])
               and [s for s, _ in run["loss_trace"]] == list(range(9)) + list(range(4, 18)),
               f"{dev} rank {r}: step trace {run['loss_trace']}")
-        check(run["digests"] == runs[0]["digests"], f"{dev} rank {r}: state differs from rank 0's")
+        check(run["split"] > 0 and run["meshes"] == [(2, 2, 2)],
+              f"{dev} rank {r}: {run['split']} split leaves on meshes {run['meshes']}")
+        check(run["loss_trace"] == runs[0]["loss_trace"], f"{dev} rank {r}: other losses")
+        check(run["digests"] == runs[r % 4]["digests"],
+              f"{dev} rank {r}: blocks differ from pod 0's at its (data, model) coordinate")
         check(not run["launches"], f"{dev} rank {r} launched {run['launches']}")
     check(runs[0]["quarantined"] == ["step_000000008"],
           f"{dev}: quarantine holds {runs[0]['quarantined']}")
 
 
 def drill_phase(cpu_group: list) -> dict:
-    """Phase 26: the shrink and grow-back drill on 4 gloo ranks on the card,
+    """Phase 26: the shrink and grow-back drill on 8 gloo ranks on the card,
     held to the reference's values and to the same drill's CPU group."""
     card = drill_results(drill_start("cuda"), "cuda")
     hold_drill_group(card, "cuda")
@@ -3555,7 +3588,7 @@ def drill_phase(cpu_group: list) -> dict:
            "wall_s": [r["wall_s"] for r in card], "cpu_wall_s": [r["wall_s"] for r in cpu],
            "rank0_spans_ms": {k: v for k, v in card[0]["spans_ms"].items() if k != "train.step"},
            "rank0_step_ms": card[0]["spans_ms"].get("train.step"),
-           "rank2_spans_ms": {k: v for k, v in card[2]["spans_ms"].items() if k != "train.step"}}
+           "rank4_spans_ms": {k: v for k, v in card[4]["spans_ms"].items() if k != "train.step"}}
     print(f"supervised drill, {DRILL_RANKS} gloo ranks ({card_line()}): " + json.dumps(out))
     return {}
 
@@ -4240,6 +4273,418 @@ def dryrun_vs_card(device) -> dict:
     return {}
 
 
+# ------------------------------ phi3.5-moe's sharded train step (phase 30) -----
+
+STEP_DIR = SNAPSHOT_DIR.parent / ".chip_smoke_sharded_step"  # gitignored; removed at the end
+# published widths, depth cut to 1 layer: at 2 layers a step took 47.5-49.3 s
+# (gloo through the host), too long for this script's time limit
+STEP_ARCH, STEP_LAYERS = "phi3.5-moe-42b-a6.6b", 1
+STEP_MESH = {"data": 2, "model": 2}  # 4 gloo ranks on cuda:0; a fifth runs the replicated step
+STEP_BATCH, STEP_SEQ, STEP_STEPS, STEP_LR = 8, 256, 3, 1e-3
+STEP_EB = 1e-3  # the in-situ snapshot's absolute bound
+STEP_MIN_BYTES = 1 << 20  # leaves below this stay out of the snapshot and are saved raw
+# the sharded run against the replicated one (the CPU twin's, the loss widened
+# for 4096-wide contractions): losses and gradient norms of the steps taken at
+# the initial parameters (the schedule's rate is 0 at step 0), and each element
+# of params, m and v after the first update
+STEP_TOL = {"loss_rtol": 1e-5, "param_atol": 1e-5, "mv_rtol": 1e-2, "norm_rtol": 1e-5}
+# An element's AdamW step is lr * m/sqrt(v): where its gradient is at rounding
+# level, the two runs' rounding picks its sign, so after the first update it
+# may lie up to 2 lr from the other run's; a wrong block or a missing
+# reduction moves whole blocks.  So the state after the first update is held
+# element by element with at most this share outside the tolerances (and
+# every parameter within 2 lr of the other run's).  Once parameters differ,
+# near-tied MoE routes flip and the runs part (a chaotic map, not a fault):
+# the later steps' losses are held within this rtol, every final parameter
+# within 2 lr per update, and the final shares and norms are printed
+STEP_SHARE, STEP_LATE_LOSS_RTOL = 1e-4, 1e-4
+# A moment element near zero carries its gradient's rounding, which scales
+# with the leaf's largest terms, not with the element: the moments' atol is
+# this fraction of the leaf's largest magnitude (float32 sums of ~10^3 terms).
+# A first moment also cancels where two steps' gradients have opposite signs,
+# and AdamW divides it by sqrt(v): m is held on the scale |m| + sqrt(v), what
+# its error moves the update by
+STEP_MOMENT_FLOOR = 1e-6
+STEP_RANKS = math.prod(STEP_MESH.values())
+
+
+def step_cfg():
+    cfg = registry.get_config(STEP_ARCH).scaled(n_layers=STEP_LAYERS, dtype="float32")
+    scfg = step_lib.TrainStepConfig(peak_lr=STEP_LR, warmup_steps=1, total_steps=10)
+    return cfg, scfg
+
+
+def step_batches(cfg) -> list:
+    pipe = TokenPipeline(DataConfig(vocab=cfg.vocab, seq_len=STEP_SEQ, global_batch=STEP_BATCH,
+                                    seed=SEED))
+    return [pipe.batch_at(i) for i in range(STEP_STEPS)]
+
+
+def step_prediction() -> dict:
+    """The dry run's counters for one sharded step on rank 0 of the same
+    mesh: a fake process group of ``STEP_RANKS``, the state and the step on
+    ``meta``."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore  # registers "fake"
+
+    cfg, scfg = step_cfg()
+    t0 = time.perf_counter()
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=STEP_RANKS)
+    try:
+        mesh = init_device_mesh("cpu", tuple(STEP_MESH.values()),
+                                mesh_dim_names=tuple(STEP_MESH))
+        model = registry.build_model(cfg, device="meta")
+        state = step_lib.empty_state(model, mesh, scfg)
+        step = step_lib.build_train_step(model, mesh, scfg)
+        batch = dryrun.host_batch({k: model_layers.TensorSpec((STEP_BATCH, STEP_SEQ), torch.int32)
+                                   for k in ("tokens", "labels")})
+        pred = dryrun.measure(lambda: step(state, batch), state)
+    finally:
+        dist.destroy_process_group()
+    pred["trace_s"] = time.perf_counter() - t0
+    return pred
+
+
+def step_start(port: int) -> list:
+    """Phase 30's group: ``STEP_RANKS`` sharded ranks and one replicated
+    rank, each this script with ``--step-rank``, all on cuda:0."""
+    STEP_DIR.mkdir(parents=True, exist_ok=True)
+    procs = []
+    for rank in range(STEP_RANKS + 1):
+        log = open(STEP_DIR / f"r{rank}.log", "w")
+        procs.append(subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--step-rank", str(rank),
+             str(STEP_RANKS + 1), str(port), str(STEP_DIR)], stdout=log,
+            stderr=subprocess.STDOUT))
+    CHILD_PROCS.extend(procs)
+    return procs
+
+
+def _timed_steps(step, state, batches, after=None) -> tuple:
+    """Run the steps: the first under ``FlopCounterMode`` with the peak
+    counted from its start, the others timed (each ended by a
+    ``synchronize``).  ``after(state)`` runs once, untimed, after the first
+    step whose rate is above 0 (the first update).  Returns the state and a
+    record: losses, gradient norms, rates, FLOPs and peak of the first step,
+    ms of the others and the bytes this rank sent in the second."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    rec = {"losses": [], "norms": [], "lrs": [], "ms": [], "sent": {}}
+
+    def keep(m):
+        rec["losses"].append(float(m["loss"]))
+        rec["norms"].append(float(m["grad_norm"]))
+        rec["lrs"].append(float(m["lr"]))
+
+    with FlopCounterMode(display=False) as counter:
+        state, m = step(state, batches[0])
+    keep(m)
+    rec["flops"], rec["peak"] = float(counter.get_total_flops()), torch.cuda.max_memory_allocated()
+    for i, b in enumerate(batches[1:]):
+        spmd.reset_sent_bytes()
+        insitu.reset_sent_bytes()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, b)
+        keep(m)
+        rec["ms"].append((time.perf_counter() - t0) * 1e3)
+        if i == 0:
+            rec["sent"] = {**{f"step {k}": v for k, v in spmd.sent_bytes.items()},
+                           **{f"loss {k}": v for k, v in insitu.sent_bytes.items() if v}}
+        if after is not None and rec["lrs"][-1] > 0 and not any(rec["lrs"][:-1]):
+            after(state)  # the first update (the rate is 0 at step 0)
+    return state, rec
+
+
+def _snapshot_and_restore(state, mesh, group, out: Path) -> dict:
+    """One in-situ snapshot of the params through ``build_insitu_hook``,
+    restored with ``restore(shardings=)`` onto the same mesh: lossy leaves
+    within the bound, and every leaf of ``STEP_MIN_BYTES`` or more coded or
+    named once as skipped (split over both axes, most leaves fit neither a
+    flat arena nor the K8 tile buckets; the per-leaf path codes 1- to 3-D
+    fields, with ``core`` SZ where the kernel backend wants 3-D ones); the
+    leaves below ``STEP_MIN_BYTES`` saved raw by a manager and restored the
+    same way, bitwise."""
+    params = state["params"]
+    named = dict(tree_util.tree_flatten_with_path({"params": params})[0])
+    spec = lambda x: sharding.spec_of(x) if sharding.is_dtensor(x) else ()  # noqa: E731
+    big = {k: v for k, v in named.items() if v.numel() * v.element_size() >= STEP_MIN_BYTES}
+    hook = launch_train_lib.build_insitu_hook(mesh, str(out / "snap"), STEP_EB,
+                                              min_bytes=STEP_MIN_BYTES, overlap=False)
+    kernels.reset_launch_counts()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        hook(STEP_STEPS, {"params": params})
+        hook.wait()
+    snap_s = time.perf_counter() - t0
+    launches = {k: v for k, v in kernels.launch_counts().items() if v}
+    dist.barrier(group)  # the first rank's files are on disk
+    # the snapshot's layout: the hook's plan, less the leaves it says it skips
+    entries = [(k, tuple(v.shape), v.dtype, spec(v)) for k, v in big.items()]
+    kb, rest = insitu.plan_kernel_buckets(entries, mesh)
+    fb, skipped = insitu.plan_arena(rest, mesh)
+    log = buf.getvalue()
+    refused = [k for k, _ in skipped if f"skipping {k}:" in log]
+    print(log, flush=True)
+    like = {f"karena{i:03d}": dict.fromkeys(b.names, 0) for i, b in enumerate(kb)}
+    like.update({f"arena{i:03d}": dict.fromkeys(b.names, 0) for i, b in enumerate(fb)})
+    like.update({k: 0 for k, _ in skipped if k not in refused})
+    to = lambda k: sharding.NamedSharding(mesh, spec(big[k]))  # noqa: E731
+    t0 = time.perf_counter()
+    got, _ = hook.manager.restore(STEP_STEPS, state_like=like, shardings={
+        f: ({n: to(n) for n in v} if isinstance(v, dict) else to(f)) for f, v in like.items()})
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    lossy, worst = 0, 0.0
+    for key, field in got.items():
+        for name, block in (field.items() if isinstance(field, dict) else [(key, field)]):
+            err = float((block.to_local().float() - sharding.local(big[name]).float()).abs().max())
+            check(err <= STEP_EB * (1 + 1e-5), f"snapshot leaf {name}: error {err} > {STEP_EB}")
+            lossy, worst = lossy + 1, max(worst, err)
+    check(lossy + len(refused) == len(big),
+          f"snapshot: {lossy} leaves coded and {len(refused)} named as skipped of {len(big)}")
+    # the small leaves, raw
+    small = {k: v for k, v in named.items() if v.numel() * v.element_size() < STEP_MIN_BYTES}
+    raw = ckpt.CheckpointManager(out / "raw", async_save=False, device="cuda",
+                                 group=dist.new_group(ranks=list(range(STEP_RANKS)),
+                                                      backend="gloo"))
+    raw.save(STEP_STEPS, small)
+    dist.barrier(group)
+    shard = {k: sharding.NamedSharding(mesh, sharding.spec_of(v) if sharding.is_dtensor(v)
+                                       else ()) for k, v in small.items()}
+    back, _ = raw.restore(STEP_STEPS, state_like=small, shardings=shard)
+    for k, v in small.items():
+        check(torch.equal(back[k].to_local().to(v.device), sharding.local(v)),
+              f"raw leaf {k} did not restore bitwise")
+    return {"lossy_leaves": lossy, "lossy_max_err": worst, "raw_leaves": len(small),
+            "skipped_leaves": refused, "snapshot_leaves": len(big),
+            "snapshot_s": snap_s, "restore_s": restore_s, "launches": launches}
+
+
+def _compare_blocks(state, parts, shards, mesh) -> dict:
+    """The replicated rank's side of a comparison: every sharded rank's
+    block of each ``parts`` leaf, received over gloo in rank order, against
+    the same slice of ``state``.  Per kind (params, m, v): the largest
+    difference (absolute for params, relative for the moments), how many
+    elements lie outside ``STEP_TOL`` (the moments' rtol on the scales of
+    ``STEP_MOMENT_FLOOR``), how many lie outside the plain rtol, how many
+    were compared, and the leaf with the most outside."""
+    pairs = tree_util.tree_flatten_with_path(state)[0]
+    flat = [x for _, x in pairs]
+    index = {p: j for j, (p, _) in enumerate(pairs)}
+    out = {k: {"worst": 0.0, "over": 0, "over_plain": 0, "count": 0, "leaf": None,
+               "leaf_over": 0} for k in ("params", "m", "v")}
+    axes = list(STEP_MESH)
+    for i, (path, s) in parts:
+        kind = ("params" if path.startswith("['params']")
+                else "m" if path.startswith("['opt']['m']") else "v")
+        shape = sharding.local_shape(s.shape, shards[i].spec, mesh)
+        spec = tuple(shards[i].spec) + (None,) * (len(shape) - len(shards[i].spec))
+        floor = STEP_MOMENT_FLOOR * float(flat[i].abs().max()) if flat[i].numel() else 0.0
+        v_leaf = flat[index[path.replace("['m']", "['v']", 1)]] if kind == "m" else None
+        leaf_over = 0
+        for r in range(STEP_RANKS):
+            coord = np.unravel_index(r, tuple(STEP_MESH.values()))
+            buf = torch.empty(shape, dtype=s.dtype)
+            dist.recv(buf, src=r)
+            block = tuple(slice(0 if e is None else coord[axes.index(e)] * n,
+                                (0 if e is None else coord[axes.index(e)] * n) + n)
+                          for e, n in zip(spec, shape))
+            want = flat[i][block]
+            d = (buf.to(want.device) - want).abs()
+            if kind == "params":
+                err, outside = d.max(), d > STEP_TOL["param_atol"]
+                plain = outside
+            else:
+                err = (d / want.abs().clamp_min(1e-30)).max()
+                plain = d > STEP_TOL["mv_rtol"] * want.abs()
+                scale = want.abs() if v_leaf is None else want.abs() + v_leaf[block].sqrt()
+                outside = d > STEP_TOL["mv_rtol"] * scale + floor
+            o = out[kind]
+            o["over_plain"] += int(plain.sum())
+            o["worst"] = max(o["worst"], float(err) if d.numel() else 0.0)
+            o["over"] += int(outside.sum())
+            o["count"] += d.numel()
+            leaf_over += int(outside.sum())
+        if leaf_over > out[kind]["leaf_over"]:
+            out[kind]["leaf"], out[kind]["leaf_over"] = path, leaf_over
+    return out
+
+
+def step_worker(argv: list[str]) -> int:
+    """One rank of :func:`step_start`'s group.  Ranks ``0 .. STEP_RANKS - 1``
+    take the sharded steps on the ``STEP_MESH`` mesh (keeping host copies of
+    their params, ``m`` and ``v`` blocks after the first update and at the
+    end), snapshot, then free the card; the last rank then takes the same
+    steps replicated, alone on the card, and holds every block of every rank
+    (sent over gloo) against its own leaves at both points."""
+    rank, world, port, out = int(argv[0]), int(argv[1]), argv[2], Path(argv[3])
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", world_size=world,
+                            rank=rank)
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from torch.distributed.device_mesh import DeviceMesh
+
+    res: dict = {}
+    try:
+        cfg, scfg = step_cfg()
+        batches = step_batches(cfg)
+        n = STEP_RANKS
+        # collective over the world: the replicated rank takes part, outside the mesh
+        mesh = DeviceMesh("cuda", torch.arange(n).view(*STEP_MESH.values()),
+                          mesh_dim_names=tuple(STEP_MESH))
+        group = dist.new_group(ranks=list(range(n)), backend="gloo")
+        model = registry.build_model(cfg, device="cuda")
+        state_abs, shard_tree = step_lib.make_state_specs(model, mesh, scfg)
+        shards = tree_util.tree_flatten(shard_tree)[0]
+        parts = [(i, s) for i, s in enumerate(tree_util.tree_flatten_with_path(state_abs)[0])
+                 if s[0].startswith(("['params']", "['opt']['m']", "['opt']['v']"))]
+        kept = []  # host copies of the blocks: after the first update, and at the end
+
+        def keep(state):
+            flat = tree_util.tree_flatten(state)[0]
+            kept.append([sharding.local(flat[i]).detach().cpu() for i, _ in parts])
+
+        if rank < n:
+            t0 = time.perf_counter()
+            state = step_lib.init_state(model, mesh, torch.Generator(device="cuda").manual_seed(0),
+                                        scfg)
+            res["init_s"] = time.perf_counter() - t0
+            flat = tree_util.tree_flatten(state)[0]
+            res["shapes_ok"] = all(
+                tuple(sharding.local(x).shape) == sharding.local_shape(s.shape, sh.spec, mesh)
+                for x, (_, s), sh in zip(flat, tree_util.tree_flatten_with_path(state_abs)[0],
+                                         shards))
+            res["state_bytes"] = sum(sharding.local(x).numel() * sharding.local(x).element_size()
+                                     for x in flat)
+            del flat
+            step = step_lib.build_train_step(model, mesh, scfg)
+            state, rec = _timed_steps(step, state, batches, after=keep)
+            res.update(rec)
+            keep(state)
+            print(f"rank {rank}: init {res['init_s']:.1f} s, losses {res['losses']}, "
+                  f"norms {res['norms']}, step ms {res['ms']}, peak {res['peak']}", flush=True)
+            res["snapshot"] = _snapshot_and_restore(state, mesh, group, out)
+            del state, step
+            gc.collect()
+            torch.cuda.empty_cache()
+        else:  # the groups the sharded ranks' snapshot creates: collective over the world
+            for _ in range(3):  # build_insitu_hook's two, the raw manager's
+                dist.new_group(ranks=list(range(n)), backend="gloo")
+        dist.barrier()  # the sharded ranks' card memory is free
+        if rank == n:
+            state = step_lib.init_state(model, None, torch.Generator(device="cuda").manual_seed(0),
+                                        scfg)
+            step = step_lib.build_train_step(model, None, scfg)
+            compared = []
+            t_cmp = []
+
+            def compare(st):
+                t0 = time.perf_counter()
+                compared.append(_compare_blocks(st, parts, shards, mesh))
+                t_cmp.append(time.perf_counter() - t0)
+
+            state, rec = _timed_steps(step, state, batches, after=compare)
+            res.update(rec)
+            compare(state)
+            res["first_update"], res["end"], res["compare_s"] = compared[0], compared[1], t_cmp
+            print(f"replicated: losses {res['losses']}, norms {res['norms']}, step ms "
+                  f"{res['ms']}, peak {res['peak']}, compared {compared}", flush=True)
+        else:
+            for blocks in kept:
+                for block in blocks:
+                    dist.send(block, dst=n)
+        with open(out / f"rank{rank}.pkl", "wb") as f:
+            pickle.dump(res, f)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def step_phase(device) -> dict:
+    """Phase 30: phi3.5-moe-42b-a6.6b's sharded train step on the card
+    (module docstring)."""
+    del device
+    shutil.rmtree(STEP_DIR, ignore_errors=True)
+    pred = step_prediction()
+    print("phase 30 prediction (dry-run counters, rank 0): " + json.dumps(
+        {"peak_bytes": pred["peak"], "state_bytes": pred["argument_bytes"],
+         "flops": pred["flops"], "collective_bytes": pred["collective"],
+         "trace_s": pred["trace_s"]}))
+    free_card()
+    t0 = time.perf_counter()
+    procs = step_start(free_port())
+    for p in procs:
+        try:
+            rc = p.wait(timeout=900)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            p.wait()
+            rc = "timeout"
+        if rc != 0:
+            logs = "\n".join(q.read_text()[-3000:] for q in sorted(STEP_DIR.glob("r*.log")))
+            raise RuntimeError(f"chip_smoke check failed: phase 30 rank exited {rc}\n{logs}")
+    wall = time.perf_counter() - t0
+    runs = [pickle.load(open(STEP_DIR / f"rank{r}.pkl", "rb")) for r in range(STEP_RANKS + 1)]
+    rep, shard = runs[-1], runs[:-1]
+    lrs = rep["lrs"]
+    same = next(i for i, lr in enumerate(lrs) if lr > 0) + 1  # steps at the initial params
+    for r, run in enumerate(shard):
+        check(run["shapes_ok"], f"phase 30 rank {r}: a local leaf's shape is not its spec's")
+        check(run["lrs"] == lrs, f"phase 30 rank {r}: rates {run['lrs']}")
+        check(np.allclose(run["losses"][:same], rep["losses"][:same],
+                          rtol=STEP_TOL["loss_rtol"], atol=0)
+              and np.allclose(run["norms"][:same], rep["norms"][:same],
+                              rtol=STEP_TOL["norm_rtol"], atol=0),
+              f"phase 30 rank {r}: losses {run['losses']} and grad norms {run['norms']} vs "
+              f"replicated {rep['losses']}, {rep['norms']} (the first {same} steps)")
+        check(np.allclose(run["losses"], rep["losses"], rtol=STEP_LATE_LOSS_RTOL, atol=0),
+              f"phase 30 rank {r}: losses {run['losses']} vs replicated {rep['losses']}")
+        check(run["losses"] == shard[0]["losses"], f"phase 30 rank {r}: other losses than rank 0")
+    first, end = rep["first_update"], rep["end"]
+    share = {k: first[k]["over"] / first[k]["count"] for k in first}
+    lr1 = lrs[same - 1]
+    check(max(share.values()) <= STEP_SHARE
+          and first["params"]["worst"] <= 2 * lr1 + STEP_TOL["param_atol"],
+          f"phase 30: after the first update, sharded vs replicated {first} (share outside the "
+          f"tolerances {share}, parameter bound {2 * lr1 + STEP_TOL['param_atol']})")
+    moved = 2 * sum(lrs) + STEP_TOL["param_atol"]
+    check(end["params"]["worst"] <= moved,
+          f"phase 30: at the end, sharded vs replicated {end} (parameter bound {moved})")
+    r0 = shard[0]
+    ratio = pred["peak"] / r0["peak"]
+    check(r0["flops"] == pred["flops"], f"phase 30: the card counts {r0['flops']} FLOPs on rank 0, "
+          f"the meta trace {pred['flops']}")
+    check(abs(ratio - 1) <= DRYRUN_PEAK_TOL, f"phase 30: predicted peak {pred['peak']} B, rank 0's "
+          f"{r0['peak']} B (ratio {ratio:.4f})")
+    launches: dict = {}
+    for run in shard:
+        for k, v in run["snapshot"]["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    out = {"arch": STEP_ARCH, "layers": STEP_LAYERS, "mesh": STEP_MESH,
+           "batch": [STEP_BATCH, STEP_SEQ], "wall_s": wall, "tolerances": STEP_TOL,
+           "losses": r0["losses"], "replicated_losses": rep["losses"],
+           "norms": r0["norms"], "replicated_norms": rep["norms"],
+           "first_update": first, "share_outside_first_update": share, "end": end,
+           "share_outside_end": {k: end[k]["over"] / end[k]["count"] for k in end},
+           "lrs": lrs, "compare_s": rep["compare_s"],
+           "state_bytes_rank0": r0["state_bytes"], "predicted_state_bytes": pred["argument_bytes"],
+           "peak_rank0": r0["peak"], "predicted_peak": pred["peak"], "peak_ratio": ratio,
+           "replicated_peak": rep["peak"], "flops_rank0": r0["flops"],
+           "step_ms_rank0": r0["ms"], "step_ms": [run["ms"] for run in shard],
+           "replicated_step_ms": rep["ms"], "sent_bytes_rank0_step": r0["sent"],
+           "predicted_collective_bytes": pred["collective"],
+           "init_s": [run["init_s"] for run in shard],
+           "snapshot": [{k: v for k, v in run["snapshot"].items()} for run in shard],
+           "snapshot_launches": launches}
+    print(f"phi3.5-moe sharded step ({card_line()}): " + json.dumps(out))
+    return launches
+
+
 def run(device) -> dict:
     t0 = time.perf_counter()
     logs = _build.build(verbose=True)
@@ -4323,13 +4768,14 @@ def run(device) -> dict:
                       ("24 training loop, checkpoints, the hook and a gloo pair",
                        lambda: train_loop_phase(device)),
                       ("25 supervised drill, one rank", lambda: supervised_phase(device)),
-                      ("26 shrink and grow-back drill, 4 gloo ranks",
+                      ("26 shrink and grow-back drill, 8 gloo ranks",
                        lambda: drill_phase(cpu_drill)),
                       ("27 qwen3-moe-30b-a3b at its published size", lambda: moe_full_width(
                           device)),
                       ("28 rwkv6, hymba, whisper and the new families card vs CPU",
                        lambda: other_families(device)),
-                      ("29 the dry run against the card", lambda: dryrun_vs_card(device))):
+                      ("29 the dry run against the card", lambda: dryrun_vs_card(device)),
+                      ("30 phi3.5-moe's sharded train step", lambda: step_phase(device))):
         t0 = time.perf_counter()
         for k, v in fn().items():
             launches[k] = launches.get(k, 0) + v
@@ -4371,6 +4817,8 @@ def main() -> int:
         return train_worker(sys.argv[2:])
     if sys.argv[1:2] == ["--drill-rank"]:  # one rank of the drill group (drill_start)
         return drill_worker(sys.argv[2:])
+    if sys.argv[1:2] == ["--step-rank"]:  # one rank of phase 30's group (step_start)
+        return step_worker(sys.argv[2:])
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs a CUDA card",
               file=sys.stderr)
@@ -4389,6 +4837,7 @@ def main() -> int:
         shutil.rmtree(TRAIN_DIR, ignore_errors=True)
         shutil.rmtree(DRILL_DIR, ignore_errors=True)
         shutil.rmtree(DRYRUN_DIR, ignore_errors=True)
+        shutil.rmtree(STEP_DIR, ignore_errors=True)
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps(report))
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

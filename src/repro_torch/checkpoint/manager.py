@@ -469,6 +469,11 @@ class CheckpointManager:
             # every rank saves the same tree, so every rank creates it here
             self._group = dist.new_group(backend="gloo")
 
+    def set_group(self, group) -> None:
+        """Save over ``group`` from now on (an elastic run's new mesh); the
+        caller has waited for the saves in flight (:meth:`wait`)."""
+        self._group = group
+
     def is_writer(self) -> bool:
         """Whether this process writes the files: the group's first rank
         (every process without a group)."""

@@ -7,9 +7,12 @@
   time, or a snapshot's leaves batched into stream arenas;
 * :mod:`repro_torch.dist.collectives` is the compressed cross-pod gradient
   mean: block-wise int8/int4 codes with error feedback on the wire in place
-  of f32 gradients.
+  of f32 gradients;
+* :mod:`repro_torch.dist.spmd` is the sharded train step's compute: a
+  parameter's blocks gathered where the model uses it, the gradients
+  reduce-scattered back, expert parallelism and the MoE's row collectives.
 """
 
-from repro_torch.dist import collectives, insitu, sharding  # noqa: F401
+from repro_torch.dist import collectives, insitu, sharding, spmd  # noqa: F401
 
-__all__ = ["collectives", "insitu", "sharding"]
+__all__ = ["collectives", "insitu", "sharding", "spmd"]

@@ -187,16 +187,22 @@ def _mean_of(all_codes: torch.Tensor, all_scale: torch.Tensor, n: int,
     return total / torch.full_like(total, n_pods)
 
 
+def all_reduce_sum(t: torch.Tensor, group) -> torch.Tensor:
+    """The sum of ``t`` over ``group`` (a new tensor; through the host on
+    ``gloo``), this rank's bytes counted under ``"all_reduce"``."""
+    host = insitu.via_host(group, t)
+    buf = t.detach().cpu().clone() if host else t.detach().clone()
+    insitu.count_sent("all_reduce", buf.numel() * buf.element_size())
+    dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=group)
+    return buf.to(t.device) if host else buf
+
+
 def _plain_mean(g: torch.Tensor, group, n_pods: int) -> torch.Tensor:
     """The uncompressed hop: ``all_reduce`` SUM in ``g``'s dtype, then a
     divide (the reference's ``pmean``, ``psum(g) / n``)."""
     if group is None:
         return g / torch.full_like(g, n_pods)
-    host = insitu.via_host(group, g)
-    buf = g.detach().cpu().clone() if host else g.detach().clone()
-    insitu.count_sent("all_reduce", buf.numel() * buf.element_size())
-    dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=group)
-    total = buf.to(g.device) if host else buf
+    total = all_reduce_sum(g, group)
     return total / torch.full_like(total, n_pods)
 
 

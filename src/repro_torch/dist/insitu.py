@@ -571,19 +571,19 @@ def _shard_blobs(stream) -> dict:
             "gtops": bitpack.to_numpy(stream.gtops).copy()}
 
 
-def to_host(stream) -> Optional[HostShardedStream]:
+def to_host(stream, group=None) -> Optional[HostShardedStream]:
     """Gather the shards' **compressed** payloads to the mesh's first rank
-    (a collective; the mesh must span the process group).  Returns the
-    :class:`HostShardedStream` there, in ``np.ndindex(grid)`` order, and
-    ``None`` on every other rank."""
+    (a collective over ``group``, the default group when ``None``; the mesh
+    must span it).  Returns the :class:`HostShardedStream` there, in
+    ``np.ndindex(grid)`` order, and ``None`` on every other rank."""
     grid = tuple(stream.grid)
     local = tuple(s // g for s, g in zip(stream.shape, grid))
     mine = (int(np.ravel_multi_index(stream.position, grid)), _shard_blobs(stream))
-    world = dist.get_world_size() if dist.is_initialized() else 1
+    world = dist.get_world_size(group) if dist.is_initialized() else 1
     ranks = stream.mesh.mesh.flatten().tolist()
     if len(ranks) != world:
         raise ValueError(f"the mesh holds {len(ranks)} of {world} ranks; to_host gathers "
-                         "over the whole process group")
+                         "over the whole group")
     if world == 1:
         got = [mine]
     else:
@@ -591,7 +591,7 @@ def to_host(stream) -> Optional[HostShardedStream]:
         got = [None] * world if dist.get_rank() == dst else None
         if dist.get_rank() != dst:
             count_sent("gather", sum(a.nbytes for a in mine[1].values()))
-        dist.gather_object(mine, got, dst=dst)
+        dist.gather_object(mine, got, dst=dst, group=group)
         if got is None:
             return None
     by_shard: dict[int, dict] = {}

@@ -24,8 +24,9 @@ Inference rules (as the reference's):
 (a mesh and a spec, as ``jax.sharding.NamedSharding``) says where a leaf
 goes, and :func:`place` puts a whole array there (what
 ``CheckpointManager.restore(shardings=...)`` does to each leaf).
-``tree_shardings`` and ``batch_sharding`` wait for the port's training
-slice.
+:func:`tree_shardings` gives a parameter tree's shardings from its logical
+axes, :func:`batch_sharding` the batch's (dim 0 over the composed
+``("pod", "data")`` axes): what the train step's state and rows follow.
 """
 
 from __future__ import annotations
@@ -49,6 +50,8 @@ DEFAULT_RULES: Mapping[str, Union[str, tuple, None]] = {
     "head_dim": None,
     "layers": None,
 }
+
+BATCH_AXES = ("pod", "data")
 
 # Cosmology-field logical axes (the in-situ snapshot path,
 # ``repro_torch.dist.insitu``): a 3-D Nyx-style field shards plane-major —
@@ -134,6 +137,28 @@ def spec_for(shape: Sequence[int], axes: Sequence[Optional[str]], mesh,
     return tuple(entries)
 
 
+def tree_shardings(axes_tree: Any, abs_tree: Any, mesh,
+                   rules: Mapping = DEFAULT_RULES) -> Any:
+    """:class:`NamedSharding` tree for a parameter tree: ``axes_tree`` holds
+    each leaf's logical axes (a tuple of names), ``abs_tree`` the matching
+    leaves with a ``shape`` (tensors, ``TensorSpec``); dicts nest both."""
+    if isinstance(abs_tree, dict):
+        return {k: tree_shardings(axes_tree[k], v, mesh, rules) for k, v in abs_tree.items()}
+    return NamedSharding(mesh, spec_for(tuple(abs_tree.shape), axes_tree, mesh, rules))
+
+
+def batch_sharding(mesh, rank: int = 2) -> NamedSharding:
+    """Batch-dim-0 sharding over the composed data-parallel axes present in
+    the mesh (replicated when there are none, e.g. a pure-model mesh);
+    ``rank`` is the batch array's, whose other dimensions replicate (and
+    are trimmed from the spec)."""
+    del rank
+    axes = tuple(a for a in BATCH_AXES if a in mesh_sizes(mesh))
+    if not axes:
+        return NamedSharding(mesh, ())
+    return NamedSharding(mesh, (axes if len(axes) > 1 else axes[0],))
+
+
 def placements(spec: Sequence, mesh) -> tuple:
     """The ``DTensor`` placements of a spec on ``mesh``: one per mesh axis,
     ``Shard(d)`` for the axis that splits dimension ``d``, else
@@ -149,6 +174,45 @@ def placements(spec: Sequence, mesh) -> tuple:
                 raise ValueError(f"spec {tuple(spec)} names {a!r}, not an axis of the mesh {names}")
             out[names.index(a)] = Shard(d)
     return tuple(out)
+
+
+def mesh_device(mesh):
+    """The device of this rank's blocks on ``mesh`` (the current CUDA device
+    for a ``cuda`` mesh)."""
+    import torch
+
+    return (torch.device("cuda", torch.cuda.current_device()) if mesh.device_type == "cuda"
+            else torch.device(mesh.device_type))
+
+
+def local(x):
+    """A ``DTensor``'s local tensor, or ``x`` itself."""
+    return x.to_local() if is_dtensor(x) else x
+
+
+def local_shape(shape: Sequence[int], spec: Sequence, mesh) -> tuple:
+    """The shape of one rank's block of an array of ``shape`` split by
+    ``spec`` on ``mesh`` (every split even)."""
+    sizes = mesh_sizes(mesh)
+    out = list(shape)
+    for d, ent in enumerate(spec):
+        for a in ((ent,) if isinstance(ent, str) else tuple(ent or ())):
+            if out[d] % sizes[a]:
+                raise ValueError(f"spec {tuple(spec)} does not split {tuple(shape)} evenly")
+            out[d] //= sizes[a]
+    return tuple(out)
+
+
+def from_local(t, sh: NamedSharding, shape: Sequence[int]):
+    """``t``, this rank's block of an array of ``shape``, as a ``DTensor``
+    placed by ``sh``."""
+    import torch
+    from torch.distributed.tensor import DTensor
+
+    shape = tuple(shape)
+    return DTensor.from_local(t, sh.mesh, placements(sh.spec, sh.mesh), run_check=False,
+                              shape=torch.Size(shape),
+                              stride=torch.empty(shape, device="meta").stride())
 
 
 def spec_of(dtensor) -> tuple:
@@ -190,8 +254,7 @@ def place(t, sh: NamedSharding):
             length[p.dim] //= size
             start[p.dim] += coord[i] * length[p.dim]
     local = t[tuple(slice(s, s + n) for s, n in zip(start, length))]
-    device = (torch.device("cuda", torch.cuda.current_device()) if mesh.device_type == "cuda"
-              else torch.device(mesh.device_type))
-    return DTensor.from_local(local.contiguous().to(device), mesh, places, run_check=False,
+    return DTensor.from_local(local.contiguous().to(mesh_device(mesh)), mesh, places,
+                              run_check=False,
                               shape=torch.Size(shape),
                               stride=torch.empty(shape, device="meta").stride())

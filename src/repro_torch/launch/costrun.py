@@ -27,6 +27,10 @@ method keeps the whole 80-cell sweep short:
      is undercounted ~(T/T_c)x; documented in EXPERIMENTS.md §Roofline
      (< 15% of that cell's flops).
 
+The meshes are the dry run's (:func:`repro_torch.launch.dryrun.fake_mesh`):
+train cells on the reference's (16, 16) and (2, 16, 16) with the sharded
+state, prefill and decode cells with ``model`` folded onto one card.
+
 ``meta`` tensors never allocate, so the full-attention tensors (e.g. (B, H,
 32k, 32k) f32) are shape metadata only.  ``compile_s`` keeps the reference's
 key: the seconds the cell's traces took.
@@ -176,7 +180,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool) -> dict:
         return cell
     t0 = time.time()
     try:
-        with dryrun.fake_mesh(multi_pod) as mesh:
+        with dryrun.fake_mesh(multi_pod, folded=shape.kind != "train") as mesh:
             total, mult, k = cell_cost(cfg, shape, mesh)
             n_dev = mesh.size()
         if shape.kind == "train":

@@ -26,14 +26,18 @@ arise here.
 
 What differs from the reference, and why:
 
-* **Mesh.**  The port has no tensor parallelism (its trainer is
-  data-parallel, every rank holding the whole state), so its meshes are the
-  reference's with the ``model`` axis folded into one card: ``single`` is
-  (16, 1) over ("data", "model"), ``multi`` (2, 16, 1) over ("pod", "data",
-  "model"), on a fake process group of 16 or 32 ranks that :func:`run_cell`
-  creates and destroys (it refuses to run beside a group that is already
-  up).  The global batch splits over pod x data exactly as the reference
-  splits it over ``data``.
+* **Mesh.**  Train cells run on the reference's meshes: ``single`` is
+  (16, 16) over ("data", "model"), ``multi`` (2, 16, 16) over ("pod",
+  "data", "model"), on a fake process group of 256 or 512 ranks that
+  :func:`run_cell` creates and destroys (it refuses to run beside a group
+  that is already up); the state is sharded as the reference's
+  (``train.step.make_state_specs``) and the step gathers and
+  reduce-scatters it (``dist.spmd``).  Prefill and decode cells stay on the
+  reference's meshes with the ``model`` axis folded into one card, (16, 1)
+  and (2, 16, 1): the reference shards their parameters and caches through
+  ``build_serve_step``, which the port has no twin of (its serving runs on
+  one card).  The global batch splits over pod x data exactly as the
+  reference splits it over ``data``.
 * **Steps.**  Train runs :func:`repro_torch.train.step.build_train_step`
   with bfloat16 parameters (and the compressed pod hop with ``--grad-comp``
   on the multi mesh) on a ``meta`` state; the batch comes from the host, as
@@ -97,8 +101,11 @@ OUT_DIR = Path(__file__).resolve().parents[3] / "experiments" / "torch_dryrun"
 DEVICE_MEMORY_BYTES = 85_017_493_504
 ALLOC_BLOCK = 512  # the CUDA caching allocator's block: every allocation is a multiple
 
-SINGLE_POD = (16, 1)  # ("data", "model"): the reference's 16 x 16 with "model" on one card
-MULTI_POD = (2, 16, 1)  # ("pod", "data", "model")
+SINGLE_POD = (16, 16)  # ("data", "model"): train cells, the reference's mesh
+MULTI_POD = (2, 16, 16)  # ("pod", "data", "model")
+# prefill and decode: the reference's meshes with "model" folded into one card
+FOLDED_SINGLE_POD = (16, 1)
+FOLDED_MULTI_POD = (2, 16, 1)
 
 _log = logging.getLogger("repro_torch.launch.dryrun")
 
@@ -136,7 +143,9 @@ def _ensure_cli_logging() -> None:
 
 
 def _tensors(x: Any) -> Iterator[torch.Tensor]:
-    if isinstance(x, torch.Tensor):
+    if shardlib.is_dtensor(x):
+        yield x.to_local()  # this rank's block is what its device holds
+    elif isinstance(x, torch.Tensor):
         yield x
     elif isinstance(x, (list, tuple)):
         for v in x:
@@ -231,17 +240,21 @@ def measure(fn: Callable[[], Any], *held: Any) -> dict:
 
 
 @contextlib.contextmanager
-def fake_mesh(multi_pod: bool):
-    """The production mesh folded onto one card (module docstring) on a fake
-    process group of which this process is rank 0; the group is destroyed on
-    exit.  Refuses to replace a group the caller already has up."""
+def fake_mesh(multi_pod: bool, folded: bool = False):
+    """The production mesh (module docstring; ``folded``: with ``model`` on
+    one card, the prefill and decode cells') on a fake process group of
+    which this process is rank 0; the group is destroyed on exit.  Refuses
+    to replace a group the caller already has up."""
     from torch.distributed.device_mesh import init_device_mesh
     from torch.testing._internal.distributed.fake_pg import FakeStore  # registers "fake"
 
     if dist.is_initialized():
         raise RuntimeError("the dry run lays its mesh out on a fake process group of its own, "
                            "and a process group is already initialized")
-    shape = MULTI_POD if multi_pod else SINGLE_POD
+    if folded:
+        shape = FOLDED_MULTI_POD if multi_pod else FOLDED_SINGLE_POD
+    else:
+        shape = MULTI_POD if multi_pod else SINGLE_POD
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
     dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=math.prod(shape))
     try:
@@ -365,14 +378,30 @@ def grad_wire(model, mesh, grad_comp: bool) -> dict:
     }
 
 
-def train_arg_bytes(model, mesh, grad_comp: bool = False) -> tuple[int, int]:
-    """``(state bytes, float32 accumulator bytes)`` of the train step's
-    bfloat16-parameter state, as the card allocates them."""
-    scfg = step_lib.TrainStepConfig(grad_comp=GradCompressionConfig(enabled=grad_comp),
-                                    param_dtype=torch.bfloat16)
-    state_abs, _ = step_lib.make_state_specs(model, mesh, scfg)
+def state_blocks(model, mesh, step_cfg) -> tuple[list, list]:
+    """``(state block shapes and dtypes, param block shapes)`` of one rank:
+    each leaf's local block under its spec (``TensorSpec`` leaves)."""
+    state_abs, shard = step_lib.make_state_specs(model, mesh, step_cfg)
+
+    def block(s, sh):
+        if sh is None:
+            return s
+        return L.TensorSpec(shardlib.local_shape(s.shape, sh.spec, mesh), s.dtype)
+
     leaves = tree_util.tree_flatten(state_abs)[0]
     params = tree_util.tree_flatten(state_abs["params"])[0]
+    return ([block(s, sh) for s, sh in zip(leaves, step_lib._flat_shardings(
+                shard, mesh, len(leaves)))],
+            [block(s, sh) for s, sh in zip(params, step_lib._flat_shardings(
+                shard["params"], mesh, len(params)))])
+
+
+def train_arg_bytes(model, mesh, grad_comp: bool = False) -> tuple[int, int]:
+    """``(state bytes, float32 accumulator bytes)`` of one rank's blocks of
+    the train step's bfloat16-parameter state, as the card allocates them."""
+    scfg = step_lib.TrainStepConfig(grad_comp=GradCompressionConfig(enabled=grad_comp),
+                                    param_dtype=torch.bfloat16)
+    leaves, params = state_blocks(model, mesh, scfg)
     return (sum(alloc_bytes(s.nbytes) for s in leaves),
             sum(alloc_bytes(4 * math.prod(s.shape)) for s in params))
 
@@ -412,7 +441,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, verbose: bool = True,
     t0 = time.time()
     try:
         gc_on = grad_comp and multi_pod
-        with fake_mesh(multi_pod) as mesh:
+        with fake_mesh(multi_pod, folded=shape.kind != "train") as mesh:
             cost, k = cell_cost(cfg, shape, mesh, gc_on)
             n_dev = mesh.size()
             mesh_shape = mesh_sizes(mesh)

@@ -111,12 +111,18 @@ def build_insitu_hook(mesh, out_dir: str, eb: float, min_bytes: int = 1 << 20,
     own, which every rank creates here, once and in the same order: the
     caller's thread goes on issuing the next snapshot's collectives, and
     two threads sharing one group can order them differently on each rank.
+    The caller thread's own gathers (per-leaf streams, synchronous arenas)
+    run on a second group over the mesh's ranks, so a mesh that leaves ranks
+    of the world out (a shrunk mesh) gathers too.
     The files are the same as with ``overlap=False`` (a synchronous save).
     The hook exposes ``hook.wait()`` (drain everything; every rank calls
     it), ``hook.manager``, ``hook.slots`` and ``hook.group``."""
     multi = dist.is_initialized() and dist.get_world_size() > 1
-    # over the mesh's ranks: a supervised run's shrunk mesh leaves ranks out
-    group = dist.new_group(ranks=mesh.mesh.flatten().tolist(), backend="gloo") if multi else None
+    # over the mesh's ranks: a supervised run's shrunk mesh leaves ranks out;
+    # the drain thread's gathers on one group, the caller thread's on another
+    ranks = mesh.mesh.flatten().tolist()
+    group = dist.new_group(ranks=ranks, backend="gloo") if multi else None
+    fetch_group = dist.new_group(ranks=ranks, backend="gloo") if multi else None
     first = insitu.is_first_rank(mesh)
     device = torch.device(mesh.device_type)
     snap = CheckpointManager(out_dir, keep_last=2, async_save=overlap, max_in_flight=slots,
@@ -138,7 +144,7 @@ def build_insitu_hook(mesh, out_dir: str, eb: float, min_bytes: int = 1 << 20,
             print(f"  in-situ snapshot: skipping {key}: {e}")
             failed.add(key)
             return
-        h = insitu.to_host(stream)  # the compressed shards, on the first rank
+        h = insitu.to_host(stream, fetch_group)  # the compressed shards, on the first rank
         if h is not None:
             fields[key] = h
 
@@ -183,7 +189,7 @@ def build_insitu_hook(mesh, out_dir: str, eb: float, min_bytes: int = 1 << 20,
                         stream = insitu.sharded_compress_arena(
                             [by_key[nm] for nm in b.names], b, mesh, eb)
                         h = (insitu.arena_to_host_async(stream, group) if overlap
-                             else insitu.arena_to_host(stream))
+                             else insitu.arena_to_host(stream, fetch_group))
                         if h is not None:
                             fields[f"arena{k:03d}"] = h
                     _c_launch.inc()

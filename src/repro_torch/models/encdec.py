@@ -19,9 +19,9 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
+from repro_torch.dist import spmd
 from repro_torch.models import layers as L
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.spec import P
@@ -114,11 +114,12 @@ class EncDecLM:
     def encode(self, params: dict, frames: torch.Tensor) -> torch.Tensor:
         """frames: (B, T_enc, d_model) precomputed embeddings (frontend stub)."""
         c = self.cfg
+        params = spmd.gather_outer(params)
         x = frames.to(self.dtype) + params["enc_pos"].to(self.dtype)[None, : frames.shape[1]]
         positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
         remat = torch.is_grad_enabled()
         for lp in unstack(params["enc_layers"], c.n_encoder_layers):
-            x = (checkpoint(self._enc_layer, lp, x, positions, use_reentrant=False) if remat
+            x = (spmd.remat(self._enc_layer, lp, x, positions) if remat
                  else self._enc_layer(lp, x, positions))
         return L.layernorm(params["enc_final"], x)
 
@@ -130,13 +131,14 @@ class EncDecLM:
         if frames is None:  # degenerate text-only path for smoke parity
             frames = torch.zeros((tokens.shape[0], c.encoder_len, c.d_model), dtype=self.dtype,
                                  device=tokens.device)
+        params = spmd.gather_outer(params)
         enc = self.encode(params, frames)
         x = L.embed(params["embed"], tokens, self.dtype)
         x = x + params["dec_pos"].to(self.dtype)[None, : x.shape[1]]
         positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
         remat = torch.is_grad_enabled()
         for lp in unstack(params["dec_layers"], c.n_layers):
-            x = (checkpoint(self._dec_layer, lp, x, enc, positions, use_reentrant=False) if remat
+            x = (spmd.remat(self._dec_layer, lp, x, enc, positions) if remat
                  else self._dec_layer(lp, x, enc, positions))
         x = L.layernorm(params["dec_final"], x)
         return L.unembed(params["embed"], x)  # whisper ties embeddings

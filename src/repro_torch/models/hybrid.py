@@ -26,9 +26,9 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
+from repro_torch.dist import spmd
 from repro_torch.models import layers as L
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.rwkv6 import _keep_free_lanes
@@ -192,6 +192,7 @@ class HymbaLM:
         """Differentiable; with gradients enabled each layer is recomputed in
         the backward pass (per-layer activation checkpointing)."""
         c = self.cfg
+        params = spmd.gather_outer(params)
         x = L.embed(params["embed"], tokens, self.dtype)
         meta = params["meta"].to(self.dtype)[None].expand(x.shape[0], -1, -1)
         x = torch.cat([meta, x], dim=1)
@@ -201,7 +202,7 @@ class HymbaLM:
         remat = torch.is_grad_enabled()
         for lp, window in zip(unstack(params["layers"], c.n_layers), self._windows()):
             if remat:
-                x = checkpoint(self._fused_layer, lp, window, x, positions, use_reentrant=False)
+                x = spmd.remat(self._fused_layer, lp, window, x, positions)
             else:
                 x = self._fused_layer(lp, window, x, positions)
         x = L.rmsnorm(params["final_norm"], x)

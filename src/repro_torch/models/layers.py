@@ -19,7 +19,10 @@ Differences from the reference, none of them in the numbers:
   cache dict, whose leaves are the tensors it was given.
 * The kept positions are a :class:`WritePlan`, computed once per model call
   (one host sync on CUDA) and shared by every layer.
-* ``constrain_batch`` is a no-op without a mesh and is left out.
+* ``constrain_batch`` is the identity without a mesh, as the reference's
+  is; in the sharded train step (``repro_torch.dist.spmd``) it keeps this
+  rank's rows of an activation that holds the whole microbatch (the MoE
+  combine's) and refuses any other row count.
 * The reference's process-wide flags are not ported: the flash threshold
   is ``AttnConfig.flash_threshold`` alone, and ``KVC_FUSED`` is the
   ``attention`` argument carried from ``EngineConfig`` to
@@ -39,6 +42,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist import spmd
 from repro_torch.kernels.ref import gather_pages as _gather_pages  # the paged cache's dense view
 from repro_torch.models.spec import P
 
@@ -572,6 +576,14 @@ def mlp(p: dict, x: torch.Tensor, kind: str = "swiglu") -> torch.Tensor:
 # ------------------------------------------------------------ embedding ----
 
 
+def constrain_batch(x: torch.Tensor) -> torch.Tensor:
+    """Re-pin batch (dim 0) sharding on activations (the reference's
+    ``with_sharding_constraint`` after the embedding and the MoE combine):
+    this rank's rows in the sharded train step, the identity without a
+    mesh."""
+    return spmd.own_rows(x)
+
+
 def embedding_spec(vocab: int, d_model: int) -> dict:
     # std 0.02 (llama/gpt convention): keeps tied unembed logits calibrated
     return {"table": P((vocab, d_model), ("vocab", "embed"), "small")}
@@ -582,7 +594,7 @@ def embed(p: dict, tokens: torch.Tensor, dtype) -> torch.Tensor:
     # in a fixed order, where the index's (index_put_ with accumulate) runs
     # in parallel on the CPU and gave the table's gradient other bits run to
     # run.  The forward values are the same gather.
-    return F.embedding(tokens.to(torch.int64), p["table"]).to(dtype)
+    return constrain_batch(F.embedding(tokens.to(torch.int64), p["table"]).to(dtype))
 
 
 def unembed(p: dict, x: torch.Tensor) -> torch.Tensor:

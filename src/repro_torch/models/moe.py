@@ -25,11 +25,17 @@ compute dtype after each add, as the reference's sequential
 ``.at[tok].add`` does.  ``index_add_`` would sum them with atomics in no
 fixed order on the card, so a repeated serving run could give other tokens.
 
-``repro.models.moe._constrain_experts`` (a sharding hint for a ``model``
-mesh axis) has no twin: the port's trainer is data-parallel, every rank
-holding the whole model.  ``MoELM`` inherits ``DenseLM``'s decode, prefill,
-paged pool and ``attention="fused"`` route (K10) through its
-``_mlp_block`` hook.
+In the sharded train step (``repro_torch.dist.spmd``) the routing sees
+every row of the microbatch, as the reference's global program does
+(``spmd.all_rows``; the capacity counts them all), and each rank keeps its
+own rows of the combined output (``layers.constrain_batch``).
+:func:`_constrain_experts`, the reference's sharding hint on the dispatch
+buffer, keeps this rank's experts when the ``model`` axis splits them
+(expert parallelism: the expert stacks stay split there), and their
+outputs are gathered back over ``model`` before the combine.  Without a
+mesh both are the identity, so serving does not change.  ``MoELM``
+inherits ``DenseLM``'s decode, prefill, paged pool and
+``attention="fused"`` route (K10) through its ``_mlp_block`` hook.
 """
 
 from __future__ import annotations
@@ -39,12 +45,18 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
-
+from repro_torch.dist import spmd
 from repro_torch.models import layers as L
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.spec import P
 from repro_torch.models.transformer import DenseLM, lm_loss, unstack
+
+
+def _constrain_experts(x: torch.Tensor) -> torch.Tensor:
+    """This rank's experts of ``x`` (dim 0: experts) when the sharded
+    step's ``model`` axis splits them; ``x`` otherwise (no mesh, or an
+    expert count the axis does not divide)."""
+    return spmd.own_experts(x)
 
 
 def moe_spec(c: ArchConfig) -> dict:
@@ -116,6 +128,7 @@ def route(p: dict, c: ArchConfig, xf: torch.Tensor) -> Routing:
 
 def moe_apply(p: dict, c: ArchConfig, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, D) -> (out, aux_loss)."""
+    x = spmd.all_rows(x)  # the routing sees the whole microbatch
     b, s, d = x.shape
     n, e, dt = b * s, c.n_experts, x.dtype
     xf = x.reshape(n, d)
@@ -124,10 +137,10 @@ def moe_apply(p: dict, c: ArchConfig, x: torch.Tensor) -> tuple[torch.Tensor, to
     # one spare row takes every dropped assignment and is thrown away
     buf = torch.zeros((rows + 1, d), dtype=dt, device=x.device)
     buf.index_copy_(0, r.slot, xf[r.tok_s])
-    h = buf[:rows].view(e, r.capacity, d)
+    h = _constrain_experts(buf[:rows].view(e, r.capacity, d))
     g = torch.bmm(h, p["gate"].to(dt))
     u = torch.bmm(h, p["up"].to(dt))
-    y = torch.bmm(F.silu(g) * u, p["down"].to(dt)).reshape(rows, d)
+    y = spmd.all_experts(torch.bmm(F.silu(g) * u, p["down"].to(dt)), e).reshape(rows, d)
 
     contrib = y[torch.clamp(r.slot, 0, rows - 1)] * r.gat_s[:, None]
     contrib = torch.where(r.valid[:, None], contrib, torch.zeros((), dtype=dt, device=x.device))
@@ -135,7 +148,7 @@ def moe_apply(p: dict, c: ArchConfig, x: torch.Tensor) -> tuple[torch.Tensor, to
     out = torch.zeros((n, d), dtype=dt, device=x.device)
     for j in range(c.top_k):
         out = out + per_token[:, j]
-    return out.reshape(b, s, d), r.aux
+    return L.constrain_batch(out.reshape(b, s, d)), r.aux
 
 
 class MoELM(DenseLM):
@@ -164,6 +177,7 @@ class MoELM(DenseLM):
         """Logits and the layers' mean aux loss; differentiable with
         per-layer activation checkpointing, as ``DenseLM.forward``."""
         c = self.cfg
+        params = spmd.gather_outer(params)
         x = L.embed(params["embed"], tokens, self.dtype)
         if prefix is not None:
             x = torch.cat([prefix.to(self.dtype), x], dim=1)
@@ -172,7 +186,7 @@ class MoELM(DenseLM):
         auxes = []
         for lp in unstack(params["layers"], c.n_layers):
             if remat:
-                x, aux = checkpoint(self._layer_with_aux, lp, x, positions, use_reentrant=False)
+                x, aux = spmd.remat(self._layer_with_aux, lp, x, positions)
             else:
                 x, aux = self._layer_with_aux(lp, x, positions)
             auxes.append(aux)

@@ -29,9 +29,9 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
+from repro_torch.dist import spmd
 from repro_torch.models import layers as L
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.spec import P
@@ -216,13 +216,14 @@ class RWKV6LM:
         """Differentiable; with gradients enabled each layer is recomputed in
         the backward pass (per-layer activation checkpointing)."""
         c = self.cfg
+        params = spmd.gather_outer(params)
         x = L.embed(params["embed"], tokens, self.dtype)
         if prefix is not None:
             x = torch.cat([prefix.to(self.dtype), x], dim=1)
         x = L.layernorm(params["ln_in"], x)
         remat = torch.is_grad_enabled()
         for lp in unstack(params["layers"], c.n_layers):
-            x = checkpoint(self._layer, lp, x, use_reentrant=False) if remat else self._layer(lp, x)
+            x = spmd.remat(self._layer, lp, x) if remat else self._layer(lp, x)
         x = L.layernorm(params["final_norm"], x)
         if prefix is not None:
             x = x[:, prefix.shape[1]:, :]

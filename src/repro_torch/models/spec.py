@@ -95,18 +95,23 @@ def _init_leaf(p: P, generator: torch.Generator, device, dtype: torch.dtype) -> 
 
 
 def init_params(specs: Any, generator: torch.Generator, device=None,
-                dtype: torch.dtype = torch.float32) -> Any:
+                dtype: torch.dtype = torch.float32, keep=None) -> Any:
     """Materialize ``specs`` on ``device`` (default: the generator's) in
     ``dtype``; leaves are drawn in :func:`spec_items` order, a leaf of
     ``SLICED_DRAW_NUMEL`` values or more one leading-axis slice after
-    another, each written straight into ``dtype``."""
+    another, each written straight into ``dtype``.  ``keep(path, spec,
+    leaf)``, when given, is what the tree holds of each leaf as it is drawn
+    (the sharded train state keeps this rank's block and drops the rest
+    before the next draw)."""
     device = torch.device(device) if device is not None else generator.device
     out: dict = {}
     for path, p in spec_items(specs):
         node = out
         for k in path[:-1]:
             node = node.setdefault(k, {})
-        node[path[-1]] = _init_leaf(p, generator, device, dtype)
+        leaf = _init_leaf(p, generator, device, dtype)
+        node[path[-1]] = leaf if keep is None else keep(path, p, leaf)
+        del leaf
     return out
 
 

@@ -9,9 +9,12 @@ holds no parameters itself: like the reference, every method takes the
 parameter tree.  It carries the device its caches are made on.
 
 ``forward`` / ``loss`` differentiate (the trainer's path): with gradients
-enabled each layer runs under ``torch.utils.checkpoint`` (non-reentrant),
-the counterpart of the reference's per-layer ``jax.checkpoint``, so only a
-layer's input is kept for the backward pass.  ``decode_step`` and
+enabled each layer runs under ``torch.utils.checkpoint`` (non-reentrant,
+through ``dist.spmd.remat``), the counterpart of the reference's per-layer
+``jax.checkpoint``, so only a layer's input is kept for the backward pass.
+Inside the sharded train step (``dist.spmd.use``) the parameters arrive as
+this rank's blocks and are gathered where they are used: the outer leaves
+at the top of ``forward``, a layer's inside its checkpoint.  ``decode_step`` and
 ``prefill`` (the serving path) run without gradients.
 """
 
@@ -21,9 +24,8 @@ from typing import Any, Optional
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
-
 from repro_torch.device import resolve_device
+from repro_torch.dist import spmd
 from repro_torch.models import layers as L
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.spec import P, map_specs
@@ -41,11 +43,12 @@ def stack_specs(n: int, tree: Any) -> Any:
 
 
 def unstack(tree: Any, n: int) -> list:
-    """The per-layer views of a stacked parameter tree or cache."""
+    """The per-layer views of a stacked parameter tree or cache (a sharded
+    step's tagged blocks stay tagged: ``dist.spmd.unbind``)."""
     if isinstance(tree, dict):
         parts = {k: unstack(v, n) for k, v in tree.items()}
         return [{k: v[i] for k, v in parts.items()} for i in range(n)]
-    return list(tree.unbind(0))
+    return spmd.unbind(tree)
 
 
 class DenseLM(nn.Module):
@@ -101,6 +104,7 @@ class DenseLM(nn.Module):
         Differentiable; with gradients enabled each layer is recomputed in
         the backward pass (per-layer activation checkpointing)."""
         c = self.cfg
+        params = spmd.gather_outer(params)
         x = L.embed(params["embed"], tokens, self.dtype)
         if prefix is not None:
             x = torch.cat([prefix.to(self.dtype), x], dim=1)
@@ -108,7 +112,7 @@ class DenseLM(nn.Module):
         remat = torch.is_grad_enabled()
         for lp in unstack(params["layers"], c.n_layers):
             if remat:
-                x = checkpoint(self._layer, lp, x, positions, use_reentrant=False)
+                x = spmd.remat(self._layer, lp, x, positions)
             else:
                 x = self._layer(lp, x, positions)
         x = self.norm(params["final_norm"], x)

@@ -12,6 +12,12 @@ program divides (the clip scale, the bias corrections ``b1c`` / ``b2c``,
 a Python divisor, and ``scalar / tensor`` by the tensor's reciprocal, on
 either device, so those forms would round otherwise than the reference
 and give the card other bits than the CPU.
+
+In the sharded train step the gradients are ``DTensor`` blocks (and
+params, ``m``, ``v`` this rank's blocks): :func:`global_norm` is the norm of
+the whole gradient tree, each element counted once however its leaf is
+split or replicated, so every rank clips by the same scale, and the update
+runs on the local blocks.
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ from typing import Any, Optional
 import torch
 
 from repro_torch import tree as tree_util
+from repro_torch.dist import sharding as shardlib
 
 
 @dataclasses.dataclass(frozen=True)
@@ -42,9 +49,40 @@ def init_state(params: Any) -> dict:
             "step": torch.zeros((), dtype=torch.int32, device=device)}
 
 
+def _split_axes(g) -> tuple:
+    """The mesh axes of size > 1 that a ``DTensor`` splits (none for a
+    plain tensor)."""
+    if not shardlib.is_dtensor(g):
+        return ()
+    from torch.distributed.tensor import Shard
+
+    mesh = g.device_mesh
+    return tuple(a for i, (a, p) in enumerate(zip(mesh.mesh_dim_names, g.placements))
+                 if isinstance(p, Shard) and mesh.size(i) > 1)
+
+
 def global_norm(tree: Any) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32)))
-                          for g in tree_util.tree_flatten(tree)[0]))
+    """sqrt of the sum of squares over the whole tree.  A ``DTensor``
+    leaf's block is summed on its rank, and the sums of the leaves split over
+    the same mesh axes are added over those axes (an ``all_reduce``), so each
+    element counts once; a replicated leaf counts once, on every rank."""
+    from repro_torch.dist import collectives
+
+    leaves = tree_util.tree_flatten(tree)[0]
+    total = sum(torch.sum(torch.square(shardlib.local(g).to(torch.float32)))
+                for g in leaves if not _split_axes(g))
+    groups: dict = {}
+    for g in leaves:
+        axes = _split_axes(g)
+        if axes:
+            sq = torch.sum(torch.square(g.to_local().to(torch.float32)))
+            mesh, acc = groups.get(axes, (g.device_mesh, None))
+            groups[axes] = (mesh, sq if acc is None else acc + sq)
+    for axes, (mesh, acc) in groups.items():
+        for a in axes:
+            acc = collectives.all_reduce_sum(acc, mesh.get_group(a))
+        total = total + acc
+    return torch.sqrt(total)
 
 
 def _full(t: torch.Tensor, v: float) -> torch.Tensor:
@@ -55,7 +93,9 @@ def apply_updates(params: Any, opt_state: dict, grads: Any, lr: torch.Tensor,
                   cfg: AdamWConfig = AdamWConfig()) -> tuple[Any, dict, dict]:
     """Returns (new_params, new_opt_state, metrics); params, ``m`` and ``v``
     are updated in place (the returned trees hold the same tensors), the
-    step counter is a new tensor."""
+    step counter is a new tensor.  Leaves may be ``DTensor`` blocks: the
+    norm is global (:func:`global_norm`), the update is their local
+    tensors'."""
     gnorm = global_norm(grads)
     flat_g, _ = tree_util.tree_flatten(grads)
     scale = None
@@ -92,5 +132,5 @@ def apply_updates(params: Any, opt_state: dict, grads: Any, lr: torch.Tensor,
     flat_v = tree_util.tree_flatten(opt_state["v"])[0]
     with torch.no_grad():
         for p, g, m, v in zip(flat_p, flat_g, flat_m, flat_v):
-            upd(p, g, m, v)
+            upd(*(shardlib.local(t) for t in (p, g, m, v)))
     return params, {"m": opt_state["m"], "v": opt_state["v"], "step": step}, {"grad_norm": gnorm}

@@ -7,10 +7,11 @@ job is only to (a) pick a coherent smaller mesh and (b) re-shard the last
 checkpoint onto it.  :func:`degraded_mesh_shape` and
 :func:`rebalance_batch` are pure functions with the reference's guards;
 :func:`make_degraded_mesh` builds the ``DeviceMesh`` over the surviving
-ranks (one process per rank, the process group already up) and
-:func:`reshard_state` places a state on it through
-:func:`repro_torch.dist.sharding.place`, the function
-``CheckpointManager.restore(shardings=)`` places leaves with.
+ranks (one process per rank, the process group already up),
+:func:`reshard_state` places a state on a mesh by the train state's specs
+through :func:`repro_torch.dist.sharding.place` (the function
+``CheckpointManager.restore(shardings=)`` places leaves with), and
+:func:`grow_back` carries the survivors' blocks to the rejoining pods.
 """
 
 from __future__ import annotations
@@ -74,7 +75,11 @@ def make_degraded_mesh(shape: dict[str, int], device_type: str = "cuda"):
 def reshard_state(state: Any, model, new_mesh, step_cfg=None) -> Any:
     """Re-shard a (restored) train state onto a different mesh: each leaf a
     ``DTensor`` on ``new_mesh`` placed as ``train.step.make_state_specs``
-    says (replicated: the port's trainer holds the whole state per rank)."""
+    says (FSDP over ``data``, tensor and expert axes over ``model``).
+    Leaves are whole tensors, or ``DTensor``s whose whole value is
+    assembled first (``full_tensor``: a collective over their mesh, which
+    every rank of it joins).  A rank that ``new_mesh`` leaves out gets
+    ``None``."""
     from repro_torch.train import step as step_lib
 
     cfg = step_cfg or step_lib.TrainStepConfig()
@@ -83,37 +88,66 @@ def reshard_state(state: Any, model, new_mesh, step_cfg=None) -> Any:
     shs = tree_util.tree_flatten(shardings)[0]
     if len(shs) != len(leaves):
         raise ValueError(f"state has {len(leaves)} leaves, its specs {len(shs)}")
-    return tree_util.tree_unflatten(treedef, [
-        shd.place(x.to_local() if shd.is_dtensor(x) else x, sh) for x, sh in zip(leaves, shs)])
+    whole = [x.full_tensor() if shd.is_dtensor(x) else x for x in leaves]
+    if new_mesh.get_coordinate() is None:
+        return None
+    return tree_util.tree_unflatten(treedef, [shd.place(x, sh) for x, sh in zip(whole, shs)])
 
 
-def broadcast_state(state: Any, group=None) -> None:
-    """Every tensor leaf of ``state`` (a ``DTensor``'s local tensor)
-    overwritten in place with the group's first rank's, bit for bit: one
-    broadcast of all leaves' bytes through the host (``gloo`` moves CPU
-    tensors).  Every rank of ``group`` calls it with a state of the same
-    structure; the supervisor's grow-back carries the live state onto the
-    full mesh with it."""
+def grow_back(state: Any, shardings: Any) -> Any:
+    """The live state carried onto the full mesh that ``shardings`` (the
+    full mesh's state shardings, ``make_state_specs``) name, bit for bit:
+    the counterpart of the reference's ``device_put`` onto the full
+    shardings.  Collective: every rank of that mesh calls it.
+
+    The survivors are the full mesh's lowest pods (the lost pods are the
+    highest-indexed) and hold their blocks on the degraded mesh, whose
+    ``data`` and ``model`` extents are the full mesh's: a block depends on
+    the (data, model) coordinate alone.  So each rank of a rejoining pod
+    gets the blocks of the pod-0 rank at its own (data, model) coordinate:
+    one broadcast of all its leaves' bytes over its ``pod`` group (through
+    the host on ``gloo``).  What a rejoining rank held is not read, only
+    the tree's structure.  Returns the state with each split leaf a
+    ``DTensor`` on the full mesh (replicated leaves plain tensors)."""
     import torch
     import torch.distributed as dist
 
-    src = 0 if group is None else dist.get_global_rank(group, 0)
-    leaves = [x.to_local() if shd.is_dtensor(x) else x
-              for x in tree_util.tree_flatten(state)[0] if isinstance(x, torch.Tensor)]
-    sizes = [t.numel() * t.element_size() for t in leaves]
-    if dist.get_rank() == src:
-        buf = torch.cat([t.detach().reshape(-1).view(torch.uint8).cpu() for t in leaves]
-                        or [torch.empty(0, dtype=torch.uint8)])
-    else:
-        buf = torch.empty(sum(sizes), dtype=torch.uint8)
-    dist.broadcast(buf, src=src, group=group)
-    if dist.get_rank() == src:
-        return
-    off = 0
-    for t, n in zip(leaves, sizes):
-        # clone: a byte slice at an odd offset cannot be viewed as a wider dtype
-        t.copy_(buf[off:off + n].clone().view(t.dtype).view(t.shape))
-        off += n
+    leaves, treedef = tree_util.tree_flatten(state)
+    shs = tree_util.tree_flatten(shardings)[0]
+    if len(shs) != len(leaves):
+        raise ValueError(f"state has {len(leaves)} leaves, its shardings {len(shs)}")
+    mesh = shs[0].mesh
+    sizes = shd.mesh_sizes(mesh)
+    coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
+    group = mesh.get_group("pod") if sizes.get("pod", 1) > 1 else None
+    mine = coord.get("pod", 0) == 0
+    device = shd.mesh_device(mesh)
+    blocks = []
+    for x, sh in zip(leaves, shs):
+        shape = shd.local_shape(x.shape, sh.spec, mesh)
+        local = shd.local(x)
+        if mine and tuple(local.shape) != shape:
+            raise ValueError(f"a survivor's block of {tuple(x.shape)} is {tuple(local.shape)}, "
+                             f"the full mesh's {shape}: grow-back carries blocks whose data "
+                             "and model extents are unchanged (a lost pod)")
+        blocks.append(local if mine else torch.empty(shape, dtype=x.dtype, device=device))
+    if group is not None:
+        sizes_b = [t.numel() * t.element_size() for t in blocks]
+        if mine:
+            buf = torch.cat([t.detach().reshape(-1).view(torch.uint8).cpu() for t in blocks]
+                            or [torch.empty(0, dtype=torch.uint8)])
+        else:
+            buf = torch.empty(sum(sizes_b), dtype=torch.uint8)
+        dist.broadcast(buf, src=dist.get_global_rank(group, 0), group=group)
+        if not mine:
+            off = 0
+            for t, n in zip(blocks, sizes_b):
+                # clone: a byte slice at an odd offset cannot be viewed as a wider dtype
+                t.copy_(buf[off:off + n].clone().view(t.dtype).view(t.shape))
+                off += n
+    return tree_util.tree_unflatten(treedef, [
+        shd.from_local(t, sh, x.shape) if sh.spec else t
+        for t, sh, x in zip(blocks, shs, leaves)])
 
 
 def rebalance_batch(global_batch: int, new_mesh) -> int:

@@ -36,6 +36,7 @@ import torch
 from repro_torch import tree as tree_util
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.data.tokens import TokenPipeline
+from repro_torch.dist import sharding as shardlib
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as obs_trace
 from repro_torch.train.faults import TrainingFault
@@ -205,12 +206,23 @@ def run(train_step: Callable, state: Any, pipeline: TokenPipeline,
 
 
 def _onto(restored: Any, like: Any) -> Any:
-    """The restored tree with each tensor leaf on its counterpart's device
-    in ``like`` (the manager restores onto the host)."""
+    """The restored tree with each tensor leaf where its counterpart in
+    ``like`` is: on its device, and where ``like``'s leaf is a ``DTensor``
+    block and the restored one a whole host tensor, this rank's block of it
+    placed the same way (the manager restores onto the host unless given
+    shardings)."""
     flat_r, treedef = tree_util.tree_flatten(restored)
     flat_l = tree_util.tree_flatten(like)[0]
     if len(flat_r) != len(flat_l):
         raise ValueError(f"restored state has {len(flat_r)} leaves, the live one {len(flat_l)}")
-    return tree_util.tree_unflatten(treedef, [
-        r.to(l.device) if isinstance(r, torch.Tensor) and isinstance(l, torch.Tensor) else r
-        for r, l in zip(flat_r, flat_l)])
+
+    def one(r, l):
+        if not isinstance(r, torch.Tensor) or not isinstance(l, torch.Tensor):
+            return r
+        if shardlib.is_dtensor(r):
+            return r
+        if shardlib.is_dtensor(l):
+            return shardlib.place(r, shardlib.NamedSharding(l.device_mesh, shardlib.spec_of(l)))
+        return r.to(l.device)
+
+    return tree_util.tree_unflatten(treedef, [one(r, l) for r, l in zip(flat_r, flat_l)])

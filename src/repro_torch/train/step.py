@@ -6,31 +6,48 @@ loss and its gradient (per-layer activation checkpointing is in the model),
 gradient accumulation over ``microbatches`` in a float32 accumulator, the
 gradient mean over the mesh, and AdamW under the step's schedule.
 
-Data parallelism is one process per rank of a ``DeviceMesh`` with axes
-``"pod"`` and / or ``"data"``: every rank holds the whole state and gets
-the whole global batch, takes its own rows (pod-major, then ``data`` within
-a pod and within each microbatch: the rows the reference's shardings give
-each device), and the gradients are averaged over ``"data"`` and then over
-``"pod"``.  With ``grad_comp.enabled`` and a ``"pod"`` axis the pod hop is
-:func:`repro_torch.dist.collectives.compressed_pod_mean`: int8 (or int4)
-codes and float32 block scales cross the pods, never float32 gradients,
-with the quantisation residual fed back (error feedback).  A mesh axis of
-size 1 takes no collective except the compressed hop, whose one-rank gather
-still counts its bytes.  ``mesh=None`` is one process.
+The state is sharded as the reference's ``DEFAULT_RULES`` say
+(:func:`make_state_specs`): each leaf of ``params``, ``opt.m`` and
+``opt.v`` is this rank's block of ``dist.sharding.spec_for(shape,
+logical_axes, mesh)`` (FSDP over ``"data"``, tensor and expert axes over
+``"model"``), a ``DTensor`` where it splits and a plain tensor where it
+is replicated; ``opt.step`` is replicated.  One process per rank of a
+``DeviceMesh`` with axes from ``"pod"``, ``"data"`` and ``"model"``:
+
+* **Rows.**  Every rank gets the whole global batch and takes its rows:
+  pod-major, then ``data`` within a pod and within each microbatch (the
+  reference's ``("pod", "data")`` batch sharding), then ``model`` where the
+  microbatch's rows divide over it (ranks on ``model`` compute the same
+  rows otherwise).
+* **Compute.**  The model computes on this rank's blocks through
+  ``repro_torch.dist.spmd``: each leaf is all-gathered where it is used (a
+  layer's inside its activation checkpoint), the expert stacks stay split
+  over ``model`` (expert parallelism), and the MoE routing sees the whole
+  microbatch, as the reference's global program does.  A gather's backward
+  reduce-scatters the gradient, so each rank ends with its block's gradient
+  summed over its pod's ranks; the step divides by their number.
+* **Pods.**  The gradient mean over ``"pod"`` runs on each block: with
+  ``grad_comp.enabled`` it is :func:`repro_torch.dist.collectives.
+  compressed_pod_mean` (int8 or int4 codes and float32 block scales cross
+  the pods, never float32 gradients, with the quantisation residual fed
+  back), so a rank's hop bytes shrink by its leaf's shard factor, as the
+  reference's partitioned s8 all-gather does.
+* A mesh axis of size 1 takes no collective except the compressed hop,
+  whose one-rank gather still counts its bytes.  ``mesh=None`` is one
+  process holding plain tensors.
 
 What differs from the reference:
 
-* The reference shards parameters and optimiser state over ``data`` and
-  ``model`` (FSDP and tensor parallelism under GSPMD); here every rank holds
-  the whole state, so the state's shardings are replicated and a ``"model"``
-  axis larger than 1 is refused.
+* The reference partitions one global program under GSPMD; here the
+  collectives are explicit, and ranks on ``model`` compute attention and
+  dense MLPs on whole (gathered) weights rather than on Megatron column
+  and row blocks: only the expert stacks are computed split over
+  ``model``.  The numbers are the same function within float32 rounding.
 * Error feedback is per pod: the reference stacks it as ``(n_pods, *shape)``
-  bfloat16 with the leading axis on ``"pod"``; here each pod's ranks keep
-  their pod's row, ``shape`` bfloat16.
+  bfloat16 on ``PS("pod", *spec)``; here each pod's ranks keep their pod's
+  row, ``shape`` bfloat16 on the param's spec.
 * The step writes params, ``m``, ``v`` and ``ef`` in place (the reference
-  donates its state) and returns the same tensors; leaves may be plain
-  tensors or replicated ``DTensor`` objects, whose local tensors are
-  written.
+  donates its state) and returns the same tensors.
 * The reference's jitted step is not its ``jnp`` program bit for bit (XLA
   rewrites divisions by constants and contracts products into FMAs); the
   port follows the program, so the two agree within float32 rounding.
@@ -38,6 +55,7 @@ What differs from the reference:
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 from typing import Any, Optional
@@ -47,6 +65,7 @@ import torch
 from repro_torch import tree as tree_util
 from repro_torch.dist import collectives
 from repro_torch.dist import sharding as shardlib
+from repro_torch.dist import spmd
 from repro_torch.models.layers import TensorSpec
 from repro_torch.models.spec import init_params, spec_items
 from repro_torch.optim import adamw, schedules
@@ -86,53 +105,113 @@ def _map_specs(fn, specs: Any) -> dict:
     return out
 
 
+def _check_mesh(mesh) -> None:
+    for axis in _sizes(mesh):
+        if axis not in ("pod", "data", "model"):
+            raise ValueError(f"mesh axis {axis!r}: the train step's mesh has axes from "
+                             "'pod', 'data' and 'model'")
+
+
 def make_state_specs(model, mesh=None, step_cfg: TrainStepConfig = TrainStepConfig()):
-    """(abstract state, state shardings) for init and checkpoint restore:
-    ``TensorSpec`` leaves, and replicated
+    """(abstract state, state shardings) for init, the dry run and
+    checkpoint restore: ``TensorSpec`` leaves of the whole arrays, and
     :class:`repro_torch.dist.sharding.NamedSharding` leaves on ``mesh``
-    (``None`` without a mesh)."""
+    (``None`` without a mesh): each param, ``m`` and ``v`` leaf on
+    ``spec_for(shape, logical_axes, mesh)``, the error feedback row on its
+    param's spec, ``step`` replicated."""
     specs = model.specs()
     p_abs = _map_specs(lambda p: TensorSpec(tuple(p.shape), step_cfg.param_dtype), specs)
-    state_abs = {"params": p_abs,
-                 "opt": {"m": _map_specs(lambda p: TensorSpec(tuple(p.shape), torch.float32),
-                                         specs),
-                         "v": _map_specs(lambda p: TensorSpec(tuple(p.shape), torch.float32),
-                                         specs),
-                         "step": TensorSpec((), torch.int32)}}
+    f32 = _map_specs(lambda p: TensorSpec(tuple(p.shape), torch.float32), specs)
+    state_abs = {"params": p_abs, "opt": {"m": f32, "v": dict(f32),
+                                          "step": TensorSpec((), torch.int32)}}
     if _has_ef(mesh, step_cfg):
         # this pod's error-feedback row (the reference's (n_pods, *shape) stack)
         state_abs["ef"] = _map_specs(lambda p: TensorSpec(tuple(p.shape), torch.bfloat16), specs)
-    rep = None if mesh is None else shardlib.NamedSharding(mesh, ())
-    state_shard = tree_util.tree_unflatten(
-        tree_util.tree_structure(state_abs),
-        [rep] * tree_util.tree_structure(state_abs).num_leaves)
+    if mesh is None:
+        return state_abs, tree_util.tree_unflatten(
+            tree_util.tree_structure(state_abs),
+            [None] * tree_util.tree_structure(state_abs).num_leaves)
+    _check_mesh(mesh)
+    p_shard = shardlib.tree_shardings(_map_specs(lambda p: p.axes, specs), p_abs, mesh)
+    state_shard = {"params": p_shard,
+                   "opt": {"m": p_shard, "v": p_shard,
+                           "step": shardlib.NamedSharding(mesh, ())}}
+    if "ef" in state_abs:
+        state_shard["ef"] = p_shard
     return state_abs, state_shard
+
+
+def _flat_shardings(shard: Any, mesh, n: int) -> list:
+    """The leaves of a :func:`make_state_specs` sharding tree (``n`` Nones
+    without a mesh, whose tree has no leaves)."""
+    return [None] * n if mesh is None else tree_util.tree_flatten(shard)[0]
+
+
+def _block(t: torch.Tensor, sh) -> Any:
+    """This rank's block of the whole ``t`` as placed by ``sh``: a
+    ``DTensor`` where the spec splits it, ``t`` itself where it is
+    replicated (or without a mesh)."""
+    if sh is None or not sh.spec:
+        return t
+    return shardlib.place(t, sh)
+
+
+def _zeros_like_block(x, dtype) -> Any:
+    """Zeros shaped and placed like ``x`` (a block or a plain tensor)."""
+    if not shardlib.is_dtensor(x):
+        return torch.zeros(x.shape, dtype=dtype, device=x.device)
+    z = torch.zeros(x.to_local().shape, dtype=dtype, device=x.to_local().device)
+    return shardlib.from_local(z, shardlib.NamedSharding(x.device_mesh, shardlib.spec_of(x)),
+                               x.shape)
 
 
 def init_state(model, mesh=None, generator: Optional[torch.Generator] = None,
                step_cfg: TrainStepConfig = TrainStepConfig()) -> dict:
     """Fresh state on the model's device: params drawn from ``generator``
     (seed 0 on the model's device when ``None``), zero moments, step 0, and
-    zero error feedback when the step has a compressed pod hop."""
+    zero error feedback when the step has a compressed pod hop.  On a mesh
+    each leaf is drawn whole, in the order and with the values of the
+    replicated state, and only this rank's block of it is kept (the whole
+    leaf is dropped before the next draw)."""
     if generator is None:
         generator = torch.Generator(device=model.device).manual_seed(0)
-    params = init_params(model.specs(), generator, model.device, step_cfg.param_dtype)
-    state = {"params": params, "opt": adamw.init_state(params)}
+    _, shard = make_state_specs(model, mesh, step_cfg)
+    p_shard = shard["params"]
+
+    def keep(path, _p, leaf):
+        sh = p_shard
+        for k in path:
+            sh = sh[k]
+        return _block(leaf, sh)
+
+    params = init_params(model.specs(), generator, model.device, step_cfg.param_dtype,
+                         keep=None if mesh is None else keep)
+    leaves, treedef = tree_util.tree_flatten(params)
+    zeros = lambda dt: tree_util.tree_unflatten(  # noqa: E731
+        treedef, [_zeros_like_block(p, dt) for p in leaves])
+    state = {"params": params,
+             "opt": {"m": zeros(torch.float32), "v": zeros(torch.float32),
+                     "step": torch.zeros((), dtype=torch.int32, device=model.device)}}
     if _has_ef(mesh, step_cfg):
-        leaves, treedef = tree_util.tree_flatten(params)
-        state["ef"] = tree_util.tree_unflatten(
-            treedef, [torch.zeros(p.shape, dtype=torch.bfloat16, device=p.device)
-                      for p in leaves])
+        state["ef"] = zeros(torch.bfloat16)
     return state
 
 
 def empty_state(model, mesh=None, step_cfg: TrainStepConfig = TrainStepConfig()) -> dict:
     """The state of :func:`make_state_specs` as uninitialised tensors on the
-    model's device: on ``meta``, the cost sweep's state (no data, no draw)."""
-    state_abs, _ = make_state_specs(model, mesh, step_cfg)
+    model's device, each leaf this rank's block on a mesh: on ``meta``, the
+    cost sweep's state (no data, no draw)."""
+    state_abs, shard = make_state_specs(model, mesh, step_cfg)
     leaves, treedef = tree_util.tree_flatten(state_abs)
-    return tree_util.tree_unflatten(treedef, [
-        torch.empty(s.shape, dtype=s.dtype, device=model.device) for s in leaves])
+    out = []
+    for s, sh in zip(leaves, _flat_shardings(shard, mesh, len(leaves))):
+        if sh is None or not sh.spec:
+            out.append(torch.empty(s.shape, dtype=s.dtype, device=model.device))
+            continue
+        local = torch.empty(shardlib.local_shape(s.shape, sh.spec, mesh), dtype=s.dtype,
+                            device=model.device)
+        out.append(shardlib.from_local(local, sh, s.shape))
+    return tree_util.tree_unflatten(treedef, out)
 
 
 def _schedule(step_cfg: TrainStepConfig):
@@ -141,8 +220,7 @@ def _schedule(step_cfg: TrainStepConfig):
                              total_steps=step_cfg.total_steps)
 
 
-def _local(x):
-    return x.to_local() if shardlib.is_dtensor(x) else x
+_local = shardlib.local
 
 
 def _mean_over(t: torch.Tensor, mesh, axis: str) -> torch.Tensor:
@@ -155,32 +233,36 @@ def build_train_step(model, mesh=None, step_cfg: TrainStepConfig = TrainStepConf
                      extra_keys: tuple[str, ...] = ()):
     """``(state, batch) -> (state, metrics)``; ``batch`` holds the global
     batch (numpy arrays or tensors, leading dim the batch), of which this
-    rank uses its rows.  extra_keys: additional batch entries (prefix /
-    frames) fed to loss.  Metrics: ``loss`` (the global mean), ``lr`` and
-    ``grad_norm``, float32 scalars on the model's device.
+    rank uses its rows, and ``state`` is sharded as :func:`make_state_specs`
+    says (:func:`init_state`, ``CheckpointManager.restore(shardings=)``).
+    extra_keys: additional batch entries (prefix / frames) fed to loss.
+    Metrics: ``loss`` (the global mean), ``lr`` and ``grad_norm``, float32
+    scalars on the model's device, equal on every rank.
 
     ``step(state, batch, trace_microbatches=n)`` runs only the first ``n``
     of the ``microbatches`` iterations, then the rest of the step: a cost
     trace (:mod:`repro_torch.launch.dryrun`), since every iteration runs the
     same operations; its update is not the step's."""
+    _check_mesh(mesh)
     sizes = _sizes(mesh)
-    for axis, n in sizes.items():
-        if axis not in ("pod", "data") and n > 1:
-            raise NotImplementedError(
-                f"mesh axis {axis!r} of size {n}: the port's trainer is data-parallel "
-                "(every rank holds the whole state)")
     lr_fn = _schedule(step_cfg)
     gc = step_cfg.grad_comp
     k = max(1, step_cfg.microbatches)
-    n_pods, n_data = sizes.get("pod", 1), sizes.get("data", 1)
+    n_pods, n_data, n_model = sizes.get("pod", 1), sizes.get("data", 1), sizes.get("model", 1)
+    in_pod = n_data * n_model  # the ranks a pod's gradient sums over
     compressed = gc.enabled and "pod" in sizes
     coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate())) if mesh is not None else {}
-    pod_i, data_i = coord.get("pod", 0), coord.get("data", 0)
+    pod_i, data_i, model_i = coord.get("pod", 0), coord.get("data", 0), coord.get("model", 0)
     device = model.device
+    items = list(spec_items(model.specs()))
+    shardings = _flat_shardings(make_state_specs(model, mesh, step_cfg)[1]["params"], mesh,
+                                len(items))
+    specs = [() if sh is None else sh.spec for sh in shardings]
 
-    def local_batch(batch) -> dict:
-        """(k, rows, ...) per key: this rank's rows of each microbatch."""
-        out = {}
+    def local_batch(batch) -> tuple[dict, bool]:
+        """(k, rows, ...) per key: this rank's rows of each microbatch, and
+        whether ``model`` splits them."""
+        out, split = {}, False
         for key, x in batch.items():
             x = torch.as_tensor(x)
             b, rest = x.shape[0], tuple(x.shape[1:])
@@ -189,26 +271,37 @@ def build_train_step(model, mesh=None, step_cfg: TrainStepConfig = TrainStepConf
                                  f"{k} microbatches and {n_data} data ranks")
             per_pod = b // n_pods
             x = x.reshape((n_pods, per_pod) + rest)[pod_i]  # pod-major rows
-            x = x.reshape((k, n_data, per_pod // k // n_data) + rest)[:, data_i]
-            out[key] = x.to(device)
-        return out
+            split = n_model > 1 and (per_pod // k) % (n_data * n_model) == 0
+            m = n_model if split else 1
+            x = x.reshape((k, n_data, m, per_pod // k // n_data // m) + rest)
+            out[key] = x[:, data_i, model_i if split else 0].to(device)
+        return out, split
 
-    def loss_grads(leaves, treedef, mb):
+    def loss_grads(leaves, treedef, mb, ctx):
         req = [p.detach().requires_grad_(True) for p in leaves]
+        if ctx is not None:
+            for r, (_, p), spec in zip(req, items, specs):
+                spmd.tag(r, spec, p.axes)
         params = tree_util.tree_unflatten(treedef, req)
         extras = [mb[key] for key in extra_keys]
-        loss = model.loss(params, mb["tokens"], mb["labels"], *extras)
-        grads = torch.autograd.grad(loss, req)
+        with spmd.use(ctx) if ctx is not None else contextlib.nullcontext():
+            loss = model.loss(params, mb["tokens"], mb["labels"], *extras)
+            missed = spmd.unused(req)
+            if missed:
+                raise RuntimeError("the model used parameter leaves without gathering them "
+                                   f"(a sharded step would compute on blocks): "
+                                   f"{[items[i][0] for i in missed]}")
+            grads = torch.autograd.grad(loss, req)
         return loss.detach(), list(grads)
 
-    def grads_of(leaves, treedef, micro, runs):
+    def grads_of(leaves, treedef, micro, runs, ctx):
         if k == 1:
-            return loss_grads(leaves, treedef, {key: v[0] for key, v in micro.items()})
+            return loss_grads(leaves, treedef, {key: v[0] for key, v in micro.items()}, ctx)
         # gradient accumulation: k microbatches, float32 accumulator
         loss = torch.zeros((), dtype=torch.float32, device=device)
         acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device) for p in leaves]
         for i in range(runs):
-            l, g = loss_grads(leaves, treedef, {key: v[i] for key, v in micro.items()})
+            l, g = loss_grads(leaves, treedef, {key: v[i] for key, v in micro.items()}, ctx)
             loss = loss + l
             for a, gi in zip(acc, g):
                 a.add_(gi.to(torch.float32))
@@ -222,10 +315,18 @@ def build_train_step(model, mesh=None, step_cfg: TrainStepConfig = TrainStepConf
         leaves, treedef = tree_util.tree_flatten(params)
         leaves = [_local(p) for p in leaves]
         runs = k if trace_microbatches is None else min(max(1, trace_microbatches), k)
-        loss, grads = grads_of(leaves, treedef, local_batch(batch), runs)
-        if n_data > 1:
-            grads = [_mean_over(g, mesh, "data") for g in grads]
-            loss = _mean_over(loss, mesh, "data")
+        micro, split = local_batch(batch)
+        ctx = None
+        if mesh is not None:
+            # the routing's rows: the pods' too unless each pod routes its own
+            rows = (("pod",) if not compressed else ()) + ("data",) + (("model",) if split else ())
+            ctx = spmd.Context(mesh, rows, next(iter(micro.values())).shape[1])
+        loss, grads = grads_of(leaves, treedef, micro, runs, ctx)
+        if in_pod > 1:  # the gathers' backward summed each block over the pod
+            grads = [g / torch.full_like(g, in_pod) for g in grads]
+            for axis in ("data", "model"):
+                if sizes.get(axis, 1) > 1:
+                    loss = _mean_over(loss, mesh, axis)
         if compressed:
             ef = (tree_util.tree_flatten(state["ef"])[0] if gc.error_feedback
                   else [None] * len(grads))
@@ -241,16 +342,13 @@ def build_train_step(model, mesh=None, step_cfg: TrainStepConfig = TrainStepConf
             loss = _mean_over(loss, mesh, "pod")
 
         opt = state["opt"]
-        local_opt = {"m": tree_util.tree_unflatten(
-                         treedef, [_local(x) for x in tree_util.tree_flatten(opt["m"])[0]]),
-                     "v": tree_util.tree_unflatten(
-                         treedef, [_local(x) for x in tree_util.tree_flatten(opt["v"])[0]]),
-                     "step": _local(opt["step"])}
-        lr = lr_fn(local_opt["step"])
+        blocks = [g if sh is None or not sh.spec else shardlib.from_local(g, sh, p.shape)
+                  for g, sh, (_, p) in zip(grads, shardings, items)]
+        lr = lr_fn(_local(opt["step"]))
         _, new_opt, metrics = adamw.apply_updates(
-            tree_util.tree_unflatten(treedef, leaves), local_opt,
-            tree_util.tree_unflatten(treedef, grads), lr, step_cfg.adam)
-        del grads
+            params, {"m": opt["m"], "v": opt["v"], "step": _local(opt["step"])},
+            tree_util.tree_unflatten(treedef, blocks), lr, step_cfg.adam)
+        del grads, blocks
         new_state = {"params": params,
                      "opt": {"m": opt["m"], "v": opt["v"], "step": new_opt["step"]}}
         if "ef" in state:

@@ -53,17 +53,22 @@ rank at the same step.
   * **One writer.**  ``ckpt`` must write on rank 0 alone (a
     ``CheckpointManager`` with a ``group``); the injector applies its disk
     faults there alone (``FaultInjector.manager``).
-  * **Restore happens once**: rank 0 runs ``restore_latest_valid`` (it
-    verifies, quarantines and adopts a step) and broadcasts the state to
-    the other survivors, which then hold the same bytes.
-  * **Grow-back is bitwise and loses no step**: rank 0 broadcasts the live
-    state over the full mesh, lost ranks included.  There is no restore.
+  * **Restore is decided once**: rank 0 runs ``restore_latest_valid`` (it
+    verifies, quarantines and adopts a step), and the other survivors
+    restore that step onto their blocks (``restore(shardings=)`` with the
+    shrunk mesh's :attr:`Trainer.shardings`).
+  * **Grow-back is bitwise and loses no step**: each rank of a rejoining
+    pod gets the blocks of the surviving rank at its own (data, model)
+    coordinate (``elastic.grow_back``).  There is no restore.
+  * **Checkpoints follow the mesh**: a save of split leaves is a collective
+    of the mesh's ranks, so each rebuild gives the manager a ``gloo`` group
+    over the new mesh's ranks (after its pending saves have drained).
 
-The port's trainer holds the whole state on every rank (``train/step.py``),
-so its :class:`Trainer` has no ``shardings``: a restored state is moved onto
-the live state's devices.  Out of scope, as in the reference (DESIGN.md
-§10): Byzantine hosts, and in-flight optimizer-state reshaping (``ef`` is
-per pod, so ``--grad-comp`` is refused with a shrink).
+The state is sharded as ``train.step.make_state_specs`` says (FSDP over
+``data``, tensor and expert axes over ``model``) and :class:`Trainer`
+carries its shardings, as the reference's does.  Out of scope, as in the
+reference (DESIGN.md §10): Byzantine hosts, and in-flight optimizer-state
+reshaping (``ef`` is per pod, so ``--grad-comp`` is refused with a shrink).
 """
 
 from __future__ import annotations
@@ -122,6 +127,7 @@ class Trainer:
     put_batch: Optional[Callable]
     make_state: Callable[[], Any]  # fresh step-0 state on this mesh
     snapshot_hook: Optional[Callable] = None
+    shardings: Any = None  # the state's NamedSharding tree on this mesh
 
 
 @dataclasses.dataclass
@@ -167,6 +173,7 @@ def make_trainer(model, mesh_shape: dict, global_batch: int, *, vocab: int,
                                     global_batch=global_batch, seed=data_seed))
     member = mesh.get_coordinate() is not None
     train_step = step_lib.build_train_step(model, mesh, scfg) if member else None
+    _, shardings = step_lib.make_state_specs(model, mesh, scfg)
 
     hook = None
     if insitu_dir is not None:
@@ -184,7 +191,7 @@ def make_trainer(model, mesh_shape: dict, global_batch: int, *, vocab: int,
     return Trainer(mesh=mesh, mesh_shape=dict(mesh_shape),
                    global_batch=global_batch, train_step=train_step,
                    pipeline=pipe, put_batch=None, make_state=make_state,
-                   snapshot_hook=hook)
+                   snapshot_hook=hook, shardings=shardings)
 
 
 def _quiesce_all(trainer: Trainer, ckpt: CheckpointManager,
@@ -233,7 +240,7 @@ class _Ranks:
             raise ValueError("one process per rank: the checkpoint manager must write on "
                              "rank 0 alone (give it a group, CheckpointManager(group=...))")
         self.ctl = dist.new_group(backend="gloo") if self.multi else None
-        self.peers = None  # a group over the current mesh's ranks
+        self.ckpt = ckpt
 
     def share(self, obj: Any) -> Any:
         """Rank 0's ``obj``, on every rank of the world."""
@@ -244,29 +251,27 @@ class _Ranks:
         return box[0]
 
     def rebuilt(self, trainer: Trainer) -> Trainer:
-        """Called on every rank after each builder call: the group of the
-        new mesh's ranks (collective over the world)."""
+        """Called on every rank after each builder call: the checkpoint
+        manager saves over a group of the new mesh's ranks (created by every
+        rank of the world, once this rank's pending saves have drained)."""
         if self.multi:
-            n = trainer.mesh.size()
-            self.peers = (self.ctl if n == dist.get_world_size()
-                          else dist.new_group(ranks=list(range(n)), backend="gloo"))
+            self.ckpt.wait()
+            group = dist.new_group(ranks=list(range(trainer.mesh.size())), backend="gloo")
+            self.ckpt.set_group(group)
         return trainer
-
-    def send_state(self, state: Any, trainer: Trainer) -> None:
-        """Rank 0's state on every rank of ``trainer``'s mesh."""
-        if self.multi and _member(trainer):
-            elastic.broadcast_state(state, self.peers)
 
     def restore(self, ckpt: CheckpointManager, state: Any, trainer: Trainer,
                 max_fallbacks: int) -> tuple[Any, int, int]:
-        """Rank 0 restores the newest valid step and sends it to the mesh's
-        other ranks: ``(state, step, quarantined)``."""
+        """Rank 0 restores the newest valid step; the mesh's other ranks
+        restore that step: ``(state, step, quarantined)``, each rank's blocks
+        on ``trainer``'s mesh."""
         info, err, restored = None, None, None
         if self.first:
             before = len(list(ckpt.dir.glob("quarantine/*")))
             try:
                 restored, _, rstep = ckpt.restore_latest_valid(
-                    state_like=state, max_fallbacks=max_fallbacks)
+                    state_like=state, shardings=trainer.shardings,
+                    max_fallbacks=max_fallbacks)
                 info = (rstep, len(list(ckpt.dir.glob("quarantine/*"))) - before, None)
             except Exception as e:  # every rank must learn that the restore failed
                 err, info = e, (None, 0, repr(e))
@@ -275,9 +280,10 @@ class _Ranks:
             if err is not None:
                 raise err
             raise SupervisorError(f"rank 0 could not restore: {failed}")
+        if restored is None and _member(trainer):
+            restored, _ = ckpt.restore(rstep, state_like=state, shardings=trainer.shardings)
         if restored is not None:
             state = loop_lib._onto(restored, state)
-        self.send_state(state, trainer)
         return state, rstep, quarantined
 
 
@@ -453,11 +459,12 @@ def run_supervised(builder: Callable[[dict, int], Trainer],
         if degraded and grow_at is not None and step >= grow_at \
                 and step < cfg.total_steps:
             # grow back: the live state carries onto the full mesh —
-            # bitwise (rank 0's bytes to every rank), no restore, zero
-            # lost steps
+            # bitwise (each surviving block to its rejoining pods), no
+            # restore, zero lost steps
             trainer = ranks.rebuilt(builder(dict(full_shape), global_batch))
             with obs_trace.span("supervisor.grow_back", step=step):
-                ranks.send_state(state, trainer)
+                if trainer.shardings is not None:
+                    state = elastic.grow_back(state, trainer.shardings)
             if not ranks.first and hasattr(injector, "adopt_log"):
                 injector.adopt_log(out["log"])  # a rejoining rank's fired events
             result.transitions.append(Transition(

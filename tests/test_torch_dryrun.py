@@ -15,6 +15,13 @@ tensors and a fake process group, no card.
   and the live-bytes tracker's peak on a hand-made allocate / free sequence;
 * the CLI at full width on ``starcoder2-3b decode_32k single`` and a
   skipped ``long_500k`` cell;
+* train cells on the reference's unfolded meshes (with the sharded
+  state): a traced step's state is each leaf's local block (its bytes the
+  sum of the blocks' from the specs) and its all-gather and reduce-scatter
+  bytes are non-zero; the committed ``experiments/torch_dryrun/`` train
+  cells lie on ``(16, 16)`` and ``(2, 16, 16)`` with non-zero all-gather
+  and reduce-scatter bytes, the prefill and decode cells on the folded
+  ``(16, 1)`` and ``(2, 16, 1)``;
 * the dry run refuses to replace a process group that is up, ``meta`` is a
   device the port accepts and never a default, and every hand-kernel wrapper
   refuses a ``meta`` tensor.
@@ -197,6 +204,60 @@ def test_cli_at_full_width_decode_and_a_skipped_cell(tmp_path):
     assert skipped["status"] == "skipped"
     assert skipped["skip_reason"] == jreg.supports(jreg.get_config("starcoder2-3b"),
                                                    jreg.SHAPES["long_500k"])[1]
+
+
+@pytest.mark.parametrize("multi_pod", [False, True])
+def test_train_cell_on_the_unfolded_mesh_holds_blocks(multi_pod):
+    cfg = treg.get_config("minicpm-2b", smoke=True)
+    shape = treg.ShapeCell("train_small", 16, 64, "train")
+    with dryrun.fake_mesh(multi_pod) as mesh:
+        assert dryrun.mesh_sizes(mesh)["model"] == 16 and mesh.size() == (512 if multi_pod
+                                                                          else 256)
+        model = treg.build_model(cfg, device="meta")
+        cost = dryrun.train_cost(model, cfg, shape, mesh, 1, 1)
+        state_bytes, _ = dryrun.train_arg_bytes(model, mesh)
+        blocks, _ = dryrun.state_blocks(model, mesh, dryrun.step_lib.TrainStepConfig(
+            param_dtype=torch.bfloat16))
+    assert cost["argument_bytes"] == state_bytes == sum(dryrun.alloc_bytes(s.nbytes)
+                                                       for s in blocks)
+    whole = sum(p.nbytes for p in dryrun.tree_util.tree_flatten(
+        dryrun.step_lib.make_state_specs(model, None, dryrun.step_lib.TrainStepConfig(
+            param_dtype=torch.bfloat16))[0])[0])
+    assert state_bytes < whole / 8  # every large leaf split over data and model
+    assert cost["collective"]["all-gather"] > 0 and cost["collective"]["reduce-scatter"] > 0
+
+
+def test_train_cell_without_a_mesh_holds_the_whole_state():
+    """One rank and no mesh (``chip_smoke.py`` phase 29's cells): the
+    state is every leaf whole and the step gathers nothing."""
+    cfg = treg.get_config("minicpm-2b", smoke=True)
+    model = treg.build_model(cfg, device="meta")
+    cost = dryrun.train_cost(model, cfg, treg.ShapeCell("train_small", 16, 4, "train"), None,
+                             1, 1)
+    whole = dryrun.step_lib.make_state_specs(model, None, dryrun.step_lib.TrainStepConfig(
+        param_dtype=torch.bfloat16))[0]
+    leaves = dryrun.tree_util.tree_flatten(whole)[0]
+    assert cost["argument_bytes"] == dryrun.train_arg_bytes(model, None)[0] == sum(
+        dryrun.alloc_bytes(s.nbytes) for s in leaves)
+    assert sum(cost["collective"].values()) == 0 and cost["flops"] > 0
+
+
+def test_committed_cells_lie_on_their_meshes():
+    cells = [json.loads(p.read_text()) for p in sorted((ROOT / "experiments/torch_dryrun")
+                                                       .glob("*.json"))]
+    assert len(cells) == 42
+    for c in cells:
+        if c["status"] != "ok":
+            continue
+        multi = c["mesh"] == "multi"
+        if c["kind"] == "train":
+            assert c["mesh_shape"] == ({"pod": 2, "data": 16, "model": 16} if multi
+                                       else {"data": 16, "model": 16}), c["arch"]
+            assert c["collective_bytes_per_device"]["all-gather"] > 0
+            assert c["collective_bytes_per_device"]["reduce-scatter"] > 0
+        else:
+            assert c["mesh_shape"] == ({"pod": 2, "data": 16, "model": 1} if multi
+                                       else {"data": 16, "model": 1}), c["arch"]
 
 
 def test_dry_run_refuses_a_group_that_is_up():

@@ -37,7 +37,7 @@ def test_the_walk_sees_the_port():
                    "serving/engine.py", "serving/kv_pages.py", "launch/serve.py",
                    "analysis/halos.py", "foresight/__init__.py", "foresight/cbench.py",
                    "foresight/pat.py", "foresight/cinema.py", "foresight/guideline.py",
-                   "dist/sharding.py", "dist/insitu.py", "dist/collectives.py",
+                   "dist/sharding.py", "dist/insitu.py", "dist/collectives.py", "dist/spmd.py",
                    "launch/train.py", "launch/mesh.py", "serving/router.py",
                    "serving/faults.py", "optim/adamw.py", "optim/schedules.py",
                    "data/tokens.py", "train/step.py", "train/loop.py", "train/elastic.py",

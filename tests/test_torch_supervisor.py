@@ -9,14 +9,16 @@
   ROADMAP Queue 3).  Transitions, ``injector.log``, segments and the step
   trace are equal; losses agree within ``rtol`` 1e-6 (float32 scalar
   arithmetic: the two sum the four squares in other orders).
-* The reference's ``test_fault_drill_8dev`` on 4 ``gloo`` ranks, one
-  process each: its 8-device ``{"pod": 2, "data": 2, "model": 2}`` mesh
-  becomes ``{"pod": 2, "data": 2}`` (the port's trainer refuses a
-  ``model`` axis above 1).  Its expected values hold on every rank, and
-  the 4 ranks end with bitwise-equal state.
-* ``tests/test_train_loop.py::test_elastic_grow_back_bitwise`` on 4
-  ``gloo`` ranks: save on the full mesh, restore onto the survivors' mesh,
-  carry back to the full mesh, bitwise at every hop.
+* The reference's ``test_fault_drill_8dev`` on 8 ``gloo`` ranks, one
+  process each, at its mesh ``{"pod": 2, "data": 2, "model": 2}`` with the
+  state sharded as the reference's (FSDP over ``data``, tensor and expert
+  axes over ``model``).  Its expected values hold on every rank, every
+  rank ends with the same losses, and the two ranks at each ``(data,
+  model)`` coordinate (one per pod) end with bitwise-equal blocks.
+* ``tests/test_train_loop.py::test_elastic_grow_back_bitwise`` on the same
+  8 ranks: save on the full mesh, restore onto the survivors' mesh, carry
+  back to the full mesh (``elastic.grow_back``), each rank's blocks
+  bitwise at every hop.
 * ``tests/test_obs.py::TestSupervisedDrill``: the spans, events, counters
   and sidecars of a supervised run with the flight recorder on.
 * The CLI, ``launch/train.py main --supervise``, and its refusals.
@@ -260,6 +262,7 @@ dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", world_siz
 from repro_torch import tree as tree_util
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.configs import registry
+from repro_torch.dist import sharding as shardlib
 from repro_torch.train import faults, step as step_lib
 from repro_torch.train import supervisor as sup
 
@@ -280,13 +283,16 @@ ckpt = CheckpointManager(ckdir, async_save=True, write_bytes=inj.write_bytes,
 inj.manager = ckpt
 builder = functools.partial(sup.make_trainer, model, vocab=cfg.vocab, seq_len=16, step_cfg=scfg)
 state, res = sup.run_supervised(
-    builder, {"pod": 2, "data": 2}, 8, ckpt,
+    builder, {"pod": 2, "data": 2, "model": 2}, 8, ckpt,
     sup.SupervisorConfig(total_steps=18, ckpt_every=4, drain_deadline_s=30.0, grow_back_after=4),
     injector=inj, log=print if rank == 0 else (lambda s: None))
 ckpt.wait()
-digests = [hashlib.sha256(x.detach().reshape(-1).view(torch.uint8).numpy().tobytes()).hexdigest()
-           for x in tree_util.tree_flatten(state)[0]]
-pickle.dump({"final_step": res.final_step, "log": inj.log,
+leaves = tree_util.tree_flatten(state)[0]
+digests = [hashlib.sha256(shardlib.local(x).detach().reshape(-1).view(torch.uint8).numpy()
+                          .tobytes()).hexdigest() for x in leaves]
+meshes = {tuple(x.device_mesh.shape) for x in leaves if shardlib.is_dtensor(x)}
+split = sum(shardlib.is_dtensor(x) for x in leaves)
+pickle.dump({"final_step": res.final_step, "log": inj.log, "meshes": meshes, "split": split,
              "transitions": [t.__dict__ for t in res.transitions],
              "loss_trace": res.loss_trace, "continuity": res.continuity,
              "digests": digests}, open(f"{out}/drill{rank}.pkl", "wb"))
@@ -304,6 +310,7 @@ dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", world_siz
 from repro_torch import tree as tree_util
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.configs import registry
+from repro_torch.dist import sharding as shardlib
 from repro_torch.train import elastic, step as step_lib
 
 def digest(tree):
@@ -313,7 +320,7 @@ def digest(tree):
 
 cfg = registry.get_config("minicpm-2b", smoke=True)
 model = registry.build_model(cfg, device="cpu")
-full_shape = {"pod": 2, "data": 2}
+full_shape = {"pod": 2, "data": 2, "model": 2}
 full = elastic.make_degraded_mesh(full_shape, "cpu")
 state = step_lib.init_state(model, full, torch.Generator().manual_seed(0))
 ref = digest(state)
@@ -326,28 +333,31 @@ dist.barrier()  # the writer's save is on disk
 shape = elastic.degraded_mesh_shape(full_shape, lost_pods=1)
 small = elastic.make_degraded_mesh(shape, "cpu")  # collective: every rank
 member = small.get_coordinate() is not None
-assert member == (rank < 2), (rank, small.get_coordinate())
+assert member == (rank < 4), (rank, small.get_coordinate())
 _, small_shard = step_lib.make_state_specs(model, small)
 hops = {}
 if rank == 0:
     state_s, _, step = ckpt.restore_latest_valid(state_like=state, shardings=small_shard)
 box = [step if rank == 0 else None]
 dist.broadcast_object_list(box, src=0)
-if rank == 1:
+if member and rank != 0:
     state_s, _ = ckpt.restore(box[0], state_like=state, shardings=small_shard)
 if member:
     assert all(x.device_mesh is small for x in tree_util.tree_flatten(state_s)[0])
     hops["shrink"] = digest(state_s)
-else:  # a lost rank: what it holds is overwritten at the grow-back
+else:  # a lost rank: what it holds is not read at the grow-back
     state_s = step_lib.init_state(model, None, torch.Generator().manual_seed(rank + 7))
 assert box[0] == 10
 
-# grow back: the live state onto the full mesh, rank 0's bytes to every rank
+# grow back: each survivor's blocks to the rank of the rejoining pod at its
+# (data, model) coordinate
 full2 = elastic.make_degraded_mesh(full_shape, "cpu")
-elastic.broadcast_state(state_s, None)
-state_f = elastic.reshard_state(state_s, model, full2)
-assert all(x.device_mesh is full2 for x in tree_util.tree_flatten(state_f)[0])
+_, full_shard = step_lib.make_state_specs(model, full2)
+state_f = elastic.grow_back(state_s, full_shard)
+split = [x for x in tree_util.tree_flatten(state_f)[0] if shardlib.is_dtensor(x)]
+assert split and all(x.device_mesh is full2 for x in split)
 hops["grow"] = digest(state_f)
+hops["reshard"] = digest(elastic.reshard_state(state_f, model, full2))
 
 # rebalance edge cases on a real data-parallel extent (2)
 assert elastic.rebalance_batch(256, small) == 256
@@ -368,15 +378,15 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def _four_ranks(tmp_path, script: str, tag: str) -> list:
+def _ranks(tmp_path, script: str, tag: str, n: int = 8) -> list:
     path = tmp_path / f"{tag}.py"
     path.write_text(textwrap.dedent(script))
     env = dict(os.environ, PYTHONPATH=str(SRC), OMP_NUM_THREADS="1")
     port = str(_free_port())
-    procs = [subprocess.Popen([sys.executable, str(path), str(r), "4", port,
+    procs = [subprocess.Popen([sys.executable, str(path), str(r), str(n), port,
                                str(tmp_path / "ckpt"), str(tmp_path)],
                               env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
-             for r in range(4)]
+             for r in range(n)]
     outs = []
     try:
         for p in procs:
@@ -389,44 +399,49 @@ def _four_ranks(tmp_path, script: str, tag: str) -> list:
                 p.wait()
     for r, (p, out) in enumerate(zip(procs, outs)):
         assert p.returncode == 0, f"rank {r}:\n{out[-3000:]}"
-    return [pickle.load(open(tmp_path / f"{tag}{r}.pkl", "rb")) for r in range(4)]
+    return [pickle.load(open(tmp_path / f"{tag}{r}.pkl", "rb")) for r in range(n)]
 
 
 def test_fault_drill_four_gloo_ranks(tmp_path):
-    """The reference's 8-device drill on 4 ranks: pod loss at step 9 ->
-    quiesce -> the truncated step-8 snapshot quarantined, step 4 restored
-    onto ``{"pod": 1, "data": 2}`` (ranks 0-1; ranks 2-3 wait) -> grow back
-    at step 8 -> step 18, every rank with the same bytes."""
-    runs = _four_ranks(tmp_path, DRILL_RANK, "drill")
+    """The reference's 8-device drill on 8 ranks at its mesh: pod loss at
+    step 9 -> quiesce -> the truncated step-8 snapshot quarantined, step 4
+    restored onto ``{"pod": 1, "data": 2, "model": 2}`` (ranks 0-3; ranks
+    4-7 wait) -> grow back at step 8 -> step 18; the ranks at one (data,
+    model) coordinate end with the same bytes."""
+    runs = _ranks(tmp_path, DRILL_RANK, "drill")
     for r, run in enumerate(runs):
         assert run["final_step"] == 18, (r, run["final_step"])
         assert run["log"] == [(5, "drain_io"), (9, "corrupt_payload"), (9, "pod_loss")], r
         shrink, grow = run["transitions"]
         assert shrink["kind"] == "shrink" and shrink["at_step"] == 9
         assert shrink["restored_step"] == 4 and shrink["quarantined"] == 1, shrink
-        assert shrink["mesh_shape"] == {"pod": 1, "data": 2}
+        assert shrink["mesh_shape"] == {"pod": 1, "data": 2, "model": 2}
         assert shrink["global_batch"] == 8  # dp extent 2 still divides 8
         assert grow["kind"] == "grow" and grow["at_step"] == 8
-        assert grow["mesh_shape"] == {"pod": 2, "data": 2}
+        assert grow["mesh_shape"] == {"pod": 2, "data": 2, "model": 2}
+        assert run["meshes"] == {(2, 2, 2)} and run["split"] > 0  # sharded, on the full mesh
         assert any(k == "shrink-restore" for *_, k in run["continuity"])
         assert all(np.isfinite(v) for _, v in run["loss_trace"])
         assert [s for s, _ in run["loss_trace"]] == list(range(9)) + list(range(4, 18))
         assert run["loss_trace"] == runs[0]["loss_trace"]
-        assert run["digests"] == runs[0]["digests"], f"rank {r}'s state differs from rank 0's"
+        assert run["digests"] == runs[r % 4]["digests"], f"rank {r}'s blocks differ from pod 0's"
+    assert runs[0]["digests"] != runs[1]["digests"]  # other coordinates, other blocks
     assert len(list((tmp_path / "ckpt").glob("quarantine/step_*"))) == 1
 
 
 def test_elastic_grow_back_bitwise_four_gloo_ranks(tmp_path):
     """Snapshot on the full mesh -> restore onto the survivors' mesh ->
-    live carry back onto the full mesh: bitwise at every hop, on every
-    rank."""
-    runs = _four_ranks(tmp_path, GROWBACK_RANK, "grow")
-    ref = runs[0]["ref"]
+    live carry back onto the full mesh: each rank's blocks bitwise at every
+    hop, equal at each (data, model) coordinate across the pods."""
+    runs = _ranks(tmp_path, GROWBACK_RANK, "grow")
     for r, run in enumerate(runs):
-        assert run["ref"] == ref, r  # the same initial state everywhere
-        if r < 2:
+        ref = run["ref"]
+        assert ref == runs[r % 4]["ref"], r  # one block per (data, model) coordinate
+        if r < 4:
             assert run["shrink"] == ref, r
         assert run["grow"] == ref, r
+        assert run["reshard"] == ref, r
+    assert runs[0]["ref"] != runs[1]["ref"]
 
 
 # ------------------------------------------------------- flight recorder --
