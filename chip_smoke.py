@@ -316,13 +316,16 @@ Needs one CUDA card and ``nvcc``; it builds the hand-written kernels from
     off) on 4 ``gloo`` ranks on cuda:0 as ``{"data": 2, "model": 2}``
     (this script with ``--step-rank``), 3 steps of 8 x 256 tokens at lr
     1e-3, then the same steps on one replicated rank once the others have
-    freed the card; that rank receives every block over gloo.  Held:
-    each rank's local leaf shapes equal its specs; losses equal on the four
-    ranks; the steps at the initial parameters within ``STEP_TOL`` of the
-    replicated run's, the state after the first update element by element
-    (at most ``STEP_SHARE`` outside), later losses and the final
-    parameters within the AdamW bounds (``STEP_TOL``'s comment says why);
-    rank 0's peak within ``DRYRUN_PEAK_TOL`` of the dry run's prediction
+    freed the card, teacher-forced on each step's sharded gradient and norm
+    (``STEP_TOL``'s comment says why); that rank receives every block over
+    gloo.  Held on every step: the four ranks' losses and norms equal; the
+    loss within ``STEP_TOL``; the norm over blocks against the norm over
+    whole leaves of the same values; each leaf's sharded gradient, and the
+    gradient norm, within ``STEP_F32_FACTOR`` times the replicated float32
+    one's distance from a float64 evaluation of the step (each leaf in L2
+    and in its largest element); at the end every parameter, ``m`` and ``v`` element
+    within ``STEP_TOL``; each rank's local leaf
+    shapes equal its specs; rank 0's peak within ``DRYRUN_PEAK_TOL`` of the dry run's prediction
     for the same mesh (a fake 4-rank group on ``meta``) and its
     ``FlopCounterMode`` count equal to the trace's.  One in-situ snapshot
     of the params through ``build_insitu_hook``, restored with
@@ -357,6 +360,7 @@ import time
 import types
 from concurrent.futures import ProcessPoolExecutor
 from pathlib import Path
+from typing import Iterator
 
 import numpy as np
 import torch
@@ -395,6 +399,7 @@ from repro_torch.launch import train as launch_train_lib  # noqa: E402
 from repro_torch.launch.mesh import make_mesh  # noqa: E402
 from repro_torch.models import layers as model_layers  # noqa: E402
 from repro_torch.models import moe as moe_lib  # noqa: E402
+from repro_torch.models import transformer as transformer_lib  # noqa: E402
 from repro_torch.models.spec import init_params, param_count  # noqa: E402
 from repro_torch.obs import metrics as obs_metrics  # noqa: E402
 from repro_torch.obs import trace as obs_trace  # noqa: E402
@@ -4283,28 +4288,35 @@ STEP_MESH = {"data": 2, "model": 2}  # 4 gloo ranks on cuda:0; a fifth runs the 
 STEP_BATCH, STEP_SEQ, STEP_STEPS, STEP_LR = 8, 256, 3, 1e-3
 STEP_EB = 1e-3  # the in-situ snapshot's absolute bound
 STEP_MIN_BYTES = 1 << 20  # leaves below this stay out of the snapshot and are saved raw
-# the sharded run against the replicated one (the CPU twin's, the loss widened
-# for 4096-wide contractions): losses and gradient norms of the steps taken at
-# the initial parameters (the schedule's rate is 0 at step 0), and each element
-# of params, m and v after the first update
+# The sharded run against the replicated one, at the CPU twin's tolerances
+# (the loss widened for 4096-wide contractions), on every step.  The
+# replicated rank is teacher-forced on the gradient: at each step it takes
+# its own loss and gradient from its own state, holds them against the
+# sharded run's, then applies AdamW with the sharded run's gradient and
+# norm, so both runs enter every step with the same parameters, m and v.
+# AdamW divides each gradient element by its own root mean square, so an
+# element whose gradient is at rounding level takes its step's sign from
+# the rounding (up to 2 lr apart); forcing keeps that amplification out,
+# and the sharded computation is held where it acts, on the gradient.  Two
+# float32 programs of one step part where the step amplifies rounding (on
+# the H100 at this phase's widths the query and key gradients of either run
+# lie about 2e-4 of their norm from float64, through the attention scores'
+# backward), so each float32 gradient is held against a float64
+# evaluation of the same step at the same parameters (:func:`float64_model`):
+# each leaf's sharded gradient lies within ``STEP_F32_FACTOR`` times the
+# replicated float32 gradient's distance from it, in L2 and in its largest
+# element (a missing or doubled reduction moves a leaf by half its norm or
+# more, a misplaced block by its whole size, one of the 2048 tokens handled
+# wrong by about 1/sqrt(2048) of the leaves it reaches); the gradient norm
+# likewise (the two float32 norms part by up to 1.5e-5, each 0.7e-5 to
+# 3.1e-5 from the float64 one).  Also held: losses within ``loss_rtol``,
+# and the replicated rank's norm of the sharded gradient's values against
+# the sharded norm over blocks within ``norm_rtol``.  At
+# the end the state, the same update of the same inputs on blocks and on
+# whole leaves, is held element by element: every parameter within
+# ``param_atol``, every element of m and v within ``mv_rtol``.
 STEP_TOL = {"loss_rtol": 1e-5, "param_atol": 1e-5, "mv_rtol": 1e-2, "norm_rtol": 1e-5}
-# An element's AdamW step is lr * m/sqrt(v): where its gradient is at rounding
-# level, the two runs' rounding picks its sign, so after the first update it
-# may lie up to 2 lr from the other run's; a wrong block or a missing
-# reduction moves whole blocks.  So the state after the first update is held
-# element by element with at most this share outside the tolerances (and
-# every parameter within 2 lr of the other run's).  Once parameters differ,
-# near-tied MoE routes flip and the runs part (a chaotic map, not a fault):
-# the later steps' losses are held within this rtol, every final parameter
-# within 2 lr per update, and the final shares and norms are printed
-STEP_SHARE, STEP_LATE_LOSS_RTOL = 1e-4, 1e-4
-# A moment element near zero carries its gradient's rounding, which scales
-# with the leaf's largest terms, not with the element: the moments' atol is
-# this fraction of the leaf's largest magnitude (float32 sums of ~10^3 terms).
-# A first moment also cancels where two steps' gradients have opposite signs,
-# and AdamW divides it by sqrt(v): m is held on the scale |m| + sqrt(v), what
-# its error moves the update by
-STEP_MOMENT_FLOOR = 1e-6
+STEP_F32_FACTOR = 4.0
 STEP_RANKS = math.prod(STEP_MESH.values())
 
 
@@ -4360,13 +4372,12 @@ def step_start(port: int) -> list:
     return procs
 
 
-def _timed_steps(step, state, batches, after=None) -> tuple:
+def _timed_steps(step, state, batches) -> tuple:
     """Run the steps: the first under ``FlopCounterMode`` with the peak
     counted from its start, the others timed (each ended by a
-    ``synchronize``).  ``after(state)`` runs once, untimed, after the first
-    step whose rate is above 0 (the first update).  Returns the state and a
-    record: losses, gradient norms, rates, FLOPs and peak of the first step,
-    ms of the others and the bytes this rank sent in the second."""
+    ``synchronize``).  Returns the state and a record: losses, gradient
+    norms, rates, FLOPs and peak of the first step, ms of the others and
+    the bytes this rank sent in the second."""
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -4392,8 +4403,6 @@ def _timed_steps(step, state, batches, after=None) -> tuple:
         if i == 0:
             rec["sent"] = {**{f"step {k}": v for k, v in spmd.sent_bytes.items()},
                            **{f"loss {k}": v for k, v in insitu.sent_bytes.items() if v}}
-        if after is not None and rec["lrs"][-1] > 0 and not any(rec["lrs"][:-1]):
-            after(state)  # the first update (the rate is 0 at step 0)
     return state, rec
 
 
@@ -4463,63 +4472,130 @@ def _snapshot_and_restore(state, mesh, group, out: Path) -> dict:
             "snapshot_s": snap_s, "restore_s": restore_s, "launches": launches}
 
 
-def _compare_blocks(state, parts, shards, mesh) -> dict:
-    """The replicated rank's side of a comparison: every sharded rank's
-    block of each ``parts`` leaf, received over gloo in rank order, against
-    the same slice of ``state``.  Per kind (params, m, v): the largest
-    difference (absolute for params, relative for the moments), how many
-    elements lie outside ``STEP_TOL`` (the moments' rtol on the scales of
-    ``STEP_MOMENT_FLOOR``), how many lie outside the plain rtol, how many
-    were compared, and the leaf with the most outside."""
-    pairs = tree_util.tree_flatten_with_path(state)[0]
-    flat = [x for _, x in pairs]
-    index = {p: j for j, (p, _) in enumerate(pairs)}
-    out = {k: {"worst": 0.0, "over": 0, "over_plain": 0, "count": 0, "leaf": None,
-               "leaf_over": 0} for k in ("params", "m", "v")}
+def _rank_blocks(shape, spec, mesh) -> Iterator[tuple]:
+    """``(rank, local shape, slices)`` of each sharded rank's block of a
+    leaf of ``shape`` on ``spec``, in rank order."""
+    local = sharding.local_shape(shape, spec, mesh)
+    spec = tuple(spec) + (None,) * (len(local) - len(spec))
     axes = list(STEP_MESH)
+    for r in range(STEP_RANKS):
+        coord = np.unravel_index(r, tuple(STEP_MESH.values()))
+        yield r, local, tuple(slice(0 if e is None else coord[axes.index(e)] * n,
+                                    (0 if e is None else coord[axes.index(e)] * n) + n)
+                              for e, n in zip(spec, local))
+
+
+@contextlib.contextmanager
+def float64_model(model):
+    """``model`` computing in float64: its compute dtype, and the float32
+    casts of the model modules (norms, RoPE, attention scores, routing, the
+    loss) made float64 through a stand-in for their ``torch``; restored on
+    exit."""
+    proxy = types.ModuleType("torch")
+    proxy.__dict__.update(vars(torch))
+    proxy.float32 = torch.float64
+    mods = (model_layers, moe_lib, transformer_lib)
+    saved, dtype = [m.torch for m in mods], model.dtype
+    for m in mods:
+        m.torch = proxy
+    model.dtype = torch.float64
+    try:
+        yield model
+    finally:
+        for m, t in zip(mods, saved):
+            m.torch = t
+        model.dtype = dtype
+
+
+def float64_grads(model, params, batch) -> list:
+    """The float64 gradient of the step's loss at ``params`` (float32
+    leaves, promoted exactly) on ``batch``."""
+    leaves, treedef = tree_util.tree_flatten(params)
+    p64 = [x.detach().to(torch.float64).requires_grad_(True) for x in leaves]
+    dev = p64[0].device
+    with float64_model(model):
+        loss = model.loss(tree_util.tree_unflatten(treedef, p64),
+                          torch.as_tensor(batch["tokens"]).to(dev),
+                          torch.as_tensor(batch["labels"]).to(dev))
+        check(loss.dtype == torch.float64, f"the float64 loss came back {loss.dtype}")
+        return list(torch.autograd.grad(loss, p64))
+
+
+def _forced_grads(own: list, ref: list, paths: list, shards: list, mesh) -> tuple[list, dict]:
+    """The replicated rank's side of one step's gradient: every sharded
+    rank's block of each leaf, received over gloo in rank order and laid
+    into a whole leaf.  Per leaf: the distance of the sharded and of this
+    rank's own float32 gradient (``own``) from the float64 one (``ref``),
+    in L2 and largest element, the leaf's float64 norm, and the sharded
+    gradient's relative L2 from ``own``."""
+    whole, stats = [], {}
+    for g, r64, path, sh in zip(own, ref, paths, shards):
+        out = torch.empty_like(g)
+        e_rep = g.to(torch.float64) - r64
+        st = {"rep_l2": float(e_rep.norm()), "rep_max": float(e_rep.abs().max()),
+              "ref_l2": float(r64.norm()), "numel": g.numel()}
+        del e_rep
+        sh2 = d2 = 0.0
+        sh_max, blocks = 0.0, 0
+        for r, local, block in _rank_blocks(g.shape, sh.spec, mesh):
+            buf = torch.empty(local, dtype=g.dtype)
+            dist.recv(buf, src=r)
+            got = buf.to(g.device)
+            e = got.to(torch.float64) - r64[block]
+            sh2 += float(torch.sum(e * e))
+            sh_max = max(sh_max, float(e.abs().max()))
+            d2 += float(torch.sum((got.to(torch.float64) - g[block]) ** 2))
+            blocks += got.numel()
+            out[block] = got
+        share = g.numel() / blocks  # a block held by several ranks counts once
+        st.update(sh_l2=math.sqrt(sh2 * share), sh_max=sh_max,
+                  vs_rep=math.sqrt(d2 * share) / st["ref_l2"] if st["ref_l2"] else 0.0)
+        stats[path] = st
+        whole.append(out)
+    return whole, stats
+
+
+def _compare_state(state, parts, shards, mesh) -> dict:
+    """The replicated rank's side of the end state: every sharded rank's
+    block of each ``parts`` leaf (params, m, v), received over gloo in rank
+    order, against the same slice of ``state``.  Per kind: the largest
+    difference (absolute for params, relative for the moments), the
+    elements outside ``STEP_TOL``, those not bitwise equal, and how many
+    were compared."""
+    flat = tree_util.tree_flatten(state)[0]
+    out = {k: {"worst": 0.0, "over": 0, "unequal": 0, "count": 0}
+           for k in ("params", "m", "v")}
     for i, (path, s) in parts:
         kind = ("params" if path.startswith("['params']")
                 else "m" if path.startswith("['opt']['m']") else "v")
-        shape = sharding.local_shape(s.shape, shards[i].spec, mesh)
-        spec = tuple(shards[i].spec) + (None,) * (len(shape) - len(shards[i].spec))
-        floor = STEP_MOMENT_FLOOR * float(flat[i].abs().max()) if flat[i].numel() else 0.0
-        v_leaf = flat[index[path.replace("['m']", "['v']", 1)]] if kind == "m" else None
-        leaf_over = 0
-        for r in range(STEP_RANKS):
-            coord = np.unravel_index(r, tuple(STEP_MESH.values()))
-            buf = torch.empty(shape, dtype=s.dtype)
+        for r, local, block in _rank_blocks(s.shape, shards[i].spec, mesh):
+            buf = torch.empty(local, dtype=s.dtype)
             dist.recv(buf, src=r)
-            block = tuple(slice(0 if e is None else coord[axes.index(e)] * n,
-                                (0 if e is None else coord[axes.index(e)] * n) + n)
-                          for e, n in zip(spec, shape))
             want = flat[i][block]
-            d = (buf.to(want.device) - want).abs()
+            got = buf.to(want.device)
+            d = (got - want).abs()
             if kind == "params":
-                err, outside = d.max(), d > STEP_TOL["param_atol"]
-                plain = outside
+                err, outside = d.max() if d.numel() else 0.0, d > STEP_TOL["param_atol"]
             else:
-                err = (d / want.abs().clamp_min(1e-30)).max()
-                plain = d > STEP_TOL["mv_rtol"] * want.abs()
-                scale = want.abs() if v_leaf is None else want.abs() + v_leaf[block].sqrt()
-                outside = d > STEP_TOL["mv_rtol"] * scale + floor
+                err = (d / want.abs().clamp_min(1e-30)).max() if d.numel() else 0.0
+                outside = d > STEP_TOL["mv_rtol"] * want.abs()
             o = out[kind]
-            o["over_plain"] += int(plain.sum())
-            o["worst"] = max(o["worst"], float(err) if d.numel() else 0.0)
+            o["worst"] = max(o["worst"], float(err))
             o["over"] += int(outside.sum())
+            o["unequal"] += int((got != want).sum())
             o["count"] += d.numel()
-            leaf_over += int(outside.sum())
-        if leaf_over > out[kind]["leaf_over"]:
-            out[kind]["leaf"], out[kind]["leaf_over"] = path, leaf_over
     return out
 
 
 def step_worker(argv: list[str]) -> int:
     """One rank of :func:`step_start`'s group.  Ranks ``0 .. STEP_RANKS - 1``
     take the sharded steps on the ``STEP_MESH`` mesh (keeping host copies of
-    their params, ``m`` and ``v`` blocks after the first update and at the
-    end), snapshot, then free the card; the last rank then takes the same
-    steps replicated, alone on the card, and holds every block of every rank
-    (sent over gloo) against its own leaves at both points."""
+    each step's gradient blocks as AdamW receives them, and of their params,
+    ``m`` and ``v`` blocks at the end), snapshot, then free the card; the
+    last rank then takes the same steps replicated, alone on the card,
+    teacher-forced on each step's sharded gradient and norm (``STEP_TOL``'s
+    comment), and holds every block of every rank (sent over gloo) against
+    its own gradient at each step and its own state at the end."""
     rank, world, port, out = int(argv[0]), int(argv[1]), argv[2], Path(argv[3])
     dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", world_size=world,
                             rank=rank)
@@ -4528,6 +4604,8 @@ def step_worker(argv: list[str]) -> int:
     torch.backends.cudnn.allow_tf32 = False
     from torch.distributed.device_mesh import DeviceMesh
 
+    adamw = step_lib.adamw
+    real_update, real_norm = adamw.apply_updates, adamw.global_norm
     res: dict = {}
     try:
         cfg, scfg = step_cfg()
@@ -4542,13 +4620,17 @@ def step_worker(argv: list[str]) -> int:
         shards = tree_util.tree_flatten(shard_tree)[0]
         parts = [(i, s) for i, s in enumerate(tree_util.tree_flatten_with_path(state_abs)[0])
                  if s[0].startswith(("['params']", "['opt']['m']", "['opt']['v']"))]
-        kept = []  # host copies of the blocks: after the first update, and at the end
-
-        def keep(state):
-            flat = tree_util.tree_flatten(state)[0]
-            kept.append([sharding.local(flat[i]).detach().cpu() for i, _ in parts])
+        g_paths = [p for p, _ in tree_util.tree_flatten_with_path(state_abs["params"])[0]]
+        g_shards = tree_util.tree_flatten(shard_tree["params"])[0]
 
         if rank < n:
+            grads_kept = []  # host copies of each step's gradient blocks
+
+            def capture(params, opt_state, grads, lr, acfg):
+                grads_kept.append([sharding.local(g).detach().cpu()
+                                   for g in tree_util.tree_flatten(grads)[0]])
+                return real_update(params, opt_state, grads, lr, acfg)
+
             t0 = time.perf_counter()
             state = step_lib.init_state(model, mesh, torch.Generator(device="cuda").manual_seed(0),
                                         scfg)
@@ -4562,9 +4644,15 @@ def step_worker(argv: list[str]) -> int:
                                      for x in flat)
             del flat
             step = step_lib.build_train_step(model, mesh, scfg)
-            state, rec = _timed_steps(step, state, batches, after=keep)
+            adamw.apply_updates = capture
+            try:
+                state, rec = _timed_steps(step, state, batches)
+            finally:
+                adamw.apply_updates = real_update
             res.update(rec)
-            keep(state)
+            flat = tree_util.tree_flatten(state)[0]
+            kept = [sharding.local(flat[i]).detach().cpu() for i, _ in parts]
+            del flat
             print(f"rank {rank}: init {res['init_s']:.1f} s, losses {res['losses']}, "
                   f"norms {res['norms']}, step ms {res['ms']}, peak {res['peak']}", flush=True)
             res["snapshot"] = _snapshot_and_restore(state, mesh, group, out)
@@ -4576,27 +4664,56 @@ def step_worker(argv: list[str]) -> int:
                 dist.new_group(ranks=list(range(n)), backend="gloo")
         dist.barrier()  # the sharded ranks' card memory is free
         if rank == n:
+            forced: list = []
+
+            def force(params, opt_state, grads, lr, acfg):
+                """Hold this rank's gradient against the sharded run's, then
+                update with the sharded run's gradient and norm."""
+                t0 = time.perf_counter()
+                own, gdef = tree_util.tree_flatten(grads)
+                ref = float64_grads(model, params, batches[len(forced)])
+                norm = torch.empty(1, dtype=torch.float32)
+                dist.recv(norm, src=0)
+                whole, stats = _forced_grads(own, ref, g_paths, g_shards, mesh)
+                del ref
+                g_sharded = tree_util.tree_unflatten(gdef, whole)
+                rec = {"own_norm": float(real_norm(grads)), "sharded_norm": float(norm[0]),
+                       "same_values_norm": float(real_norm(g_sharded)), "grads": stats,
+                       "f64_norm": math.sqrt(sum(st["ref_l2"] ** 2 for st in stats.values()))}
+                del own, whole
+                forced_norm = norm[0].to(torch.cuda.current_device())
+                adamw.global_norm = lambda tree: forced_norm  # the sharded run's norm
+                try:
+                    result = real_update(params, opt_state, g_sharded, lr, acfg)
+                finally:
+                    adamw.global_norm = real_norm
+                rec["s"] = time.perf_counter() - t0
+                forced.append(rec)
+                return result
+
             state = step_lib.init_state(model, None, torch.Generator(device="cuda").manual_seed(0),
                                         scfg)
             step = step_lib.build_train_step(model, None, scfg)
-            compared = []
-            t_cmp = []
-
-            def compare(st):
-                t0 = time.perf_counter()
-                compared.append(_compare_blocks(st, parts, shards, mesh))
-                t_cmp.append(time.perf_counter() - t0)
-
-            state, rec = _timed_steps(step, state, batches, after=compare)
+            adamw.apply_updates = force
+            try:
+                state, rec = _timed_steps(step, state, batches)
+            finally:
+                adamw.apply_updates = real_update
             res.update(rec)
-            compare(state)
-            res["first_update"], res["end"], res["compare_s"] = compared[0], compared[1], t_cmp
-            print(f"replicated: losses {res['losses']}, norms {res['norms']}, step ms "
-                  f"{res['ms']}, peak {res['peak']}, compared {compared}", flush=True)
+            t0 = time.perf_counter()
+            res["forced"], res["end"] = forced, _compare_state(state, parts, shards, mesh)
+            res["compare_s"] = [f["s"] for f in forced] + [time.perf_counter() - t0]
+            print(f"replicated: losses {res['losses']}, own norms "
+                  f"{[f['own_norm'] for f in forced]}, step ms {res['ms']}, peak {res['peak']}, "
+                  f"end {res['end']}", flush=True)
         else:
-            for blocks in kept:
+            for k, blocks in enumerate(grads_kept):
+                if rank == 0:
+                    dist.send(torch.tensor([res["norms"][k]], dtype=torch.float32), dst=n)
                 for block in blocks:
                     dist.send(block, dst=n)
+            for block in kept:
+                dist.send(block, dst=n)
         with open(out / f"rank{rank}.pkl", "wb") as f:
             pickle.dump(res, f)
         dist.barrier()
@@ -4631,57 +4748,69 @@ def step_phase(device) -> dict:
     wall = time.perf_counter() - t0
     runs = [pickle.load(open(STEP_DIR / f"rank{r}.pkl", "rb")) for r in range(STEP_RANKS + 1)]
     rep, shard = runs[-1], runs[:-1]
-    lrs = rep["lrs"]
-    same = next(i for i, lr in enumerate(lrs) if lr > 0) + 1  # steps at the initial params
-    for r, run in enumerate(shard):
-        check(run["shapes_ok"], f"phase 30 rank {r}: a local leaf's shape is not its spec's")
-        check(run["lrs"] == lrs, f"phase 30 rank {r}: rates {run['lrs']}")
-        check(np.allclose(run["losses"][:same], rep["losses"][:same],
-                          rtol=STEP_TOL["loss_rtol"], atol=0)
-              and np.allclose(run["norms"][:same], rep["norms"][:same],
-                              rtol=STEP_TOL["norm_rtol"], atol=0),
-              f"phase 30 rank {r}: losses {run['losses']} and grad norms {run['norms']} vs "
-              f"replicated {rep['losses']}, {rep['norms']} (the first {same} steps)")
-        check(np.allclose(run["losses"], rep["losses"], rtol=STEP_LATE_LOSS_RTOL, atol=0),
-              f"phase 30 rank {r}: losses {run['losses']} vs replicated {rep['losses']}")
-        check(run["losses"] == shard[0]["losses"], f"phase 30 rank {r}: other losses than rank 0")
-    first, end = rep["first_update"], rep["end"]
-    share = {k: first[k]["over"] / first[k]["count"] for k in first}
-    lr1 = lrs[same - 1]
-    check(max(share.values()) <= STEP_SHARE
-          and first["params"]["worst"] <= 2 * lr1 + STEP_TOL["param_atol"],
-          f"phase 30: after the first update, sharded vs replicated {first} (share outside the "
-          f"tolerances {share}, parameter bound {2 * lr1 + STEP_TOL['param_atol']})")
-    moved = 2 * sum(lrs) + STEP_TOL["param_atol"]
-    check(end["params"]["worst"] <= moved,
-          f"phase 30: at the end, sharded vs replicated {end} (parameter bound {moved})")
-    r0 = shard[0]
+    lrs, forced, r0, end = rep["lrs"], rep["forced"], shard[0], rep["end"]
     ratio = pred["peak"] / r0["peak"]
-    check(r0["flops"] == pred["flops"], f"phase 30: the card counts {r0['flops']} FLOPs on rank 0, "
-          f"the meta trace {pred['flops']}")
-    check(abs(ratio - 1) <= DRYRUN_PEAK_TOL, f"phase 30: predicted peak {pred['peak']} B, rank 0's "
-          f"{r0['peak']} B (ratio {ratio:.4f})")
     launches: dict = {}
     for run in shard:
         for k, v in run["snapshot"]["launches"].items():
             launches[k] = launches.get(k, 0) + v
+    grads = [{"worst_ratio": max(
+        ((p, st["sh_l2"] / st["rep_l2"], st["sh_max"] / st["rep_max"]) for p, st in
+         f["grads"].items()), key=lambda t: max(t[1:])), "leaves": f["grads"]} for f in forced]
     out = {"arch": STEP_ARCH, "layers": STEP_LAYERS, "mesh": STEP_MESH,
            "batch": [STEP_BATCH, STEP_SEQ], "wall_s": wall, "tolerances": STEP_TOL,
+           "f32_factor": STEP_F32_FACTOR,
            "losses": r0["losses"], "replicated_losses": rep["losses"],
-           "norms": r0["norms"], "replicated_norms": rep["norms"],
-           "first_update": first, "share_outside_first_update": share, "end": end,
-           "share_outside_end": {k: end[k]["over"] / end[k]["count"] for k in end},
-           "lrs": lrs, "compare_s": rep["compare_s"],
+           "norms": r0["norms"], "replicated_own_norms": [f["own_norm"] for f in forced],
+           "replicated_norms_of_sharded_values": [f["same_values_norm"] for f in forced],
+           "float64_norms": [f["f64_norm"] for f in forced],
+           "norm_rtol_sharded_vs_replicated": [abs(n - f["own_norm"]) / f["own_norm"]
+                                               for n, f in zip(r0["norms"], forced)],
+           "gradients": grads, "end": end, "lrs": lrs, "compare_s": rep["compare_s"],
            "state_bytes_rank0": r0["state_bytes"], "predicted_state_bytes": pred["argument_bytes"],
            "peak_rank0": r0["peak"], "predicted_peak": pred["peak"], "peak_ratio": ratio,
            "replicated_peak": rep["peak"], "flops_rank0": r0["flops"],
            "step_ms_rank0": r0["ms"], "step_ms": [run["ms"] for run in shard],
-           "replicated_step_ms": rep["ms"], "sent_bytes_rank0_step": r0["sent"],
-           "predicted_collective_bytes": pred["collective"],
+           "replicated_step_ms_less_forcing": [ms - f["s"] * 1e3
+                                               for ms, f in zip(rep["ms"], forced[1:])],
+           "sent_bytes_rank0_step": r0["sent"], "predicted_collective_bytes": pred["collective"],
            "init_s": [run["init_s"] for run in shard],
            "snapshot": [{k: v for k, v in run["snapshot"].items()} for run in shard],
            "snapshot_launches": launches}
     print(f"phi3.5-moe sharded step ({card_line()}): " + json.dumps(out))
+
+    for r, run in enumerate(shard):
+        check(run["shapes_ok"], f"phase 30 rank {r}: a local leaf's shape is not its spec's")
+        check(run["lrs"] == lrs, f"phase 30 rank {r}: rates {run['lrs']}")
+        check(run["losses"] == r0["losses"] and run["norms"] == r0["norms"],
+              f"phase 30 rank {r}: other losses or norms than rank 0")
+    check(len(forced) == STEP_STEPS, f"phase 30: {len(forced)} forced updates")
+    for k, f in enumerate(forced):
+        check(f["sharded_norm"] == r0["norms"][k], f"phase 30 step {k}: the forced norm "
+              f"{f['sharded_norm']} is not the sharded run's {r0['norms'][k]}")
+        for name, got, want, tol in (
+                ("loss", r0["losses"][k], rep["losses"][k], STEP_TOL["loss_rtol"]),
+                ("norm of the same values", r0["norms"][k], f["same_values_norm"],
+                 STEP_TOL["norm_rtol"])):
+            check(abs(got - want) <= tol * abs(want), f"phase 30 step {k}: sharded {name} {got} "
+                  f"vs replicated {want} (rtol {tol})")
+        n64 = f["f64_norm"]
+        check(abs(r0["norms"][k] - n64) <= STEP_F32_FACTOR * abs(f["own_norm"] - n64),
+              f"phase 30 step {k}: gradient norm, sharded {r0['norms'][k]}, replicated "
+              f"{f['own_norm']}, float64 {n64}: the sharded one lies farther than "
+              f"{STEP_F32_FACTOR}x the replicated one from the float64 one")
+        for path, st in f["grads"].items():
+            check(st["sh_l2"] <= STEP_F32_FACTOR * st["rep_l2"]
+                  and st["sh_max"] <= STEP_F32_FACTOR * st["rep_max"],
+                  f"phase 30 step {k}: gradient {path} {st}: the sharded float32 gradient lies "
+                  f"farther than {STEP_F32_FACTOR}x the replicated one from the float64 one")
+    check(all(end[k]["over"] == 0 for k in end),
+          f"phase 30: the end state, sharded vs replicated {end} (params within "
+          f"{STEP_TOL['param_atol']}, m and v within rtol {STEP_TOL['mv_rtol']}, every element)")
+    check(r0["flops"] == pred["flops"], f"phase 30: the card counts {r0['flops']} FLOPs on rank 0, "
+          f"the meta trace {pred['flops']}")
+    check(abs(ratio - 1) <= DRYRUN_PEAK_TOL, f"phase 30: predicted peak {pred['peak']} B, rank 0's "
+          f"{r0['peak']} B (ratio {ratio:.4f})")
     return launches
 
 

@@ -26,7 +26,8 @@ goes, and :func:`place` puts a whole array there (what
 ``CheckpointManager.restore(shardings=...)`` does to each leaf).
 :func:`tree_shardings` gives a parameter tree's shardings from its logical
 axes, :func:`batch_sharding` the batch's (dim 0 over the composed
-``("pod", "data")`` axes): what the train step's state and rows follow.
+``("pod", "data")`` axes): what the train step's state and rows follow
+(the step splits each microbatch's rows over ``model`` too).
 """
 
 from __future__ import annotations
@@ -147,12 +148,11 @@ def tree_shardings(axes_tree: Any, abs_tree: Any, mesh,
     return NamedSharding(mesh, spec_for(tuple(abs_tree.shape), axes_tree, mesh, rules))
 
 
-def batch_sharding(mesh, rank: int = 2) -> NamedSharding:
+def batch_sharding(mesh) -> NamedSharding:
     """Batch-dim-0 sharding over the composed data-parallel axes present in
-    the mesh (replicated when there are none, e.g. a pure-model mesh);
-    ``rank`` is the batch array's, whose other dimensions replicate (and
-    are trimmed from the spec)."""
-    del rank
+    the mesh (replicated when there are none, e.g. a pure-model mesh); the
+    other dimensions replicate, trimmed from the spec.  The train step takes
+    its rows by these axes (``train.step.build_train_step``)."""
     axes = tuple(a for a in BATCH_AXES if a in mesh_sizes(mesh))
     if not axes:
         return NamedSharding(mesh, ())

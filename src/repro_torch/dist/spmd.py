@@ -18,13 +18,12 @@ model's sharding hooks live:
   is replicated on, so each rank ends with its block's gradient summed over
   its pod.
 * **Expert parallelism.**  A leaf whose leading logical axis is
-  ``experts`` keeps that dimension local: the MoE layer runs this rank's
-  experts on its share of the dispatch buffer (:func:`own_experts`) and
-  gathers their outputs (:func:`all_experts`).
+  ``experts`` keeps that dimension local, and the gathered stack carries
+  the axis that splits it: the MoE layer runs this rank's experts on its
+  share of the dispatch buffer (:func:`own_experts`) and gathers their
+  outputs (:func:`all_experts`).
 * **Rows.**  Each rank computes its own rows of each microbatch (pod-major,
-  then ``data``, then ``model`` where the rows divide, as
-  ``train.step`` splits them; ranks on a ``model`` axis the rows do not
-  divide over compute the same rows).  The MoE routing sees every row of
+  then ``data``, then ``model``, as ``train.step`` splits them).  The MoE routing sees every row of
   the microbatch, as the reference's does: :func:`all_rows` gathers them
   and :func:`own_rows` keeps this rank's again.
 
@@ -164,16 +163,11 @@ class Context:
     def n_row_blocks(self) -> int:
         return math.prod(self.sizes[a] for a in self.row_axes)
 
-    def expert_split(self, n_experts: int) -> bool:
-        """Whether the ``model`` axis splits ``n_experts`` (the divisibility
-        rule ``spec_for`` shards the expert stacks by)."""
-        m = self.sizes.get("model", 1)
-        return m > 1 and n_experts % m == 0
-
 
 class _Gather(torch.autograd.Function):
-    """All-gather a parameter block over ``gathers`` ((axis, dim) pairs);
-    backward: reduce-scatter over them, then all-reduce over ``sums``."""
+    """All-gather a block over ``gathers`` ((axis, dim) pairs, in order);
+    backward: reduce-scatter over them in reverse, then all-reduce over
+    ``sums``."""
 
     @staticmethod
     def forward(fctx, local, ctx, gathers, sums):
@@ -190,24 +184,6 @@ class _Gather(torch.autograd.Function):
             g = ctx.reduce_scatter(g, axis, dim)
         for axis in fctx.sums:
             g = ctx.all_reduce(g, axis)
-        return g, None, None, None
-
-
-class _Axis(torch.autograd.Function):
-    """All-gather on ``dim`` over ``axes`` (the inner axis first, so the
-    blocks land outer-major); backward: the reduce-scatter."""
-
-    @staticmethod
-    def forward(fctx, x, ctx, axes, dim):
-        fctx.ctx, fctx.axes, fctx.dim = ctx, axes, dim
-        for a in reversed(axes):
-            x = ctx.all_gather(x, a, dim)
-        return x
-
-    @staticmethod
-    def backward(fctx, g):
-        for a in fctx.axes:
-            g = fctx.ctx.reduce_scatter(g, a, fctx.dim)
         return g, None, None, None
 
 
@@ -239,9 +215,11 @@ def _gather_leaf(ctx: Context, t: torch.Tensor) -> torch.Tensor:
         if not (dim == 0 and name == "experts"):  # expert parallelism keeps its experts
             gathers.append((ent, dim))
     sums = tuple(a for a in ctx.sum_axes if a not in held)
-    if not gathers and not sums:
-        return t
-    return _Gather.apply(t, ctx, tuple(gathers), sums)
+    out = _Gather.apply(t, ctx, tuple(gathers), sums) if gathers or sums else t
+    if info.axes[:1] == ("experts",) and info.spec[0] is not None \
+            and ctx.sizes.get(info.spec[0], 1) > 1:
+        out._experts_axis = info.spec[0]  # the expert stack stays split here
+    return out
 
 
 def _map(fn, tree: Any) -> Any:
@@ -314,7 +292,7 @@ def all_rows(x: torch.Tensor) -> torch.Tensor:
     ctx = _ACTIVE
     if ctx is None or not ctx.row_axes:
         return x
-    return _Axis.apply(x, ctx, ctx.row_axes, 0)
+    return _Gather.apply(x, ctx, tuple((a, 0) for a in reversed(ctx.row_axes)), ())
 
 
 def own_rows(x: torch.Tensor) -> torch.Tensor:
@@ -333,21 +311,28 @@ def own_rows(x: torch.Tensor) -> torch.Tensor:
                      f"microbatch's {ctx.rows * n}")
 
 
-def own_experts(x: torch.Tensor) -> torch.Tensor:
-    """This rank's experts of ``x`` (dim 0 is the expert axis) when the
-    ``model`` axis splits them; ``x`` otherwise."""
-    ctx = _ACTIVE
-    if ctx is None or not ctx.expert_split(x.shape[0]):
+def experts_axis(w: torch.Tensor) -> Optional[str]:
+    """The mesh axis that splits the expert stack ``w`` (dim 0: experts)
+    as :func:`gather` left it, from the leaf's tagged spec; ``None`` when
+    ``w`` holds every expert."""
+    return getattr(w, "_experts_axis", None) if _ACTIVE is not None else None
+
+
+def own_experts(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """This rank's experts of ``x`` (dim 0 is the expert axis): the block
+    that the expert stack ``w`` holds on its axis; ``x`` when ``w`` holds
+    every expert."""
+    axis = experts_axis(w)
+    if axis is None:
         return x
-    m = ctx.sizes["model"]
-    k = x.shape[0] // m
-    return x.narrow(0, ctx.coord["model"] * k, k)
+    k = w.shape[0]
+    return x.narrow(0, _ACTIVE.coord[axis] * k, k)
 
 
-def all_experts(y: torch.Tensor, n_experts: int) -> torch.Tensor:
+def all_experts(y: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """The inverse of :func:`own_experts`: every rank's experts of ``y``
-    gathered over ``model`` (backward: a reduce-scatter)."""
-    ctx = _ACTIVE
-    if ctx is None or not ctx.expert_split(n_experts):
+    gathered over ``w``'s expert axis (backward: a reduce-scatter)."""
+    axis = experts_axis(w)
+    if axis is None:
         return y
-    return _Axis.apply(y, ctx, ("model",), 0)
+    return _Gather.apply(y, _ACTIVE, ((axis, 0),), ())

@@ -142,7 +142,7 @@ def train_total(cfg, shape, mesh, k: int) -> dict:
 def choose_train(cfg, shape, mesh) -> tuple[int, dict]:
     """The dry run's microbatch rule on the extrapolated peak."""
     return dryrun.choose_microbatches(lambda k: train_total(cfg, shape, mesh, k),
-                                      dryrun.local_batch(shape, mesh),
+                                      dryrun.train_rows(shape, mesh),
                                       *dryrun.train_arg_bytes(_model(cfg), mesh))
 
 
@@ -173,6 +173,9 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool) -> dict:
     cfg = registry.get_config(arch)
     shape = registry.SHAPES[shape_name]
     ok, why = registry.supports(cfg, shape)
+    if ok and shape.kind == "train":
+        why = dryrun.train_refusal(shape, multi_pod)
+        ok = why is None
     mesh_name = "multi" if multi_pod else "single"
     cell = {"arch": arch, "shape": shape_name, "mesh": mesh_name, "kind": shape.kind}
     if not ok:

@@ -36,8 +36,15 @@ What differs from the reference, and why:
   reference's meshes with the ``model`` axis folded into one card, (16, 1)
   and (2, 16, 1): the reference shards their parameters and caches through
   ``build_serve_step``, which the port has no twin of (its serving runs on
-  one card).  The global batch splits over pod x data exactly as the
-  reference splits it over ``data``.
+  one card).  A prefill or decode cell's global batch splits over pod x
+  data exactly as the reference splits it over ``data``; a train cell's
+  splits over pod x data x model, each rank taking rows of its own, and a
+  cell whose rows do not divide over those ranks is skipped with its
+  reason (the step would raise): ``train_4k``'s 256 rows on the 512 ranks
+  of the multi-pod mesh.  The train cells predict the port's design, not
+  the reference's GSPMD program: attention and dense layers on whole
+  gathered weights, and each MoE layer routing the whole microbatch on
+  every rank and gathering every expert's output.
 * **Steps.**  Train runs :func:`repro_torch.train.step.build_train_step`
   with bfloat16 parameters (and the compressed pod hop with ``--grad-comp``
   on the multi mesh) on a ``meta`` state; the batch comes from the host, as
@@ -48,8 +55,8 @@ What differs from the reference, and why:
   ``long_500k``, ``none`` otherwise), every lane at the cell's one position.
 * **Card sizes.**  ``fits_device`` compares the predicted peak with one
   H100 80GB HBM3's memory (:data:`DEVICE_MEMORY_BYTES`).  The microbatch
-  count ``k`` is the smallest power of two up to the local batch whose
-  predicted peak fits; if none fits, ``k`` is the local batch.  A candidate
+  count ``k`` is the smallest power of two up to this rank's rows whose
+  predicted peak fits; if none fits, ``k`` is this rank's rows.  A candidate
   is traced over its first microbatch with the float32 accumulators present:
   every iteration runs the same operations, so the loop's peak is one
   iteration's.  The chosen ``k``'s counters are ``C1 + (k - 1)(C2 - C1)``
@@ -77,7 +84,7 @@ import time
 import traceback
 import weakref
 from pathlib import Path
-from typing import Any, Callable, Iterator
+from typing import Any, Callable, Iterator, Optional
 
 import torch
 import torch.distributed as dist
@@ -304,9 +311,30 @@ def loop_cost(c1: dict, c2: dict, k: int) -> dict:
 
 
 def local_batch(shape, mesh) -> int:
-    """This rank's rows of the cell's global batch (pod x data ranks)."""
+    """This rank's rows of a prefill or decode cell's global batch (pod x
+    data ranks)."""
     sizes = mesh_sizes(mesh)
     return max(shape.global_batch // (sizes.get("pod", 1) * sizes.get("data", 1)), 1)
+
+
+def train_rows(shape, mesh) -> int:
+    """This rank's rows of a train cell's global batch: the step splits
+    them over pod x data x model (``train.step.build_train_step``), so this
+    bounds the microbatch count."""
+    sizes = mesh_sizes(mesh)
+    return shape.global_batch // math.prod(sizes.get(a, 1) for a in ("pod", "data", "model"))
+
+
+def train_refusal(shape, multi_pod: bool) -> Optional[str]:
+    """Why the train step cannot take a train cell on its mesh, or None:
+    every rank takes rows of its own, and none repeats another's."""
+    n = math.prod(MULTI_POD if multi_pod else SINGLE_POD)
+    if shape.global_batch % n == 0:
+        return None
+    return (f"the global batch of {shape.global_batch} rows does not split over the {n} ranks "
+            "of pod x data x model: the port's train step computes attention and dense layers "
+            "on whole gathered weights, so each rank takes rows of its own (computing on "
+            "Megatron blocks over model would let ranks share rows)")
 
 
 def choose_microbatches(trace: Callable[[int], dict], b_local: int, state_bytes: int,
@@ -417,7 +445,7 @@ def cell_cost(cfg, shape, mesh, grad_comp: bool = False) -> tuple[dict, int]:
     def trace(k: int, runs: int = 1) -> dict:
         return train_cost(model, cfg, shape, mesh, k, runs, grad_comp)
 
-    k, c1 = choose_microbatches(trace, local_batch(shape, mesh),
+    k, c1 = choose_microbatches(trace, train_rows(shape, mesh),
                                 *train_arg_bytes(model, mesh, grad_comp))
     if k == 1:
         return c1, 1
@@ -433,6 +461,9 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, verbose: bool = True,
     cell = {"arch": arch, "shape": shape_name, "mesh": mesh_name,
             "kind": shape.kind, "seq_len": shape.seq_len,
             "global_batch": shape.global_batch}
+    if ok and shape.kind == "train":
+        why = train_refusal(shape, multi_pod)
+        ok = why is None
     if not ok:
         cell["status"] = "skipped"
         cell["skip_reason"] = why

@@ -52,11 +52,11 @@ from repro_torch.models.spec import P
 from repro_torch.models.transformer import DenseLM, lm_loss, unstack
 
 
-def _constrain_experts(x: torch.Tensor) -> torch.Tensor:
-    """This rank's experts of ``x`` (dim 0: experts) when the sharded
-    step's ``model`` axis splits them; ``x`` otherwise (no mesh, or an
-    expert count the axis does not divide)."""
-    return spmd.own_experts(x)
+def _constrain_experts(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """This rank's experts of ``x`` (dim 0: experts) where the sharded
+    step keeps the expert stack ``w`` split (its tagged spec); ``x``
+    otherwise (no mesh, or a stack the spec replicates)."""
+    return spmd.own_experts(x, w)
 
 
 def moe_spec(c: ArchConfig) -> dict:
@@ -137,10 +137,10 @@ def moe_apply(p: dict, c: ArchConfig, x: torch.Tensor) -> tuple[torch.Tensor, to
     # one spare row takes every dropped assignment and is thrown away
     buf = torch.zeros((rows + 1, d), dtype=dt, device=x.device)
     buf.index_copy_(0, r.slot, xf[r.tok_s])
-    h = _constrain_experts(buf[:rows].view(e, r.capacity, d))
+    h = _constrain_experts(buf[:rows].view(e, r.capacity, d), p["gate"])
     g = torch.bmm(h, p["gate"].to(dt))
     u = torch.bmm(h, p["up"].to(dt))
-    y = spmd.all_experts(torch.bmm(F.silu(g) * u, p["down"].to(dt)), e).reshape(rows, d)
+    y = spmd.all_experts(torch.bmm(F.silu(g) * u, p["down"].to(dt)), p["down"]).reshape(rows, d)
 
     contrib = y[torch.clamp(r.slot, 0, rows - 1)] * r.gat_s[:, None]
     contrib = torch.where(r.valid[:, None], contrib, torch.zeros((), dtype=dt, device=x.device))

@@ -16,9 +16,9 @@ is replicated; ``opt.step`` is replicated.  One process per rank of a
 
 * **Rows.**  Every rank gets the whole global batch and takes its rows:
   pod-major, then ``data`` within a pod and within each microbatch (the
-  reference's ``("pod", "data")`` batch sharding), then ``model`` where the
-  microbatch's rows divide over it (ranks on ``model`` compute the same
-  rows otherwise).
+  axes of ``dist.sharding.batch_sharding``, the reference's ``("pod",
+  "data")``), then ``model``.  A microbatch whose rows do not divide over
+  ``data`` x ``model`` raises: no rank computes another's rows.
 * **Compute.**  The model computes on this rank's blocks through
   ``repro_torch.dist.spmd``: each leaf is all-gathered where it is used (a
   layer's inside its activation checkpoint), the expert stacks stay split
@@ -58,6 +58,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
+import math
 from typing import Any, Optional
 
 import torch
@@ -252,30 +253,42 @@ def build_train_step(model, mesh=None, step_cfg: TrainStepConfig = TrainStepConf
     in_pod = n_data * n_model  # the ranks a pod's gradient sums over
     compressed = gc.enabled and "pod" in sizes
     coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate())) if mesh is not None else {}
-    pod_i, data_i, model_i = coord.get("pod", 0), coord.get("data", 0), coord.get("model", 0)
     device = model.device
     items = list(spec_items(model.specs()))
     shardings = _flat_shardings(make_state_specs(model, mesh, step_cfg)[1]["params"], mesh,
                                 len(items))
     specs = [() if sh is None else sh.spec for sh in shardings]
 
-    def local_batch(batch) -> tuple[dict, bool]:
-        """(k, rows, ...) per key: this rank's rows of each microbatch, and
-        whether ``model`` splits them."""
-        out, split = {}, False
+    # the batch's rows: pod-major over the whole batch, then the other axes
+    # of ``batch_sharding`` (``data``) within each microbatch, then ``model``
+    bspec = shardlib.batch_sharding(mesh).spec if mesh is not None else ()
+    batch_axes = () if not bspec else (bspec[0],) if isinstance(bspec[0], str) else bspec[0]
+    outer = tuple(a for a in batch_axes if a == "pod")
+    inner = tuple(a for a in batch_axes if a != "pod") + (("model",) if n_model > 1 else ())
+    # the routing's rows: the pods' too unless each pod routes its own
+    route_axes = tuple(a for a in batch_axes + (("model",) if n_model > 1 else ())
+                       if not (a == "pod" and compressed))
+
+    def local_batch(batch) -> dict:
+        """(k, rows, ...) per key: this rank's rows of each microbatch.  Rows
+        that do not split evenly over every row axis raise: no rank repeats
+        another's rows."""
+        out = {}
+        ranks = math.prod(sizes.get(a, 1) for a in outer + inner)
         for key, x in batch.items():
             x = torch.as_tensor(x)
             b, rest = x.shape[0], tuple(x.shape[1:])
-            if b % (n_pods * k * n_data):
-                raise ValueError(f"batch {key!r} of {b} rows does not split over {n_pods} pods, "
-                                 f"{k} microbatches and {n_data} data ranks")
-            per_pod = b // n_pods
-            x = x.reshape((n_pods, per_pod) + rest)[pod_i]  # pod-major rows
-            split = n_model > 1 and (per_pod // k) % (n_data * n_model) == 0
-            m = n_model if split else 1
-            x = x.reshape((k, n_data, m, per_pod // k // n_data // m) + rest)
-            out[key] = x[:, data_i, model_i if split else 0].to(device)
-        return out, split
+            rows, r = divmod(b, k * ranks)
+            if r or not rows:
+                raise ValueError(
+                    f"batch {key!r} of {b} rows does not split over {k} microbatches and the "
+                    f"row axes {dict((a, sizes[a]) for a in outer + inner)}: the step does not "
+                    "repeat rows over ranks")
+            x = x.reshape(tuple(sizes[a] for a in outer) + (k,)
+                          + tuple(sizes[a] for a in inner) + (rows,) + rest)
+            index = tuple(coord[a] for a in outer) + (slice(None),) + tuple(coord[a] for a in inner)
+            out[key] = x[index].to(device)
+        return out
 
     def loss_grads(leaves, treedef, mb, ctx):
         req = [p.detach().requires_grad_(True) for p in leaves]
@@ -315,12 +328,10 @@ def build_train_step(model, mesh=None, step_cfg: TrainStepConfig = TrainStepConf
         leaves, treedef = tree_util.tree_flatten(params)
         leaves = [_local(p) for p in leaves]
         runs = k if trace_microbatches is None else min(max(1, trace_microbatches), k)
-        micro, split = local_batch(batch)
+        micro = local_batch(batch)
         ctx = None
         if mesh is not None:
-            # the routing's rows: the pods' too unless each pod routes its own
-            rows = (("pod",) if not compressed else ()) + ("data",) + (("model",) if split else ())
-            ctx = spmd.Context(mesh, rows, next(iter(micro.values())).shape[1])
+            ctx = spmd.Context(mesh, route_axes, next(iter(micro.values())).shape[1])
         loss, grads = grads_of(leaves, treedef, micro, runs, ctx)
         if in_pod > 1:  # the gathers' backward summed each block over the pod
             grads = [g / torch.full_like(g, in_pod) for g in grads]

@@ -24,7 +24,7 @@ from repro_torch.launch import costrun, dryrun
 
 ROOT = Path(__file__).resolve().parents[1]
 DEPTH = 6  # the "full" depth the extrapolation from 2 and 4 layers must reach
-SHAPES = {"train": treg.ShapeCell("train_small", 32, 32, "train"),
+SHAPES = {"train": treg.ShapeCell("train_small", 32, 512, "train"),  # k = 2: a row a rank
           "prefill": treg.ShapeCell("prefill_small", 48, 32, "prefill"),
           "decode": treg.ShapeCell("decode_small", 64, 32, "decode")}
 

@@ -152,8 +152,8 @@ def test_loop_cost_from_two_traces_equals_the_whole_loop():
     microbatches is the k-microbatch step's count, and one iteration's peak
     is the loop's: every iteration runs the same operations."""
     cfg = treg.get_config("minicpm-2b", smoke=True)
-    shape = treg.ShapeCell("train_small", 16, 64, "train")
-    k = 4
+    k = 4  # a row a rank of each microbatch on the 256 ranks
+    shape = treg.ShapeCell("train_small", 16, 256 * k, "train")
     with dryrun.fake_mesh(multi_pod=False) as mesh:
         model = treg.build_model(cfg, device="meta")
         c1, c2, whole = (dryrun.train_cost(model, cfg, shape, mesh, k, runs)
@@ -209,7 +209,7 @@ def test_cli_at_full_width_decode_and_a_skipped_cell(tmp_path):
 @pytest.mark.parametrize("multi_pod", [False, True])
 def test_train_cell_on_the_unfolded_mesh_holds_blocks(multi_pod):
     cfg = treg.get_config("minicpm-2b", smoke=True)
-    shape = treg.ShapeCell("train_small", 16, 64, "train")
+    shape = treg.ShapeCell("train_small", 16, 512 if multi_pod else 256, "train")
     with dryrun.fake_mesh(multi_pod) as mesh:
         assert dryrun.mesh_sizes(mesh)["model"] == 16 and mesh.size() == (512 if multi_pod
                                                                           else 256)
@@ -247,9 +247,12 @@ def test_committed_cells_lie_on_their_meshes():
                                                        .glob("*.json"))]
     assert len(cells) == 42
     for c in cells:
+        multi = c["mesh"] == "multi"
+        if c["kind"] == "train" and multi:  # 256 rows on 512 ranks
+            assert c["status"] == "skipped", c["arch"]
+            assert c["skip_reason"] == dryrun.train_refusal(treg.SHAPES["train_4k"], True)
         if c["status"] != "ok":
             continue
-        multi = c["mesh"] == "multi"
         if c["kind"] == "train":
             assert c["mesh_shape"] == ({"pod": 2, "data": 16, "model": 16} if multi
                                        else {"data": 16, "model": 16}), c["arch"]
@@ -258,6 +261,30 @@ def test_committed_cells_lie_on_their_meshes():
         else:
             assert c["mesh_shape"] == ({"pod": 2, "data": 16, "model": 1} if multi
                                        else {"data": 16, "model": 1}), c["arch"]
+
+
+@pytest.mark.parametrize("multi_pod", [False, True])
+def test_train_step_refuses_rows_that_do_not_split_over_model(multi_pod):
+    """No rank repeats another's rows: a microbatch whose rows do not
+    divide over pod x data x model raises in the step, and the dry run
+    skips such a cell with its reason before tracing it."""
+    cfg = treg.get_config("minicpm-2b", smoke=True)
+    n = 512 if multi_pod else 256
+    with dryrun.fake_mesh(multi_pod) as mesh:
+        model = treg.build_model(cfg, device="meta")
+        for rows, k in ((n // 2, 1), (n, 2), (n + 16, 1)):
+            with pytest.raises(ValueError, match="does not split"):
+                dryrun.train_cost(model, cfg, treg.ShapeCell("train_small", 8, rows, "train"),
+                                  mesh, k, 1)
+    shape = treg.ShapeCell("train_small", 8, n // 2, "train")
+    assert dryrun.train_refusal(shape, multi_pod) is not None
+    assert dryrun.train_refusal(treg.ShapeCell("train_small", 8, n, "train"), multi_pod) is None
+    if multi_pod:  # train_4k's 256 rows: skipped untraced
+        cell = dryrun.run_cell("minicpm-2b", "train_4k", True, verbose=False)
+        assert cell["status"] == "skipped"
+        assert "does not split over the 512 ranks" in cell["skip_reason"]
+    else:
+        assert dryrun.train_refusal(treg.SHAPES["train_4k"], False) is None
 
 
 def test_dry_run_refuses_a_group_that_is_up():

@@ -107,7 +107,7 @@ def test_state_specs_equal_reference(arch, mesh_name):
                     jax.tree.leaves(jtree, is_leaf=lambda x: hasattr(x, "spec"))):
         assert g.spec == _trim(w.spec)
     for rank in (1, 2, 3):
-        assert shardlib.batch_sharding(mesh, rank).spec == \
+        assert shardlib.batch_sharding(mesh).spec == \
             _trim(jshard.batch_sharding(jmesh, rank).spec)
 
 
@@ -154,7 +154,7 @@ for arch, k in (("minicpm-2b", 1), ("phi3.5-moe-42b-a6.6b", 1), ("minicpm-2b", 2
         for x, sh in zip(tree_util.tree_flatten(state)[0], tree_util.tree_flatten(shard)[0]))
     split = sum(shardlib.is_dtensor(x) for x in tree_util.tree_flatten(state)[0])
     step = step_lib.build_train_step(model, full, scfg)
-    pipe = TokenPipeline(DataConfig(vocab=cfg.vocab, seq_len=16, global_batch=8, seed=5))
+    pipe = TokenPipeline(DataConfig(vocab=cfg.vocab, seq_len=16, global_batch=8 * k, seed=5))
     losses, norms = [], []
     for i in range(3):
         state, m = step(state, pipe.batch_at(i))
@@ -315,7 +315,7 @@ def _replicated(arch: str, k: int) -> dict:
     step = step_lib.build_train_step(model, None, scfg)
     from repro_torch.data.tokens import DataConfig, TokenPipeline
 
-    pipe = TokenPipeline(DataConfig(vocab=cfg.vocab, seq_len=16, global_batch=8, seed=5))
+    pipe = TokenPipeline(DataConfig(vocab=cfg.vocab, seq_len=16, global_batch=8 * k, seed=5))
     losses, norms = [], []
     for i in range(3):
         state, m = step(state, pipe.batch_at(i))
