@@ -64,30 +64,35 @@ def get_config(arch: str, smoke: bool = False) -> ArchConfig:
     return mod.SMOKE if smoke else mod.CONFIG
 
 
-def build_model(cfg: ArchConfig, device=None):
-    """The model of ``cfg``'s family on ``device`` (CUDA unless ``"cpu"`` or
-    ``"meta"``)."""
+def model_class(cfg: ArchConfig):
+    """The model class of ``cfg``'s family."""
     if cfg.family in ("dense", "vlm"):
         from repro_torch.models.transformer import DenseLM
 
-        return DenseLM(cfg, device=device)
+        return DenseLM
     if cfg.family == "moe":
         from repro_torch.models.moe import MoELM
 
-        return MoELM(cfg, device=device)
+        return MoELM
     if cfg.family == "ssm":
         from repro_torch.models.rwkv6 import RWKV6LM
 
-        return RWKV6LM(cfg, device=device)
+        return RWKV6LM
     if cfg.family == "hybrid":
         from repro_torch.models.hybrid import HymbaLM
 
-        return HymbaLM(cfg, device=device)
+        return HymbaLM
     if cfg.family in ("audio", "encdec"):
         from repro_torch.models.encdec import EncDecLM
 
-        return EncDecLM(cfg, device=device)
+        return EncDecLM
     raise ValueError(f"unknown family {cfg.family}")
+
+
+def build_model(cfg: ArchConfig, device=None):
+    """The model of ``cfg``'s family on ``device`` (CUDA unless ``"cpu"`` or
+    ``"meta"``)."""
+    return model_class(cfg)(cfg, device=device)
 
 
 def supports(cfg: ArchConfig, shape: ShapeCell) -> tuple[bool, str]:

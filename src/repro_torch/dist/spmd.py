@@ -9,33 +9,53 @@ hands the model those blocks, each tagged with its spec and logical axes
 model's sharding hooks live:
 
 * **Gather where used.**  :func:`gather_outer` (called at the top of a
-  model's ``forward``) all-gathers the leaves that are not stacked per
-  layer; :func:`remat` runs a layer under ``torch.utils.checkpoint`` and
-  all-gathers that layer's slices (:func:`unbind`) *inside* it, so only
-  one layer's whole weights are live at a time and the backward pass
-  gathers them again.  A gather's backward is the adjoint: a reduce-scatter
-  over the axes it gathered and an all-reduce over the batch axes the leaf
-  is replicated on, so each rank ends with its block's gradient summed over
-  its pod.
+  model's ``forward``) gathers the leaves that are not stacked per layer;
+  :func:`remat` runs a layer under ``torch.utils.checkpoint`` and gathers
+  that layer's slices (:func:`unbind`) *inside* it, so only one layer's
+  gathered weights are live at a time and the backward pass gathers them
+  again.  A gather all-gathers over ``data`` (FSDP).  Over ``model`` it
+  depends on the model's design (``Context(model_blocks=)``, from the
+  model's ``tensor_parallel`` class attribute): where the model computes
+  on Megatron blocks, a leaf keeps its ``model`` block wherever its
+  logical axis on that dimension is ``heads``, ``kv_heads``, ``mlp`` or
+  ``vocab`` and its spec splits it there, and the layer that uses it takes
+  it as a block (:func:`model_split`) between the two region operators,
+  :func:`to_model` (identity forward, all-reduce over ``model`` backward)
+  and :func:`from_model` (all-reduce over ``model`` forward, identity
+  backward); a block no layer took as one makes the step raise
+  (:func:`unused`).  Other leaves (norms, ``embed``-only vectors, heads
+  that fall back to replication, the MoE router) are gathered whole.
+* **Gradients.**  A gather's backward is its adjoint over the axes whose
+  ranks computed distinct rows (a reduce-scatter, and an all-reduce over
+  such axes the leaf is replicated on); over an axis whose ranks share
+  their rows (``model`` under Megatron blocks) every rank computed the
+  same whole gradient, so it keeps its own block of it and sums nothing.
+  A replicated weight that ranks use in part (k and v heads replicated
+  beside split q heads) enters the model region through
+  :func:`to_model`, whose backward sums its parts.
 * **Expert parallelism.**  A leaf whose leading logical axis is
   ``experts`` keeps that dimension local, and the gathered stack carries
   the axis that splits it: the MoE layer runs this rank's experts on its
   share of the dispatch buffer (:func:`own_experts`) and gathers their
   outputs (:func:`all_experts`).
-* **Rows.**  Each rank computes its own rows of each microbatch (pod-major,
-  then ``data``, then ``model``, as ``train.step`` splits them).  The MoE routing sees every row of
+* **Rows.**  Each rank computes the rows of each microbatch that the
+  step's row axes give it (``Context.row_axes``, outer first): pod-major
+  and ``data``, the axes of ``dist.sharding.batch_sharding``; under
+  Megatron blocks the ranks along ``model`` share those rows, otherwise
+  they split them too (``train.step``).  The MoE routing sees every row of
   the microbatch, as the reference's does: :func:`all_rows` gathers them
-  and :func:`own_rows` keeps this rank's again.
+  over the row axes and :func:`own_rows` keeps this rank's again.
 
 Every rank differentiates its own rows' loss; the collectives' backward
-passes are their adjoints (all-gather <-> reduce-scatter, all-reduce <->
-all-reduce), so the sum of the ranks' gradients is the gradient of the sum
-of their losses, and the step divides by the number of ranks in a pod.
+passes are their adjoints, so the sum over the ranks that hold distinct
+rows of their gradients is the gradient of the sum of their losses, and
+the step divides by the number of such ranks in a pod.
 
 Without :func:`use` (serving, one process) every hook is the identity.  A
 ``gloo`` group moves CPU tensors, so CUDA tensors cross it through host
 copies (ranks sharing one card); ``nccl`` moves them on the card.  Each
-rank's bytes are counted in :data:`sent_bytes`.
+rank's bytes are counted by kind in :data:`sent_bytes` and by kind and
+mesh axis in :data:`sent_by_axis`.
 """
 
 from __future__ import annotations
@@ -57,32 +77,56 @@ from repro_torch.dist import sharding as shardlib
 _ACTIVE: Optional["Context"] = None
 # Bytes this process has sent by the step's parameter and row collectives
 # since the last reset (the gradient hop and the loss mean count in
-# ``dist.insitu.sent_bytes``); the autograd engine's thread adds too.
-sent_bytes = {"all_gather": 0, "reduce_scatter": 0, "all_reduce": 0}
+# ``dist.insitu.sent_bytes``), by kind and by kind and mesh axis; the
+# autograd engine's thread adds too.
+KINDS = ("all_gather", "reduce_scatter", "all_reduce")
+sent_bytes = dict.fromkeys(KINDS, 0)
+sent_by_axis: dict = {k: {} for k in KINDS}
 _SENT_LOCK = threading.Lock()
-SUM_AXES = ("data", "model")  # a pod's ranks: the axes a gradient sums over
+SUM_AXES = ("data", "model")  # a pod's axes: a gradient sums over those that split rows
+# logical axes whose ``model`` blocks a layer computes on (Megatron column
+# and row blocks, a vocab-parallel table); ``experts`` keeps its blocks too
+BLOCK_AXES = ("heads", "kv_heads", "mlp", "vocab")
 
 
 @dataclasses.dataclass
 class _Leaf:
     """A parameter block's spec (one entry per dimension) and logical axes;
-    ``root`` is the stacked leaf a per-layer slice came from."""
+    ``root`` is the stacked leaf a per-layer slice came from.  ``blocked``:
+    a gather handed a layer its ``model`` block; ``claimed``: a layer took
+    it as one (:func:`model_split`)."""
 
     spec: tuple
     axes: tuple
     root: Optional["_Leaf"] = None
     used: bool = False
+    blocked: bool = False
+    claimed: bool = False
 
 
-def _count(kind: str, t: torch.Tensor) -> None:
+@dataclasses.dataclass(frozen=True)
+class Block:
+    """A tensor that holds block ``index`` of ``count`` along ``model``
+    (a parameter's, from a gather, or a layer's output); ``leaf`` is the
+    parameter's record."""
+
+    index: int
+    count: int
+    leaf: Optional[_Leaf] = None
+
+
+def _count(kind: str, axis: str, t: torch.Tensor) -> None:
+    n = t.numel() * t.element_size()
     with _SENT_LOCK:
-        sent_bytes[kind] += t.numel() * t.element_size()
+        sent_bytes[kind] += n
+        sent_by_axis[kind][axis] = sent_by_axis[kind].get(axis, 0) + n
 
 
 def reset_sent_bytes() -> None:
     with _SENT_LOCK:
-        for k in sent_bytes:
+        for k in KINDS:
             sent_bytes[k] = 0
+            sent_by_axis[k] = {}
 
 
 def tag(t: torch.Tensor, spec: tuple, axes: tuple) -> torch.Tensor:
@@ -101,22 +145,29 @@ def _info(t) -> Optional[_Leaf]:
 
 
 def unused(leaves) -> list[int]:
-    """Indices of tagged ``leaves`` that no gather reached."""
-    return [i for i, t in enumerate(leaves) if _info(t) is not None and not _info(t).used]
+    """Indices of tagged ``leaves`` that no gather reached, or whose
+    ``model`` block no layer took as a block (:func:`model_split`)."""
+    return [i for i, t in enumerate(leaves) if _info(t) is not None
+            and (not _info(t).used or (_info(t).blocked and not _info(t).claimed))]
 
 
 class Context:
     """A mesh's collectives for one microbatch: ``row_axes`` are the mesh
     axes that split the microbatch's rows (outer first), ``rows`` this
-    rank's row count."""
+    rank's row count; ``model_blocks``: the model computes on ``model``
+    blocks, and the ranks along ``model`` share their rows."""
 
-    def __init__(self, mesh, row_axes: tuple = (), rows: int = 0):
+    def __init__(self, mesh, row_axes: tuple = (), rows: int = 0, model_blocks: bool = False):
         self.mesh = mesh
         self.sizes = shardlib.mesh_sizes(mesh)
         self.coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
         self.row_axes = tuple(a for a in row_axes if self.sizes.get(a, 1) > 1)
         self.rows = rows
-        self.sum_axes = tuple(a for a in SUM_AXES if self.sizes.get(a, 1) > 1)
+        self.model_blocks = model_blocks and self.sizes.get("model", 1) > 1
+        if self.model_blocks and "model" in self.row_axes:
+            raise ValueError("ranks that compute on model blocks share their rows: 'model' is "
+                             "not a row axis")
+        self.sum_axes = tuple(a for a in SUM_AXES if a in self.row_axes)
 
     # ------------------------------------------------------ collectives --
     def _wire(self, axis: str, t: torch.Tensor):
@@ -129,7 +180,7 @@ class Context:
         rank order."""
         group, host, wire = self._wire(axis, t)
         parts = [torch.empty_like(wire) for _ in range(self.sizes[axis])]
-        _count("all_gather", wire)
+        _count("all_gather", axis, wire)
         dist.all_gather(parts, wire, group=group)
         out = torch.cat(parts, dim)
         return out.to(t.device) if host else out
@@ -139,17 +190,22 @@ class Context:
         group, host, wire = self._wire(axis, t)
         parts = [c.contiguous() for c in wire.chunk(self.sizes[axis], dim)]
         out = torch.empty_like(parts[0])
-        _count("reduce_scatter", wire)
+        _count("reduce_scatter", axis, wire)
         dist.reduce_scatter(out, parts, group=group)
         return out.to(t.device) if host else out
 
-    def all_reduce(self, t: torch.Tensor, axis: str) -> torch.Tensor:
-        """The sum over mesh ``axis`` of ``t`` (a new tensor)."""
+    def all_reduce(self, t: torch.Tensor, axis: str, op=dist.ReduceOp.SUM) -> torch.Tensor:
+        """The sum (or ``op``) over mesh ``axis`` of ``t`` (a new tensor)."""
         group, host, wire = self._wire(axis, t)
         buf = wire if host else wire.clone()
-        _count("all_reduce", buf)
-        dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=group)
+        _count("all_reduce", axis, buf)
+        dist.all_reduce(buf, op=op, group=group)
         return buf.to(t.device) if host else buf
+
+    def own_chunk(self, t: torch.Tensor, axis: str, dim: int) -> torch.Tensor:
+        """This rank's chunk of ``dim`` among the ranks of ``axis``."""
+        k = t.shape[dim] // self.sizes[axis]
+        return t.narrow(dim, self.coord[axis] * k, k)
 
     # ------------------------------------------------------------ rows --
     def rows_index(self) -> int:
@@ -166,8 +222,9 @@ class Context:
 
 class _Gather(torch.autograd.Function):
     """All-gather a block over ``gathers`` ((axis, dim) pairs, in order);
-    backward: reduce-scatter over them in reverse, then all-reduce over
-    ``sums``."""
+    backward, in reverse: a reduce-scatter over an axis whose ranks computed
+    distinct rows, this rank's chunk over one whose ranks share them (each
+    computed the same whole gradient); then an all-reduce over ``sums``."""
 
     @staticmethod
     def forward(fctx, local, ctx, gathers, sums):
@@ -181,10 +238,54 @@ class _Gather(torch.autograd.Function):
     def backward(fctx, g):
         ctx = fctx.ctx
         for axis, dim in reversed(fctx.gathers):
-            g = ctx.reduce_scatter(g, axis, dim)
+            g = (ctx.reduce_scatter(g, axis, dim) if axis in ctx.row_axes
+                 else ctx.own_chunk(g, axis, dim).contiguous())
         for axis in fctx.sums:
             g = ctx.all_reduce(g, axis)
         return g, None, None, None
+
+
+class _ToModel(torch.autograd.Function):
+    """Copy to the model region: the identity; backward, the sum over
+    ``model`` of the ranks' partial gradients."""
+
+    @staticmethod
+    def forward(fctx, x, ctx):
+        fctx.ctx = ctx
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(fctx, g):
+        return fctx.ctx.all_reduce(g, "model"), None
+
+
+class _FromModel(torch.autograd.Function):
+    """Reduce from the model region: the sum over ``model`` of the ranks'
+    partial results; backward, the identity (every rank holds the whole
+    gradient of the sum)."""
+
+    @staticmethod
+    def forward(fctx, x, ctx):
+        return ctx.all_reduce(x, "model")
+
+    @staticmethod
+    def backward(fctx, g):
+        return g, None
+
+
+class _Split(torch.autograd.Function):
+    """This rank's chunk of ``dim`` over ``axis`` of a tensor every rank on
+    the axis holds whole; backward, every rank's chunk gradient gathered
+    (the whole tensor's gradient, on every rank)."""
+
+    @staticmethod
+    def forward(fctx, x, ctx, axis, dim):
+        fctx.ctx, fctx.axis, fctx.dim = ctx, axis, dim
+        return ctx.own_chunk(x, axis, dim).contiguous()
+
+    @staticmethod
+    def backward(fctx, g):
+        return fctx.ctx.all_gather(g, fctx.axis, fctx.dim), None, None, None
 
 
 def active() -> Optional[Context]:
@@ -206,19 +307,27 @@ def _gather_leaf(ctx: Context, t: torch.Tensor) -> torch.Tensor:
     info = _info(t)
     if info is None:
         return t
-    (info.root or info).used = True
-    gathers, held = [], set()
+    root = info.root or info
+    root.used = True
+    gathers, held, block = [], set(), None
     for dim, (ent, name) in enumerate(zip(info.spec, info.axes)):
         if ent is None or ctx.sizes.get(ent, 1) == 1:
             continue
         held.add(ent)
-        if not (dim == 0 and name == "experts"):  # expert parallelism keeps its experts
-            gathers.append((ent, dim))
+        if dim == 0 and name == "experts":  # expert parallelism keeps its experts
+            continue
+        if ctx.model_blocks and ent == "model" and name in BLOCK_AXES:
+            block = Block(ctx.coord["model"], ctx.sizes["model"], root)  # Megatron keeps its block
+            continue
+        gathers.append((ent, dim))
     sums = tuple(a for a in ctx.sum_axes if a not in held)
     out = _Gather.apply(t, ctx, tuple(gathers), sums) if gathers or sums else t
     if info.axes[:1] == ("experts",) and info.spec[0] is not None \
             and ctx.sizes.get(info.spec[0], 1) > 1:
         out._experts_axis = info.spec[0]  # the expert stack stays split here
+    if block is not None:
+        root.blocked = True
+        out._model_block = block
     return out
 
 
@@ -231,8 +340,9 @@ def _map(fn, tree: Any) -> Any:
 
 
 def gather(tree: Any, ctx: Optional[Context] = None) -> Any:
-    """Every tagged tensor of ``tree`` whole (experts kept local); the
-    identity outside :func:`use`."""
+    """Every tagged tensor of ``tree`` gathered for use (experts and, under
+    ``model_blocks``, Megatron ``model`` blocks kept local); the identity
+    outside :func:`use`."""
     ctx = ctx or _ACTIVE
     if ctx is None:
         return tree
@@ -285,6 +395,69 @@ def remat(fn, lp: Any, *args):
                       use_reentrant=False)
 
 
+# ---------------------------------------------------- Megatron blocks --
+
+def model_split(*ts) -> Optional[tuple[int, int]]:
+    """``(index, count)`` of the ``model`` blocks that ``ts`` hold (the
+    leaves of one parallel region, split alike), taking each leaf's block
+    as a block for :func:`unused`; ``None`` when they are whole (outside
+    :func:`use`, without ``model_blocks``, or a spec that fell back to
+    replication).  Leaves that are split unlike each other raise."""
+    ctx = _ACTIVE
+    if ctx is None or not ctx.model_blocks:
+        return None
+    blocks = [getattr(t, "_model_block", None) for t in ts]
+    if all(b is None for b in blocks):
+        return None
+    if any(b is None or (b.index, b.count) != (blocks[0].index, blocks[0].count)
+           for b in blocks):
+        raise ValueError(f"one region's leaves are split unlike each other on model: {blocks}")
+    for b in blocks:
+        if b.leaf is not None:
+            b.leaf.claimed = True
+    return blocks[0].index, blocks[0].count
+
+
+def as_block(t: torch.Tensor, split: Optional[tuple[int, int]]) -> torch.Tensor:
+    """``t`` marked as block ``split`` (from :func:`model_split`) of a
+    layer output split over ``model`` (a vocab block of logits); ``t``
+    itself when ``split`` is ``None``."""
+    if split is not None:
+        t._model_block = Block(*split)
+    return t
+
+
+def to_model(x: torch.Tensor) -> torch.Tensor:
+    """Copy ``x`` (whole on every ``model`` rank) into a model-parallel
+    region: the identity forward; backward, the sum over ``model`` of the
+    ranks' partial gradients.  The identity without ``model_blocks``."""
+    ctx = _ACTIVE
+    if ctx is None or not ctx.model_blocks:
+        return x
+    return _ToModel.apply(x, ctx)
+
+
+def from_model(x: torch.Tensor) -> torch.Tensor:
+    """Reduce a model-parallel region's partial result ``x``: the sum over
+    ``model`` forward, the identity backward.  The identity without
+    ``model_blocks``."""
+    ctx = _ACTIVE
+    if ctx is None or not ctx.model_blocks:
+        return x
+    return _FromModel.apply(x, ctx)
+
+
+def max_over_model(x: torch.Tensor) -> torch.Tensor:
+    """The elementwise maximum over ``model`` of ``x`` (no gradient); ``x``
+    without ``model_blocks``."""
+    ctx = _ACTIVE
+    if ctx is None or not ctx.model_blocks:
+        return x
+    return ctx.all_reduce(x.detach(), "model", op=dist.ReduceOp.MAX)
+
+
+# --------------------------------------------------- rows and experts --
+
 def all_rows(x: torch.Tensor) -> torch.Tensor:
     """Every row block of the microbatch (dim 0), outer axis first: what the
     MoE routing sees.  The identity outside :func:`use` or when one rank
@@ -321,17 +494,20 @@ def experts_axis(w: torch.Tensor) -> Optional[str]:
 def own_experts(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """This rank's experts of ``x`` (dim 0 is the expert axis): the block
     that the expert stack ``w`` holds on its axis; ``x`` when ``w`` holds
-    every expert."""
+    every expert.  Where the axis's ranks share their rows (``x`` is the
+    same on each), the backward gathers every rank's experts' gradient."""
     axis = experts_axis(w)
     if axis is None:
         return x
-    k = w.shape[0]
-    return x.narrow(0, _ACTIVE.coord[axis] * k, k)
+    if axis in _ACTIVE.row_axes:
+        return _ACTIVE.own_chunk(x, axis, 0)
+    return _Split.apply(x, _ACTIVE, axis, 0)
 
 
 def all_experts(y: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """The inverse of :func:`own_experts`: every rank's experts of ``y``
-    gathered over ``w``'s expert axis (backward: a reduce-scatter)."""
+    gathered over ``w``'s expert axis (backward: a reduce-scatter, or this
+    rank's chunk where the axis's ranks share their rows)."""
     axis = experts_axis(w)
     if axis is None:
         return y

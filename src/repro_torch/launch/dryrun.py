@@ -37,14 +37,17 @@ What differs from the reference, and why:
   and (2, 16, 1): the reference shards their parameters and caches through
   ``build_serve_step``, which the port has no twin of (its serving runs on
   one card).  A prefill or decode cell's global batch splits over pod x
-  data exactly as the reference splits it over ``data``; a train cell's
-  splits over pod x data x model, each rank taking rows of its own, and a
-  cell whose rows do not divide over those ranks is skipped with its
+  data exactly as the reference splits it over ``data``; so does a train
+  cell's where the model computes on Megatron blocks over ``model`` (the
+  dense, vlm, MoE and audio families: the ranks along ``model`` share
+  their rows, as under the reference's GSPMD program).  rwkv6 and hymba
+  gather their weights whole, so their rows split over pod x data x model,
+  and a cell whose rows do not divide over those ranks is skipped with its
   reason (the step would raise): ``train_4k``'s 256 rows on the 512 ranks
-  of the multi-pod mesh.  The train cells predict the port's design, not
-  the reference's GSPMD program: attention and dense layers on whole
-  gathered weights, and each MoE layer routing the whole microbatch on
-  every rank and gathering every expert's output.
+  of the multi-pod mesh (:func:`train_refusal`).  The train cells predict
+  the port's partition, which is fixed where XLA's may choose: each MoE
+  layer routes the whole microbatch on every rank and gathers every
+  expert's output.
 * **Steps.**  Train runs :func:`repro_torch.train.step.build_train_step`
   with bfloat16 parameters (and the compressed pod hop with ``--grad-comp``
   on the multi mesh) on a ``meta`` state; the batch comes from the host, as
@@ -317,24 +320,37 @@ def local_batch(shape, mesh) -> int:
     return max(shape.global_batch // (sizes.get("pod", 1) * sizes.get("data", 1)), 1)
 
 
-def train_rows(shape, mesh) -> int:
+def row_axes(cfg) -> tuple[str, ...]:
+    """The mesh axes a train cell's rows split over: pod x data where the
+    model computes on Megatron blocks over ``model`` (its ranks share their
+    rows), pod x data x model where it gathers every weight whole."""
+    blocks = registry.model_class(cfg).tensor_parallel
+    return ("pod", "data") if blocks else ("pod", "data", "model")
+
+
+def train_rows(shape, mesh, cfg) -> int:
     """This rank's rows of a train cell's global batch: the step splits
-    them over pod x data x model (``train.step.build_train_step``), so this
+    them over :func:`row_axes` (``train.step.build_train_step``), so this
     bounds the microbatch count."""
     sizes = mesh_sizes(mesh)
-    return shape.global_batch // math.prod(sizes.get(a, 1) for a in ("pod", "data", "model"))
+    return shape.global_batch // math.prod(sizes.get(a, 1) for a in row_axes(cfg))
 
 
-def train_refusal(shape, multi_pod: bool) -> Optional[str]:
+def train_refusal(shape, multi_pod: bool, cfg) -> Optional[str]:
     """Why the train step cannot take a train cell on its mesh, or None:
-    every rank takes rows of its own, and none repeats another's."""
-    n = math.prod(MULTI_POD if multi_pod else SINGLE_POD)
+    the rows split over :func:`row_axes`, and no rank repeats another's."""
+    axes = row_axes(cfg)
+    sizes = dict(zip(("pod", "data", "model") if multi_pod else ("data", "model"),
+                     MULTI_POD if multi_pod else SINGLE_POD))
+    n = math.prod(sizes.get(a, 1) for a in axes)
     if shape.global_batch % n == 0:
         return None
-    return (f"the global batch of {shape.global_batch} rows does not split over the {n} ranks "
-            "of pod x data x model: the port's train step computes attention and dense layers "
-            "on whole gathered weights, so each rank takes rows of its own (computing on "
-            "Megatron blocks over model would let ranks share rows)")
+    why = (f"the global batch of {shape.global_batch} rows does not split over the {n} ranks of "
+           + " x ".join(a for a in axes if a in sizes))
+    if "model" in axes:
+        why += (f": the port's {cfg.family} family ({cfg.name}) computes on whole gathered "
+                "weights, so each rank along model takes rows of its own")
+    return why
 
 
 def choose_microbatches(trace: Callable[[int], dict], b_local: int, state_bytes: int,
@@ -445,7 +461,7 @@ def cell_cost(cfg, shape, mesh, grad_comp: bool = False) -> tuple[dict, int]:
     def trace(k: int, runs: int = 1) -> dict:
         return train_cost(model, cfg, shape, mesh, k, runs, grad_comp)
 
-    k, c1 = choose_microbatches(trace, train_rows(shape, mesh),
+    k, c1 = choose_microbatches(trace, train_rows(shape, mesh, cfg),
                                 *train_arg_bytes(model, mesh, grad_comp))
     if k == 1:
         return c1, 1
@@ -462,7 +478,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, verbose: bool = True,
             "kind": shape.kind, "seq_len": shape.seq_len,
             "global_batch": shape.global_batch}
     if ok and shape.kind == "train":
-        why = train_refusal(shape, multi_pod)
+        why = train_refusal(shape, multi_pod, cfg)
         ok = why is None
     if not ok:
         cell["status"] = "skipped"

@@ -12,6 +12,10 @@ and ``attention="fused"`` reads the cache through K10's dense entry; the
 cross-attention reads ``mem_k``/``mem_v``, which ``init_cache(...,
 params=, frames=)`` fills from the encoder.  There is no paged pool and no
 prefill (the reference has neither for this family).
+
+In the sharded train step the self- and cross-attention, the GELU MLPs and
+the tied embedding compute on their ``model`` blocks through
+``models.layers``' parallel forms (:func:`cross_block`).
 """
 
 from __future__ import annotations
@@ -38,21 +42,37 @@ def cross_attention_spec(c) -> dict:
 
 
 def cross_attention(p: dict, c, x: torch.Tensor, mem_k: torch.Tensor,
-                    mem_v: torch.Tensor) -> torch.Tensor:
-    """x: (B,S,D); mem_k/mem_v: (B,T,H,K) precomputed from encoder output."""
+                    mem_v: torch.Tensor, hb: Optional[L.HeadBlocks] = None) -> torch.Tensor:
+    """x: (B,S,D); mem_k/mem_v: (B,T,H,K) precomputed from encoder output;
+    with ``hb`` (the sharded step's heads, :func:`cross_block`) this rank's
+    heads, reduced over ``model``."""
     q = L._proj_heads(x, p["wq"])
-    n_rep = c.n_heads // c.n_kv_heads
-    k, v = L._repeat_kv(mem_k, n_rep), L._repeat_kv(mem_v, n_rep)
+    k, v = L._kv_for_q(mem_k, c, hb), L._kv_for_q(mem_v, c, hb)
     logits = L._scores(q, k) * c.head_dim**-0.5
     probs = torch.softmax(logits, dim=-1).to(x.dtype)
-    return L._out_proj(L._weighted(probs, v), p["wo"])
+    return L._close_heads(L._out_proj(L._weighted(probs, v), p["wo"]), hb)
 
 
 def encode_memory(p: dict, c, enc_out: torch.Tensor):
     return L._proj_heads(enc_out, p["wk"]), L._proj_heads(enc_out, p["wv"])
 
 
+def cross_block(p: dict, c, x: torch.Tensor, enc: torch.Tensor) -> torch.Tensor:
+    """Cross-attention of ``x`` over the encoder output ``enc`` (the
+    training path): in the sharded step, on this rank's heads
+    (``layers.head_blocks``), both inputs copied into the model region."""
+    hb = L.head_blocks(p, c, x.device)
+    if hb is not None:
+        p, x, enc = hb.p, spmd.to_model(x), spmd.to_model(enc)
+    mk, mv = encode_memory(p, c, enc)
+    return cross_attention(p, c, x, mk, mv, hb)
+
+
 class EncDecLM:
+    # the sharded train step computes on Megatron blocks over ``model``
+    # (``dist.spmd``; the cross-attention too), and the ranks along
+    # ``model`` share their rows
+    tensor_parallel = True
     supports_paged_kv = False
     # blockfloat8 decode self-attention reads its dense cache through K10
     supports_fused_attention = True
@@ -106,9 +126,7 @@ class EncDecLM:
     def _dec_layer(self, lp, x, enc, positions):
         c = self.cfg
         x = x + L.attention(lp["self_attn"], c.attn(), L.layernorm(lp["self_norm"], x), positions)
-        mk, mv = encode_memory(lp["cross_attn"], c.attn(), enc)
-        x = x + cross_attention(lp["cross_attn"], c.attn(), L.layernorm(lp["cross_norm"], x),
-                                mk, mv)
+        x = x + cross_block(lp["cross_attn"], c.attn(), L.layernorm(lp["cross_norm"], x), enc)
         return x + L.mlp(lp["mlp"], L.layernorm(lp["mlp_norm"], x), "gelu")
 
     def encode(self, params: dict, frames: torch.Tensor) -> torch.Tensor:

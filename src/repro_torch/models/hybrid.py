@@ -125,6 +125,10 @@ class HymbaLM:
 
     supports_paged_kv = False
     supports_fused_attention = False
+    # the sharded train step gathers every weight whole and splits the rows
+    # over ``model`` too (``dist.spmd``): its parallel attention and SSD
+    # heads have no Megatron blocks here
+    tensor_parallel = False
 
     def __init__(self, cfg: ArchConfig, device=None):
         self.cfg = cfg

@@ -23,6 +23,18 @@ Differences from the reference, none of them in the numbers:
   is; in the sharded train step (``repro_torch.dist.spmd``) it keeps this
   rank's rows of an activation that holds the whole microbatch (the MoE
   combine's) and refuses any other row count.
+* In the sharded train step, where the model computes on ``model`` blocks
+  (``spmd.model_split``), the layers are Megatron's, as the reference's
+  GSPMD program partitions them: attention runs this rank's q heads
+  (column-parallel ``wq``, ``wk``, ``wv`` and their biases, row-parallel
+  ``wo``); where the kv heads fall back to replication beside split q
+  heads each rank cuts the kv heads its q heads read (q head ``i`` of
+  rank ``r`` reads global kv head ``(r * h_local + i) // n_rep``); the
+  MLP is column-parallel ``gate``, ``up`` and ``up_b`` and row-parallel
+  ``down``, with ``down_b`` added once after the reduction; the embedding
+  and the unembedding are vocab-parallel.  Heads that fall back to
+  replication run whole on every rank.  Outside the step every hook is the
+  identity.
 * The reference's process-wide flags are not ported: the flash threshold
   is ``AttnConfig.flash_threshold`` alone, and ``KVC_FUSED`` is the
   ``attention`` argument carried from ``EngineConfig`` to
@@ -164,6 +176,59 @@ def _repeat_kv(k: torch.Tensor, n_rep: int) -> torch.Tensor:
     return torch.repeat_interleave(k, n_rep, dim=2)
 
 
+@dataclasses.dataclass
+class HeadBlocks:
+    """This rank's heads of an attention layer in the sharded step: ``p``
+    holds its q-head blocks and the k/v leaves of the kv heads they read;
+    ``kv_index`` maps each local q head to its local kv head where the kv
+    heads were cut from replicated leaves (``None``: split like the q
+    heads, ``n_rep`` to each)."""
+
+    p: dict
+    kv_index: Optional[torch.Tensor]
+
+
+def head_blocks(p: dict, c: AttnConfig, device) -> Optional[HeadBlocks]:
+    """This rank's :class:`HeadBlocks` where the sharded step splits the q
+    heads over ``model``; ``None`` where they are whole (no mesh, or heads
+    that fall back to replication).  Replicated k/v leaves enter the model
+    region (``spmd.to_model``: each rank's gradient is its q heads' part)
+    before they are cut."""
+    q_names = [k for k in ("wq", "wo", "bq") if k in p]
+    kv_names = [k for k in ("wk", "wv", "bk", "bv") if k in p]
+    heads = spmd.model_split(*(p[k] for k in q_names))
+    kv = spmd.model_split(*(p[k] for k in kv_names))
+    if heads is None:
+        if kv is not None:
+            raise ValueError("kv heads split over model beside whole q heads")
+        return None
+    if kv is not None:
+        return HeadBlocks(p, None)
+    r, n = heads
+    h_local, n_rep = c.n_heads // n, c.n_heads // c.n_kv_heads
+    lo, hi = (r * h_local) // n_rep, (r * h_local + h_local - 1) // n_rep + 1
+    cut = dict(p)
+    for k in kv_names:
+        cut[k] = spmd.to_model(p[k]).narrow(1 if k.startswith("w") else 0, lo, hi - lo)
+    index = torch.div(r * h_local + torch.arange(h_local, device=device), n_rep,
+                      rounding_mode="floor") - lo
+    return HeadBlocks(cut, index)
+
+
+def _kv_for_q(k: torch.Tensor, c: AttnConfig, hb: Optional[HeadBlocks]) -> torch.Tensor:
+    """K or V (B, S, kv heads, D) laid out for the q heads: each kv head
+    repeated ``n_rep`` times, or picked by ``hb.kv_index``."""
+    if hb is not None and hb.kv_index is not None:
+        return k.index_select(2, hb.kv_index)
+    return _repeat_kv(k, c.n_heads // c.n_kv_heads)
+
+
+def _close_heads(y: torch.Tensor, hb: Optional[HeadBlocks]) -> torch.Tensor:
+    """The row-parallel output projection's partial sum ``y`` reduced over
+    ``model`` where the heads are split."""
+    return y if hb is None else spmd.from_model(y)
+
+
 def _scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     """einsum("bqhk,bshk->bhqs") in the promoted dtype, then float32 (the
     reference rounds the product to its dtype before the cast)."""
@@ -239,15 +304,18 @@ def _sdpa_flash(q, k, v, q_pos, k_pos, window, chunk, causal=True):
 
 def attention(p: dict, c: AttnConfig, x: torch.Tensor, positions: torch.Tensor,
               causal: bool = True) -> torch.Tensor:
-    """Self-attention over a full sequence (training / prefill)."""
+    """Self-attention over a full sequence (training / prefill); this
+    rank's heads in the sharded step (:func:`head_blocks`)."""
+    hb = head_blocks(p, c, x.device)
+    if hb is not None:
+        p, x = hb.p, spmd.to_model(x)
     q, k, v = _qkv(p, c, x, positions)
-    n_rep = c.n_heads // c.n_kv_heads
-    k, v = _repeat_kv(k, n_rep), _repeat_kv(v, n_rep)
+    k, v = _kv_for_q(k, c, hb), _kv_for_q(v, c, hb)
     if x.shape[1] > c.flash_threshold:
         out = _sdpa_flash(q, k, v, positions, positions, c.window, c.chunk_kv, causal)
     else:
         out = _sdpa_full(q, k, v, positions, positions, c.window, causal)
-    return _out_proj(out, p["wo"])
+    return _close_heads(_out_proj(out, p["wo"]), hb)
 
 
 # -------------------------------------------------- KV cache (+ codec) ----
@@ -563,14 +631,23 @@ def mlp_spec(d_model: int, d_ff: int, kind: str = "swiglu") -> dict:
 
 
 def mlp(p: dict, x: torch.Tensor, kind: str = "swiglu") -> torch.Tensor:
+    """The MLP; in the sharded step, column-parallel ``gate``, ``up`` and
+    ``up_b`` and row-parallel ``down`` where ``mlp`` splits over ``model``,
+    ``down_b`` added once after the reduction."""
     dt = x.dtype
+    split = spmd.model_split(*(p[k] for k in (("gate", "up", "down") if kind == "swiglu"
+                                              else ("up", "up_b", "down"))))
+    if split is not None:
+        x = spmd.to_model(x)
     if kind == "swiglu":
         g = x @ p["gate"].to(dt)
         u = x @ p["up"].to(dt)
-        return (F.silu(g) * u) @ p["down"].to(dt)
+        y = (F.silu(g) * u) @ p["down"].to(dt)
+        return y if split is None else spmd.from_model(y)
     h = x @ p["up"].to(dt) + p["up_b"].to(dt)
     h = F.gelu(h, approximate="tanh")  # jax.nn.gelu defaults to the tanh form
-    return h @ p["down"].to(dt) + p["down_b"].to(dt)
+    y = h @ p["down"].to(dt)
+    return (y if split is None else spmd.from_model(y)) + p["down_b"].to(dt)
 
 
 # ------------------------------------------------------------ embedding ----
@@ -590,12 +667,28 @@ def embedding_spec(vocab: int, d_model: int) -> dict:
 
 
 def embed(p: dict, tokens: torch.Tensor, dtype) -> torch.Tensor:
+    """The tokens' rows of the table; vocab-parallel in the sharded step
+    where ``vocab`` splits over ``model``: ids outside this rank's block
+    give zero rows, and the rows are summed over ``model``."""
     # F.embedding, not p["table"][tokens]: its backward sums a token's rows
     # in a fixed order, where the index's (index_put_ with accumulate) runs
     # in parallel on the CPU and gave the table's gradient other bits run to
     # run.  The forward values are the same gather.
-    return constrain_batch(F.embedding(tokens.to(torch.int64), p["table"]).to(dtype))
+    ids = tokens.to(torch.int64)
+    split = spmd.model_split(p["table"])
+    if split is None:
+        return constrain_batch(F.embedding(ids, p["table"]).to(dtype))
+    rows = p["table"].shape[0]
+    ids = ids - split[0] * rows
+    inside = (ids >= 0) & (ids < rows)
+    x = F.embedding(torch.where(inside, ids, 0), p["table"]).to(dtype)
+    return constrain_batch(spmd.from_model(x.masked_fill(~inside[..., None], 0)))
 
 
 def unembed(p: dict, x: torch.Tensor) -> torch.Tensor:
-    return x @ p["table"].to(x.dtype).T
+    """Logits; in the sharded step where ``vocab`` splits over ``model``,
+    this rank's vocab block of them (``spmd.as_block``)."""
+    split = spmd.model_split(p["table"])
+    if split is not None:
+        x = spmd.to_model(x)
+    return spmd.as_block(x @ p["table"].to(x.dtype).T, split)

@@ -25,15 +25,22 @@ compute dtype after each add, as the reference's sequential
 ``.at[tok].add`` does.  ``index_add_`` would sum them with atomics in no
 fixed order on the card, so a repeated serving run could give other tokens.
 
-In the sharded train step (``repro_torch.dist.spmd``) the routing sees
-every row of the microbatch, as the reference's global program does
-(``spmd.all_rows``; the capacity counts them all), and each rank keeps its
-own rows of the combined output (``layers.constrain_batch``).
+In the sharded train step (``repro_torch.dist.spmd``) the ranks along
+``model`` share their rows, and the routing sees every row of the
+microbatch, as the reference's global program does (``spmd.all_rows``
+gathers them over the batch axes, ``pod`` and ``data``; the capacity counts
+them all): every ``model`` rank routes the same rows alike, and each rank
+keeps its own rows of the combined output (``layers.constrain_batch``).
 :func:`_constrain_experts`, the reference's sharding hint on the dispatch
 buffer, keeps this rank's experts when the ``model`` axis splits them
 (expert parallelism: the expert stacks stay split there), and their
-outputs are gathered back over ``model`` before the combine.  Without a
-mesh both are the identity, so serving does not change.  ``MoELM``
+outputs are gathered back over ``model`` before the combine (backward:
+each rank keeps its experts' gradient, and the buffer's gradient is every
+rank's experts' gathered).  Where the experts do not divide over ``model``
+the stacks' ``mlp`` axis splits there instead (qwen3-moe's 8 SMOKE experts
+on a 16-wide axis), and each expert is a Megatron MLP on its blocks.
+Without a mesh all of these are the identity, so serving does not
+change.  ``MoELM``
 inherits ``DenseLM``'s decode, prefill, paged pool and
 ``attention="fused"`` route (K10) through its ``_mlp_block`` hook.
 """
@@ -138,9 +145,15 @@ def moe_apply(p: dict, c: ArchConfig, x: torch.Tensor) -> tuple[torch.Tensor, to
     buf = torch.zeros((rows + 1, d), dtype=dt, device=x.device)
     buf.index_copy_(0, r.slot, xf[r.tok_s])
     h = _constrain_experts(buf[:rows].view(e, r.capacity, d), p["gate"])
+    split = spmd.model_split(p["gate"], p["up"], p["down"])  # mlp blocks: experts not split
+    if split is not None:
+        h = spmd.to_model(h)
     g = torch.bmm(h, p["gate"].to(dt))
     u = torch.bmm(h, p["up"].to(dt))
-    y = spmd.all_experts(torch.bmm(F.silu(g) * u, p["down"].to(dt)), p["down"]).reshape(rows, d)
+    y = torch.bmm(F.silu(g) * u, p["down"].to(dt))
+    if split is not None:
+        y = spmd.from_model(y)
+    y = spmd.all_experts(y, p["down"]).reshape(rows, d)
 
     contrib = y[torch.clamp(r.slot, 0, rows - 1)] * r.gat_s[:, None]
     contrib = torch.where(r.valid[:, None], contrib, torch.zeros((), dtype=dt, device=x.device))

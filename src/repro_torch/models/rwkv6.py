@@ -166,6 +166,10 @@ class RWKV6LM:
     # no attention: no paged KV pool and no K10 route
     supports_paged_kv = False
     supports_fused_attention = False
+    # the sharded train step gathers every weight whole and splits the rows
+    # over ``model`` too (``dist.spmd``): its time-mix and channel-mix have
+    # no Megatron blocks here
+    tensor_parallel = False
 
     def __init__(self, cfg: ArchConfig, device=None):
         self.cfg = cfg

@@ -14,8 +14,10 @@ through ``dist.spmd.remat``), the counterpart of the reference's per-layer
 ``jax.checkpoint``, so only a layer's input is kept for the backward pass.
 Inside the sharded train step (``dist.spmd.use``) the parameters arrive as
 this rank's blocks and are gathered where they are used: the outer leaves
-at the top of ``forward``, a layer's inside its checkpoint.  ``decode_step`` and
-``prefill`` (the serving path) run without gradients.
+at the top of ``forward``, a layer's inside its checkpoint.  Attention, the
+MLPs, the embedding, the unembedding and :func:`lm_loss` compute on their
+``model`` blocks (``tensor_parallel``; ``models.layers``).  ``decode_step``
+and ``prefill`` (the serving path) run without gradients.
 """
 
 from __future__ import annotations
@@ -52,6 +54,9 @@ def unstack(tree: Any, n: int) -> list:
 
 
 class DenseLM(nn.Module):
+    # the sharded train step computes on Megatron blocks over ``model``
+    # (``dist.spmd``), and the ranks along ``model`` share their rows
+    tensor_parallel = True
     # decode routes every KV access through layers.decode_attention, so the
     # serving tier can swap the dense (B, S) cache for a paged pool
     supports_paged_kv = True
@@ -190,10 +195,25 @@ class DenseLM(nn.Module):
 
 
 def lm_loss(logits: torch.Tensor, labels: torch.Tensor, z_loss: float = 1e-4) -> torch.Tensor:
-    """Cross entropy in f32 with optional z-loss (stability at scale)."""
+    """Cross entropy in f32 with optional z-loss (stability at scale).
+    Vocab-parallel where ``logits`` is this rank's vocab block
+    (``layers.unembed`` in the sharded step): the global max, the sum of
+    exponents and the target logit are each reduced over ``model``; the
+    padded vocab counts, as the reference's ``logsumexp`` counts it."""
+    split = spmd.model_split(logits)
     logits = logits.to(torch.float32)
-    lse = torch.logsumexp(logits, dim=-1)
-    ll = torch.take_along_dim(logits, labels[..., None].to(torch.int64), dim=-1)[..., 0]
+    labels = labels.to(torch.int64)
+    if split is None:
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = torch.take_along_dim(logits, labels[..., None], dim=-1)[..., 0]
+    else:
+        width = logits.shape[-1]
+        m = spmd.max_over_model(logits.detach().amax(dim=-1))
+        lse = m + torch.log(spmd.from_model(torch.exp(logits - m[..., None]).sum(dim=-1)))
+        local = labels - split[0] * width
+        inside = (local >= 0) & (local < width)
+        ll = torch.take_along_dim(logits, torch.where(inside, local, 0)[..., None], dim=-1)[..., 0]
+        ll = spmd.from_model(torch.where(inside, ll, 0.0))
     loss = (lse - ll).mean()
     if z_loss:
         loss = loss + z_loss * (lse**2).mean()

@@ -17,15 +17,23 @@ is replicated; ``opt.step`` is replicated.  One process per rank of a
 * **Rows.**  Every rank gets the whole global batch and takes its rows:
   pod-major, then ``data`` within a pod and within each microbatch (the
   axes of ``dist.sharding.batch_sharding``, the reference's ``("pod",
-  "data")``), then ``model``.  A microbatch whose rows do not divide over
-  ``data`` x ``model`` raises: no rank computes another's rows.
+  "data")``).  A model with ``tensor_parallel`` (the dense, vlm, MoE and
+  audio families) computes on Megatron blocks over ``model``, so the
+  ranks along ``model`` share those rows, as under the reference's GSPMD
+  program; rwkv6 and hymba gather their weights whole, so their rows split
+  over ``model`` too.  A microbatch whose rows do not divide over the row
+  axes raises: no rank repeats another's rows.
 * **Compute.**  The model computes on this rank's blocks through
-  ``repro_torch.dist.spmd``: each leaf is all-gathered where it is used (a
-  layer's inside its activation checkpoint), the expert stacks stay split
+  ``repro_torch.dist.spmd``: each leaf is all-gathered over ``data`` where
+  it is used (a layer's inside its activation checkpoint); attention, the
+  MLPs, the embedding and the loss run on their ``model`` blocks between
+  the region operators (``tensor_parallel``), the expert stacks stay split
   over ``model`` (expert parallelism), and the MoE routing sees the whole
   microbatch, as the reference's global program does.  A gather's backward
-  reduce-scatters the gradient, so each rank ends with its block's gradient
-  summed over its pod's ranks; the step divides by their number.
+  reduce-scatters the gradient over the axes whose ranks hold distinct
+  rows, so each rank ends with its block's gradient summed over those
+  ranks of its pod; the step divides by their number (``data``, and
+  ``model`` for rwkv6 and hymba).
 * **Pods.**  The gradient mean over ``"pod"`` runs on each block: with
   ``grad_comp.enabled`` it is :func:`repro_torch.dist.collectives.
   compressed_pod_mean` (int8 or int4 codes and float32 block scales cross
@@ -39,10 +47,14 @@ is replicated; ``opt.step`` is replicated.  One process per rank of a
 What differs from the reference:
 
 * The reference partitions one global program under GSPMD; here the
-  collectives are explicit, and ranks on ``model`` compute attention and
-  dense MLPs on whole (gathered) weights rather than on Megatron column
-  and row blocks: only the expert stacks are computed split over
-  ``model``.  The numbers are the same function within float32 rounding.
+  collectives are explicit: Megatron's two region operators around each
+  column- and row-parallel pair, a vocab-parallel embedding and loss, and
+  the MoE's row and expert gathers (``dist.spmd``).  Where XLA may choose
+  another partition of an op (it may, for instance, gather a small weight
+  rather than reduce a large activation), the port's is fixed.  rwkv6 and
+  hymba compute on whole gathered weights with rows over ``model`` (the
+  reference shares their rows too).  The numbers are the same function
+  within float32 rounding.
 * Error feedback is per pod: the reference stacks it as ``(n_pods, *shape)``
   bfloat16 on ``PS("pod", *spec)``; here each pod's ranks keep their pod's
   row, ``shape`` bfloat16 on the param's spec.
@@ -250,7 +262,7 @@ def build_train_step(model, mesh=None, step_cfg: TrainStepConfig = TrainStepConf
     gc = step_cfg.grad_comp
     k = max(1, step_cfg.microbatches)
     n_pods, n_data, n_model = sizes.get("pod", 1), sizes.get("data", 1), sizes.get("model", 1)
-    in_pod = n_data * n_model  # the ranks a pod's gradient sums over
+    shared = model.tensor_parallel and n_model > 1  # the model ranks share their rows
     compressed = gc.enabled and "pod" in sizes
     coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate())) if mesh is not None else {}
     device = model.device
@@ -261,13 +273,16 @@ def build_train_step(model, mesh=None, step_cfg: TrainStepConfig = TrainStepConf
 
     # the batch's rows: pod-major over the whole batch, then the other axes
     # of ``batch_sharding`` (``data``) within each microbatch, then ``model``
+    # unless the model ranks share their rows
     bspec = shardlib.batch_sharding(mesh).spec if mesh is not None else ()
     batch_axes = () if not bspec else (bspec[0],) if isinstance(bspec[0], str) else bspec[0]
     outer = tuple(a for a in batch_axes if a == "pod")
-    inner = tuple(a for a in batch_axes if a != "pod") + (("model",) if n_model > 1 else ())
+    inner = tuple(a for a in batch_axes if a != "pod") + (
+        ("model",) if n_model > 1 and not shared else ())
+    # the ranks of a pod whose rows differ: a pod's gradient sums over them
+    in_pod = math.prod(sizes[a] for a in inner)
     # the routing's rows: the pods' too unless each pod routes its own
-    route_axes = tuple(a for a in batch_axes + (("model",) if n_model > 1 else ())
-                       if not (a == "pod" and compressed))
+    route_axes = tuple(a for a in outer + inner if not (a == "pod" and compressed))
 
     def local_batch(batch) -> dict:
         """(k, rows, ...) per key: this rank's rows of each microbatch.  Rows
@@ -301,9 +316,9 @@ def build_train_step(model, mesh=None, step_cfg: TrainStepConfig = TrainStepConf
             loss = model.loss(params, mb["tokens"], mb["labels"], *extras)
             missed = spmd.unused(req)
             if missed:
-                raise RuntimeError("the model used parameter leaves without gathering them "
-                                   f"(a sharded step would compute on blocks): "
-                                   f"{[items[i][0] for i in missed]}")
+                raise RuntimeError("the model used parameter leaves without gathering them, "
+                                   "or their model blocks without taking them as blocks "
+                                   f"(spmd.model_split): {[items[i][0] for i in missed]}")
             grads = torch.autograd.grad(loss, req)
         return loss.detach(), list(grads)
 
@@ -331,12 +346,13 @@ def build_train_step(model, mesh=None, step_cfg: TrainStepConfig = TrainStepConf
         micro = local_batch(batch)
         ctx = None
         if mesh is not None:
-            ctx = spmd.Context(mesh, route_axes, next(iter(micro.values())).shape[1])
+            ctx = spmd.Context(mesh, route_axes, next(iter(micro.values())).shape[1],
+                               model_blocks=shared)
         loss, grads = grads_of(leaves, treedef, micro, runs, ctx)
-        if in_pod > 1:  # the gathers' backward summed each block over the pod
+        if in_pod > 1:  # the gathers' backward summed each block over the pod's rows
             grads = [g / torch.full_like(g, in_pod) for g in grads]
-            for axis in ("data", "model"):
-                if sizes.get(axis, 1) > 1:
+            for axis in inner:
+                if sizes[axis] > 1:
                     loss = _mean_over(loss, mesh, axis)
         if compressed:
             ef = (tree_util.tree_flatten(state["ef"])[0] if gc.error_feedback

@@ -20,8 +20,16 @@ tensors and a fake process group, no card.
   sum of the blocks' from the specs) and its all-gather and reduce-scatter
   bytes are non-zero; the committed ``experiments/torch_dryrun/`` train
   cells lie on ``(16, 16)`` and ``(2, 16, 16)`` with non-zero all-gather
-  and reduce-scatter bytes, the prefill and decode cells on the folded
-  ``(16, 1)`` and ``(2, 16, 1)``;
+  and reduce-scatter bytes (rwkv6's and hymba's multi-pod cells skipped),
+  the prefill and decode cells on the folded ``(16, 1)`` and ``(2, 16,
+  1)``;
+* the train step's rows: a family on Megatron blocks splits them over pod
+  x data (the ranks along ``model`` share them) and refuses rows that do
+  not split there; ``train_4k``'s 256 rows lie on the 512 ranks for
+  minicpm-2b, and rwkv6 and hymba, whose rows split over ``model`` too,
+  are skipped there with their family named;
+* a Megatron block that reaches a layer without its hook makes the step
+  raise (no fallback);
 * the dry run refuses to replace a process group that is up, ``meta`` is a
   device the port accepts and never a default, and every hand-kernel wrapper
   refuses a ``meta`` tensor.
@@ -248,9 +256,12 @@ def test_committed_cells_lie_on_their_meshes():
     assert len(cells) == 42
     for c in cells:
         multi = c["mesh"] == "multi"
-        if c["kind"] == "train" and multi:  # 256 rows on 512 ranks
-            assert c["status"] == "skipped", c["arch"]
-            assert c["skip_reason"] == dryrun.train_refusal(treg.SHAPES["train_4k"], True)
+        cfg = treg.get_config(c["arch"])
+        if c["kind"] == "train" and multi and cfg.family in ("ssm", "hybrid"):
+            assert c["status"] == "skipped", c["arch"]  # 256 rows on pod x data x model
+            assert c["skip_reason"] == dryrun.train_refusal(treg.SHAPES["train_4k"], True, cfg)
+        elif c["kind"] == "train":
+            assert c["status"] == "ok", c["arch"]
         if c["status"] != "ok":
             continue
         if c["kind"] == "train":
@@ -264,27 +275,72 @@ def test_committed_cells_lie_on_their_meshes():
 
 
 @pytest.mark.parametrize("multi_pod", [False, True])
-def test_train_step_refuses_rows_that_do_not_split_over_model(multi_pod):
-    """No rank repeats another's rows: a microbatch whose rows do not
-    divide over pod x data x model raises in the step, and the dry run
-    skips such a cell with its reason before tracing it."""
+def test_train_step_refuses_rows_that_do_not_split_over_pod_and_data(multi_pod):
+    """No rank repeats another's rows: minicpm-2b computes on Megatron
+    blocks, so its rows split over pod x data (the ranks along ``model``
+    share them), and a microbatch whose rows do not divide over those ranks
+    raises in the step; the dry run skips such a cell with its reason before
+    tracing it."""
     cfg = treg.get_config("minicpm-2b", smoke=True)
-    n = 512 if multi_pod else 256
+    n = 32 if multi_pod else 16  # pod x data ranks
     with dryrun.fake_mesh(multi_pod) as mesh:
         model = treg.build_model(cfg, device="meta")
-        for rows, k in ((n // 2, 1), (n, 2), (n + 16, 1)):
+        for rows, k in ((n // 2, 1), (n, 2), (n + 8, 1)):
             with pytest.raises(ValueError, match="does not split"):
                 dryrun.train_cost(model, cfg, treg.ShapeCell("train_small", 8, rows, "train"),
                                   mesh, k, 1)
-    shape = treg.ShapeCell("train_small", 8, n // 2, "train")
-    assert dryrun.train_refusal(shape, multi_pod) is not None
-    assert dryrun.train_refusal(treg.ShapeCell("train_small", 8, n, "train"), multi_pod) is None
-    if multi_pod:  # train_4k's 256 rows: skipped untraced
-        cell = dryrun.run_cell("minicpm-2b", "train_4k", True, verbose=False)
-        assert cell["status"] == "skipped"
-        assert "does not split over the 512 ranks" in cell["skip_reason"]
-    else:
-        assert dryrun.train_refusal(treg.SHAPES["train_4k"], False) is None
+        assert dryrun.train_rows(treg.ShapeCell("train_small", 8, 2 * n, "train"), mesh, cfg) == 2
+    why = dryrun.train_refusal(treg.ShapeCell("train_small", 8, n // 2, "train"), multi_pod, cfg)
+    assert why is not None and why.endswith("ranks of pod x data" if multi_pod else "ranks of data")
+    assert dryrun.train_refusal(treg.ShapeCell("train_small", 8, n, "train"), multi_pod,
+                                cfg) is None
+
+
+def test_multi_pod_train_4k_takes_256_rows_on_model_blocks():
+    """``train_4k``'s 256 rows on the 512 ranks of (2, 16, 16): eight rows
+    a rank, shared along ``model``."""
+    cfg = treg.get_config("minicpm-2b")
+    shape = treg.SHAPES["train_4k"]
+    assert dryrun.train_refusal(shape, True, cfg) is None
+    assert dryrun.row_axes(cfg) == ("pod", "data")
+    with dryrun.fake_mesh(True) as mesh:
+        assert dryrun.train_rows(shape, mesh, cfg) == 8
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "hymba-1.5b"])
+def test_whole_weight_families_still_refuse_256_rows_on_512_ranks(arch):
+    """rwkv6 and hymba gather their weights whole, so their rows split over
+    ``model`` too: ``train_4k`` on the multi-pod mesh is skipped untraced,
+    the reason naming the family."""
+    cfg = treg.get_config(arch)
+    assert dryrun.row_axes(cfg) == ("pod", "data", "model")
+    assert dryrun.train_refusal(treg.SHAPES["train_4k"], False, cfg) is None
+    cell = dryrun.run_cell(arch, "train_4k", True, verbose=False)
+    assert cell["status"] == "skipped"
+    assert "does not split over the 512 ranks of pod x data x model" in cell["skip_reason"]
+    assert f"{cfg.family} family ({arch})" in cell["skip_reason"]
+
+
+def test_a_model_block_no_layer_takes_raises(monkeypatch):
+    """No fallback: a Megatron block that reaches a layer which does not
+    take it as a block (``spmd.model_split``) makes the step raise; the MLP
+    here would otherwise compute on its ``mlp`` blocks as if they were the
+    whole weights and never reduce."""
+    import torch.nn.functional as F
+
+    from repro_torch.models import layers as L
+
+    def mlp_without_its_hook(p, x, kind="swiglu"):
+        dt = x.dtype
+        return (F.silu(x @ p["gate"].to(dt)) * (x @ p["up"].to(dt))) @ p["down"].to(dt)
+
+    monkeypatch.setattr(L, "mlp", mlp_without_its_hook)
+    cfg = treg.get_config("minicpm-2b", smoke=True)
+    with dryrun.fake_mesh(False) as mesh:
+        model = treg.build_model(cfg, device="meta")
+        with pytest.raises(RuntimeError, match="without taking them as blocks"):
+            dryrun.train_cost(model, cfg, treg.ShapeCell("train_small", 8, 16, "train"), mesh,
+                              1, 1)
 
 
 def test_dry_run_refuses_a_group_that_is_up():

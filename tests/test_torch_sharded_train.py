@@ -12,12 +12,34 @@
 * On 8 ``gloo`` ranks (one subprocess each, one session for the module):
   - **sharded vs replicated**: three steps of the sharded step on
     ``{"pod": 2, "data": 2, "model": 2}`` (minicpm-2b and phi3.5-moe at
-    SMOKE in float32, and minicpm-2b with two microbatches, whose rows the
-    ``model`` axis does not split) against the port's own one-process
-    step: the tolerances of ``tests/test_torch_train.py`` (loss ``rtol``
-    1e-6, parameters 1e-5 absolute, second moments ``rtol`` 1e-2), the
-    gradient norm within ``rtol`` 1e-5, and each rank's blocks of the
-    shapes its specs give;
+    SMOKE in float32, and minicpm-2b with two microbatches; the ranks
+    along ``model`` share their rows and compute on Megatron blocks)
+    against the port's own one-process step: the tolerances of
+    ``tests/test_torch_train.py`` (loss ``rtol`` 1e-6, parameters 1e-5
+    absolute, second moments ``rtol`` 1e-2), the gradient norm within
+    ``rtol`` 1e-5, and each rank's blocks of the shapes its specs give;
+  - **the three head layouts** on ``{"data": 2, "model": 4}`` at the same
+    tolerances: phi3.5-moe at SMOKE (4 q heads split, its 2 kv heads
+    replicated and cut per rank), minicpm-2b at SMOKE with 2 heads (heads
+    replicated, every rank computes the whole attention), whisper-base
+    at SMOKE with random frames (self- and cross-attention, GELU MLPs and
+    the tied table on blocks) and qwen3-moe at SMOKE with 6 experts (the
+    experts replicated on 4, each a Megatron MLP on its ``mlp`` blocks).
+    The last three run in float64 (the model modules' float32 casts made
+    float64, as ``chip_smoke.py``'s phase 30 evaluates its reference).  At
+    SMOKE every step is sensitive at the tolerances' level: a one-ulp change
+    of the embedding's output moves the gradient by 1e-5 to 2e-5 of its
+    largest element for minicpm-2b, phi3.5-moe and qwen3-moe and by 4.5e-4
+    for whisper-base, whose float32 gradient lies 2.2e-3 from float64's
+    (``tools/f32_conditioning.py``); in float32 the minicpm-2b (2 heads)
+    and qwen3-moe (6 experts) cases part from the one-process step by more
+    than the norm's ``rtol`` 1e-5 at the third step, after AdamW has
+    amplified such rounding.  In float64 the tolerances hold the partition,
+    not the rounding;
+  - **bytes by axis**: minicpm-2b's second step on ``(2, 2, 2)`` sends no
+    all-gather or reduce-scatter over ``model`` (every heads, mlp and vocab
+    leaf keeps its block), and its all-reduces over ``model`` are the
+    activations' count (``_model_all_reduce_bytes``);
   - **global norm**: ``adamw.global_norm`` over ``DTensor`` blocks split on
     ``data``, ``model``, both, and replicated equals the whole tree's norm
     within ``rtol`` 1e-6 and is the same on every rank;
@@ -33,6 +55,8 @@
     split on ``(2, 2, 2)`` restore onto a ``(4,)`` ``("data",)`` mesh.
 """
 
+import contextlib
+import inspect
 import os
 import pickle
 import socket
@@ -113,8 +137,48 @@ def test_state_specs_equal_reference(arch, mesh_name):
 
 # ------------------------------------------------------------ 8 gloo ranks --
 
+
+@contextlib.contextmanager
+def float64_modules(on: bool):
+    """The model modules' float32 casts (norms, RoPE, attention scores,
+    routing, the loss) made float64 while ``on``, through a stand-in for
+    their ``torch``; restored on exit."""
+    from repro_torch.models import encdec, layers, moe, transformer
+
+    mods = (layers, transformer, moe, encdec)
+    saved = [m.torch for m in mods]
+    if on:
+        proxy = types.ModuleType("torch")
+        proxy.__dict__.update(vars(torch))
+        proxy.float32 = torch.float64
+        for m in mods:
+            m.torch = proxy
+    try:
+        yield
+    finally:
+        for m, t in zip(mods, saved):
+            m.torch = t
+
+
+def batches(cfg, k: int) -> list:
+    """Three global batches of 8 * k rows of 16 tokens (seed 5), and frames
+    (standard normal, seed 9) for the audio family."""
+    from repro_torch.data.tokens import DataConfig, TokenPipeline
+
+    pipe = TokenPipeline(DataConfig(vocab=cfg.vocab, seq_len=16, global_batch=8 * k, seed=5))
+    rng = np.random.default_rng(9)
+    out = []
+    for i in range(3):
+        b = dict(pipe.batch_at(i))
+        if cfg.family == "audio":
+            b["frames"] = rng.standard_normal((8 * k, cfg.encoder_len, cfg.d_model),
+                                              dtype=np.float32)
+        out.append(b)
+    return out
+
+
 RANK = """
-import contextlib, hashlib, io, pickle, sys
+import contextlib, hashlib, io, pickle, sys, types
 import numpy as np, torch, torch.distributed as dist
 rank, world, port, root = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4]
 dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", world_size=world,
@@ -124,7 +188,7 @@ from repro_torch.checkpoint.manager import CheckpointManager, CodecPolicy
 from repro_torch.configs import registry
 from repro_torch.core import sz as sz_core
 from repro_torch.data.tokens import DataConfig, TokenPipeline
-from repro_torch.dist import insitu, sharding as shardlib
+from repro_torch.dist import insitu, sharding as shardlib, spmd
 from repro_torch.launch.mesh import make_mesh
 from repro_torch.launch.train import build_insitu_hook
 from repro_torch.optim import adamw
@@ -133,6 +197,7 @@ from repro_torch.train import elastic, step as step_lib
 AXES = ("pod", "data", "model")
 full = make_mesh((2, 2, 2), AXES, "cpu")
 out = {}
+# HELPERS
 
 def whole(x):
     return (x.full_tensor() if shardlib.is_dtensor(x) else x).detach().numpy()
@@ -142,26 +207,40 @@ def digest(tree):
                            .tobytes()).hexdigest() for x in tree_util.tree_flatten(tree)[0]]
 
 # sharded step
-for arch, k in (("minicpm-2b", 1), ("phi3.5-moe-42b-a6.6b", 1), ("minicpm-2b", 2)):
-    cfg = registry.get_config(arch, smoke=True).scaled(dtype="float32")
-    model = registry.build_model(cfg, device="cpu")
-    scfg = step_lib.TrainStepConfig(peak_lr=1e-3, warmup_steps=1, total_steps=10,
-                                    schedule="wsd", microbatches=k)
-    state = step_lib.init_state(model, full, torch.Generator().manual_seed(0), scfg)
-    _, shard = step_lib.make_state_specs(model, full, scfg)
-    shapes_ok = all(
-        tuple(shardlib.local(x).shape) == shardlib.local_shape(x.shape, sh.spec, full)
-        for x, sh in zip(tree_util.tree_flatten(state)[0], tree_util.tree_flatten(shard)[0]))
-    split = sum(shardlib.is_dtensor(x) for x in tree_util.tree_flatten(state)[0])
-    step = step_lib.build_train_step(model, full, scfg)
-    pipe = TokenPipeline(DataConfig(vocab=cfg.vocab, seq_len=16, global_batch=8 * k, seed=5))
-    losses, norms = [], []
-    for i in range(3):
-        state, m = step(state, pipe.batch_at(i))
-        losses.append(float(m["loss"]))
-        norms.append(float(m["grad_norm"]))
+mesh24 = make_mesh((2, 4), ("data", "model"), "cpu")
+CASES = [("minicpm-2b", 1, full, {}, False), ("phi3.5-moe-42b-a6.6b", 1, full, {}, False),
+         ("minicpm-2b", 2, full, {}, False), ("phi3.5-moe-42b-a6.6b", 1, mesh24, {}, False),
+         ("minicpm-2b", 1, mesh24, {"n_heads": 2, "n_kv_heads": 2}, True),
+         ("whisper-base", 1, mesh24, {}, True),
+         ("qwen3-moe-30b-a3b", 1, mesh24, {"n_experts": 6}, True)]
+for arch, k, mesh, over, f64 in CASES:
+    with float64_modules(f64):
+        cfg = registry.get_config(arch, smoke=True).scaled(dtype="float32", **over)
+        model = registry.build_model(cfg, device="cpu")
+        if f64:
+            model.dtype = torch.float64
+        scfg = step_lib.TrainStepConfig(peak_lr=1e-3, warmup_steps=1, total_steps=10,
+                                        schedule="wsd", microbatches=k,
+                                        param_dtype=torch.float64 if f64 else torch.float32)
+        state = step_lib.init_state(model, mesh, torch.Generator().manual_seed(0), scfg)
+        _, shard = step_lib.make_state_specs(model, mesh, scfg)
+        shapes_ok = all(
+            tuple(shardlib.local(x).shape) == shardlib.local_shape(x.shape, sh.spec, mesh)
+            for x, sh in zip(tree_util.tree_flatten(state)[0], tree_util.tree_flatten(shard)[0]))
+        split = sum(shardlib.is_dtensor(x) for x in tree_util.tree_flatten(state)[0])
+        extra = ("frames",) if cfg.family == "audio" else ()
+        step = step_lib.build_train_step(model, mesh, scfg, extra_keys=extra)
+        losses, norms, sent = [], [], None
+        for i, batch in enumerate(batches(cfg, k)):
+            spmd.reset_sent_bytes()
+            state, m = step(state, batch)
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+            if i == 1:
+                sent = {kind: dict(v) for kind, v in spmd.sent_by_axis.items()}
     flat = lambda t: [whole(x) for x in tree_util.tree_flatten(t)[0]]
-    if (arch, k) == ("minicpm-2b", 1):  # the in-situ hook on the sharded state
+    case = ("step", arch, k) if mesh is full else ("step24", arch)
+    if case == ("step", "minicpm-2b", 1):  # the in-situ hook on the sharded state
         buf = io.StringIO()
         with contextlib.redirect_stdout(buf):
             hook = build_insitu_hook(full, f"{root}/hook", 1e-3, min_bytes=1024, overlap=False)
@@ -188,9 +267,9 @@ for arch, k in (("minicpm-2b", 1), ("phi3.5-moe-42b-a6.6b", 1), ("minicpm-2b", 2
         out["hook"] = {"big": sorted(big), "restored": sorted(names), "log": buf.getvalue(),
                        "err": max(float((names[key].to_local() - shardlib.local(big[key]))
                                         .abs().max()) for key in names)}
-    out[("step", arch, k)] = {"losses": losses, "norms": norms, "shapes_ok": shapes_ok,
-                              "split": split, "params": flat(state["params"]),
-                              "m": flat(state["opt"]["m"]), "v": flat(state["opt"]["v"])}
+    out[case] = {"losses": losses, "norms": norms, "shapes_ok": shapes_ok, "sent": sent,
+                 "split": split, "params": flat(state["params"]),
+                 "m": flat(state["opt"]["m"]), "v": flat(state["opt"]["v"])}
 
 # global norm over blocks
 rng = np.random.default_rng(3)
@@ -284,7 +363,8 @@ def _free_port() -> int:
 def ranks(tmp_path_factory):
     d = tmp_path_factory.mktemp("sharded_train")
     path = d / "rank.py"
-    path.write_text(textwrap.dedent(RANK))
+    helpers = inspect.getsource(float64_modules) + "\n" + inspect.getsource(batches)
+    path.write_text(textwrap.dedent(RANK).replace("# HELPERS\n", helpers))
     env = dict(os.environ, PYTHONPATH=str(SRC), OMP_NUM_THREADS="1")
     port = str(_free_port())
     procs = [subprocess.Popen([sys.executable, str(path), str(r), "8", port, str(d)], env=env,
@@ -306,42 +386,87 @@ def ranks(tmp_path_factory):
     return [pickle.load(open(d / f"rank{r}.pkl", "rb")) for r in range(8)]
 
 
-def _replicated(arch: str, k: int) -> dict:
-    cfg = registry.get_config(arch, smoke=True).scaled(dtype="float32")
-    model = registry.build_model(cfg, device="cpu")
-    scfg = step_lib.TrainStepConfig(peak_lr=1e-3, warmup_steps=1, total_steps=10,
-                                    schedule="wsd", microbatches=k)
-    state = step_lib.init_state(model, None, torch.Generator().manual_seed(0), scfg)
-    step = step_lib.build_train_step(model, None, scfg)
-    from repro_torch.data.tokens import DataConfig, TokenPipeline
-
-    pipe = TokenPipeline(DataConfig(vocab=cfg.vocab, seq_len=16, global_batch=8 * k, seed=5))
-    losses, norms = [], []
-    for i in range(3):
-        state, m = step(state, pipe.batch_at(i))
-        losses.append(float(m["loss"]))
-        norms.append(float(m["grad_norm"]))
+def _replicated(arch: str, k: int, over: dict = {}, f64: bool = False) -> dict:  # noqa: B006
+    with float64_modules(f64):
+        cfg = registry.get_config(arch, smoke=True).scaled(dtype="float32", **over)
+        model = registry.build_model(cfg, device="cpu")
+        if f64:
+            model.dtype = torch.float64
+        scfg = step_lib.TrainStepConfig(peak_lr=1e-3, warmup_steps=1, total_steps=10,
+                                        schedule="wsd", microbatches=k,
+                                        param_dtype=torch.float64 if f64 else torch.float32)
+        state = step_lib.init_state(model, None, torch.Generator().manual_seed(0), scfg)
+        step = step_lib.build_train_step(model, None, scfg, extra_keys=(
+            ("frames",) if cfg.family == "audio" else ()))
+        losses, norms = [], []
+        for batch in batches(cfg, k):
+            state, m = step(state, batch)
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
     flat = lambda t: [x.numpy() for x in tree_util.tree_flatten(t)[0]]  # noqa: E731
     return {"losses": losses, "norms": norms, "params": flat(state["params"]),
             "m": flat(state["opt"]["m"]), "v": flat(state["opt"]["v"])}
+
+
+def _hold(got: dict, want: dict, first: dict) -> None:
+    """The sharded run ``got`` against the one-process ``want`` (the
+    tolerances of ``tests/test_torch_train.py``); ``first``: rank 0's run."""
+    assert got["shapes_ok"] and got["split"] > 0
+    np.testing.assert_allclose(got["losses"], want["losses"], rtol=1e-6)
+    np.testing.assert_allclose(got["norms"], want["norms"], rtol=1e-5)
+    assert got["losses"] == first["losses"]
+    for a, b in zip(got["params"], want["params"]):
+        np.testing.assert_allclose(a, b, rtol=0, atol=1e-5)
+    for a, b in zip(got["v"], want["v"]):
+        np.testing.assert_allclose(a, b, rtol=1e-2, atol=1e-9)
+    for a, b in zip(got["m"], want["m"]):
+        np.testing.assert_allclose(a, b, rtol=1e-2, atol=1e-7)
 
 
 @pytest.mark.parametrize("arch,k", [("minicpm-2b", 1), ("phi3.5-moe-42b-a6.6b", 1),
                                     ("minicpm-2b", 2)])
 def test_sharded_step_equals_replicated(ranks, arch, k):
     want = _replicated(arch, k)
+    for run in ranks:
+        _hold(run[("step", arch, k)], want, ranks[0][("step", arch, k)])
+
+
+@pytest.mark.parametrize("arch,over,f64", [
+    ("phi3.5-moe-42b-a6.6b", {}, False),  # 4 q heads split, 2 kv heads replicated on 4
+    ("minicpm-2b", {"n_heads": 2, "n_kv_heads": 2}, True),  # heads replicated on 4
+    ("whisper-base", {}, True),
+    ("qwen3-moe-30b-a3b", {"n_experts": 6}, True)])  # 6 experts replicated, mlp split on 4
+def test_head_layouts_on_data_2_model_4(ranks, arch, over, f64):
+    """The step on ``{"data": 2, "model": 4}`` against the one-process step
+    (module docstring: the three head layouts)."""
+    want = _replicated(arch, 1, over, f64)
+    for run in ranks:
+        _hold(run[("step24", arch)], want, ranks[0][("step24", arch)])
+
+
+def _model_all_reduce_bytes(cfg, rows: int, seq: int) -> int:
+    """The bytes one rank all-reduces over ``model`` in a step of the dense
+    family whose heads, MLP and vocab all split: per layer the attention's
+    and the MLP's reductions forward, the attention's again when the
+    backward pass recomputes the layer (``torch.utils.checkpoint`` stops
+    recomputing once the layer's last saved tensor is back, before the
+    MLP's reduction), and the copies into both regions backward; the
+    embedding's reduction and the unembedding's copy backward; each a
+    (rows, seq, d_model) float32 activation.  Plus the loss's three
+    (rows, seq) reductions: the max, the sum of exponents, the target
+    logit."""
+    act = rows * seq * cfg.d_model * 4
+    return (5 * cfg.n_layers + 2) * act + 3 * rows * seq * 4
+
+
+def test_bytes_over_model_are_activations(ranks):
+    cfg = registry.get_config("minicpm-2b", smoke=True)
+    want = _model_all_reduce_bytes(cfg, 8 // 4, 16)  # 8 rows over pod x data
     for r, run in enumerate(ranks):
-        got = run[("step", arch, k)]
-        assert got["shapes_ok"] and got["split"] > 0, r
-        np.testing.assert_allclose(got["losses"], want["losses"], rtol=1e-6)
-        np.testing.assert_allclose(got["norms"], want["norms"], rtol=1e-5)
-        assert got["losses"] == ranks[0][("step", arch, k)]["losses"]
-        for a, b in zip(got["params"], want["params"]):
-            np.testing.assert_allclose(a, b, rtol=0, atol=1e-5)
-        for a, b in zip(got["v"], want["v"]):
-            np.testing.assert_allclose(a, b, rtol=1e-2, atol=1e-9)
-        for a, b in zip(got["m"], want["m"]):
-            np.testing.assert_allclose(a, b, rtol=1e-2, atol=1e-7)
+        sent = run[("step", "minicpm-2b", 1)]["sent"]
+        assert "model" not in sent["all_gather"] and "model" not in sent["reduce_scatter"], sent
+        assert sent["all_reduce"]["model"] == want, (r, sent, want)
+        assert sent["all_gather"]["data"] > 0 and sent["reduce_scatter"]["data"] > 0
 
 
 def test_insitu_hook_codes_or_names_every_sharded_leaf(ranks):
