@@ -302,10 +302,12 @@ Needs one CUDA card and ``nvcc``; it builds the hand-written kernels from
     (b) one train step each of rwkv6-1.6b, hymba-1.5b and whisper-base at
     their published widths and depths, 8 x 128 (the chunk loops' meta
     traces cost host time per operation); (c) starcoder2-3b's decode step
-    at decode_32k's single-mesh card cell (8 rows, a 32768-position cache,
-    codec none); (d) the ``dryrun`` and ``costrun`` CLIs on one train,
-    prefill and decode cell each, into a scratch folder (every cell ``ok``;
-    the CLI's decode cell predicts (c)).  The meta FLOP count must equal
+    on one card at decode_32k's rows of a data rank (8 rows, a
+    32768-position cache, codec none); (d) the ``dryrun`` and ``costrun``
+    CLIs on one train, prefill and decode cell each, into a scratch folder
+    (every cell ``ok``; the CLI's decode cell, the sharded serving step on
+    (16, 16), fits below (c)'s peak; phase 31 holds that step's trace on
+    the card).  The meta FLOP count must equal
     the card's and the predicted peak lie within ``DRYRUN_PEAK_TOL`` of
     ``max_memory_allocated``; the card's ``total_memory`` must be
     ``dryrun.DEVICE_MEMORY_BYTES``.  Prints both peaks, their ratio, the
@@ -340,7 +342,30 @@ Needs one CUDA card and ``nvcc``; it builds the hand-written kernels from
     of 1 MiB or more coded or named once as skipped, the small leaves saved
     raw and restored bitwise.  Prints the bytes each rank sent, step ms,
     peaks, each architecture's seconds and the kernel launches (none on
-    this path).
+    this path);
+31. takes the sharded serving step (``train.step.build_serve_step``: the
+    parameters placed as the train state's and gathered in each layer, the
+    cache's batch over ``data`` and its sequence over ``model``) of
+    starcoder2-3b (published widths cut to 2 layers) and qwen3-moe-30b-a3b
+    (1 layer, 64 experts a rank) on 4 ``gloo`` ranks on cuda:0 as
+    ``{"data": 2, "model": 2}`` (this script with ``--serve-rank``), f32,
+    over a blockfloat8 cache of 8192 positions (4096 a ``model`` rank)
+    prefilled on one card and placed with ``place_cache``: 16 and 8 greedy
+    decode steps with a ``(B,)`` index (prompts of 1000, 4090, 4100 and
+    7000 tokens, and 4093 and 6000: lanes on both sides of the block
+    border, two crossing it), K10 on each rank's block in every layer with
+    its log-sum-exp.  Held: the ranks' tokens equal; each step replayed on
+    one card from the sharded run's cache gives the same tokens and MoE
+    routing (``top_e``, drop mask), and the sharded logits lie within
+    ``SERVE_F32_FACTOR`` times that float32 run's distance from a float64
+    evaluation of the step; each rank's K10 ``(out, lse)`` against the plain
+    version on its block and a float64 evaluation at two steps
+    (:class:`K10Blocks`); K10 launches layers x steps on each
+    rank; each rank's cache bytes a quarter of the whole; rank 0's peak
+    within ``DRYRUN_PEAK_TOL`` of the dry run's trace of the same step at
+    this mesh, its FLOPs and its bytes sent by kind and axis equal to the
+    trace's.  Prints each step's host ms (gloo through the host, not a
+    mesh's interconnect) and K10's time at the block.
 
 Any failure raises and exits non-zero; so does a machine without CUDA, and a
 directory without the rest of the repository.
@@ -4246,8 +4271,10 @@ def dryrun_decode(device) -> dict:
 
 def dryrun_clis(decode: dict) -> dict:
     """Phase 29d: the dryrun and costrun CLIs on one cell of each kind into
-    a scratch folder; every cell ``ok``, and the CLI's decode cell predicts
-    29c's step (the same rows and cache)."""
+    a scratch folder; every cell ``ok``, and the CLI's decode cell lies on
+    the unfolded (16, 16) mesh and fits (it is the sharded serving step,
+    whose trace phase 31 holds on the card; 29c's one-card cell is
+    ``decode_cost`` without a mesh)."""
     out = {}
     for arch, shape in DRYRUN_CLI:
         for name, mod in (("dryrun", dryrun), ("costrun", costrun)):
@@ -4261,10 +4288,10 @@ def dryrun_clis(decode: dict) -> dict:
                 "fits_device": cell.get("fits_device"), "microbatches": cell.get("microbatches")}
     cli = json.loads((DRYRUN_DIR / "dryrun" / f"{'__'.join(DRYRUN_DECODE)}__single.json"
                       ).read_text())
-    check(cli["flops_per_device"] == decode["flops_meta"]
-          and cli["peak_bytes_per_device"] == decode["predicted_peak_bytes"],
-          f"the dryrun CLI's decode cell ({cli['flops_per_device']} FLOPs, "
-          f"{cli['peak_bytes_per_device']} B) is not 29c's prediction")
+    check(cli["mesh_shape"] == {"data": 16, "model": 16} and cli["fits_device"]
+          and cli["peak_bytes_per_device"] < decode["predicted_peak_bytes"],
+          f"the dryrun CLI's decode cell ({cli['mesh_shape']}, {cli['peak_bytes_per_device']} B) "
+          f"is not the sharded step's on (16, 16) below 29c's one-card peak")
     print("dryrun and costrun CLIs (one cell of each kind, single mesh): " + json.dumps(out))
     return out
 
@@ -4882,6 +4909,492 @@ def hold_step(arch: str, runs: list, pred: dict) -> dict:
     return launches
 
 
+# ------------------------------------- the sharded serving step (phase 31) -----
+
+SERVE_DIR = SNAPSHOT_DIR.parent / ".chip_smoke_serve_step"  # gitignored; removed at the end
+SERVE_MESH = {"data": 2, "model": 2}  # 4 gloo ranks on cuda:0, as phase 30's
+SERVE_RANKS = math.prod(SERVE_MESH.values())
+SERVE_CAP = 8192  # the cache's capacity: 4096 positions on each model rank
+# published widths, depth cut (every step gathers the parameters over data
+# through the host); prompt lengths put lanes on both sides of the block
+# border at 4096, and two of them cross it while decoding
+SERVE_CASES = {"starcoder2-3b": dict(layers=2, prompts=(1000, 4090, 4100, 7000), steps=16),
+               "qwen3-moe-30b-a3b": dict(layers=1, prompts=(4093, 6000), steps=8)}
+SERVE_CHUNK = 512  # the one-card prefill's chunk
+SERVE_HELD_STEPS = (1, -1)  # steps whose K10 calls each rank holds to the plain version
+# The sharded run's logits against the one-card float32 run's on the same
+# inputs, both measured from a float64 evaluation of the same step (the
+# step pinned to the sharded run's cache, writes included): the sharded
+# run lies within this multiple of the one-card run's distance (or of its
+# root mean square over the steps), in the largest element and in L2.
+SERVE_F32_FACTOR = 4.0
+
+
+def serve_cfg(arch: str):
+    return registry.get_config(arch).scaled(n_layers=SERVE_CASES[arch]["layers"],
+                                            dtype="float32")
+
+
+def serve_prediction(arch: str) -> dict:
+    """The dry run's counters for one sharded serving step of ``arch`` on
+    rank 0 of ``SERVE_MESH``: a fake process group, parameters and the
+    placed cache on ``meta``; K10 (which refuses ``meta``) replaced by a
+    stand-in that allocates its outputs and counts no FLOPs, as
+    ``FlopCounterMode`` sees none of the kernel's on the card."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore  # registers "fake"
+
+    cfg = serve_cfg(arch)
+    b = len(SERVE_CASES[arch]["prompts"])
+    codec = model_layers.KVCodecConfig("blockfloat8")
+    t0 = time.perf_counter()
+    real = ops.kvc_attention
+
+    def stand_in(q, kc, ks, vc, vs, index, offset=0, lse=False):
+        out = torch.empty_like(q)
+        return (out, torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)) if lse else out
+
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=SERVE_RANKS)
+    ops.kvc_attention = stand_in
+    try:
+        mesh = init_device_mesh("cpu", tuple(SERVE_MESH.values()), mesh_dim_names=tuple(SERVE_MESH))
+        model = registry.build_model(cfg, device="meta")
+        serve, _, (p_abs, p_shard) = step_lib.build_serve_step(model, mesh, codec, torch.float32,
+                                                               "fused")
+        params = step_lib.empty_blocks(p_abs, p_shard, mesh, "meta")
+        cache_abs = model.cache_spec(b, SERVE_CAP, codec)
+        cache = step_lib.empty_blocks(cache_abs, step_lib.cache_shardings(cache_abs, mesh), mesh,
+                                      "meta")
+        token = torch.empty((b,), dtype=torch.int32, device="meta")
+        index = torch.empty((b,), dtype=torch.int32, device="meta")
+        spmd.reset_sent_bytes()
+        with dryrun.AllLive():
+            pred = dryrun.measure(lambda: serve(params, cache, token, index), params, cache)
+        pred["by_axis"] = sent_by_axis()
+    finally:
+        ops.kvc_attention = real
+        dist.destroy_process_group()
+    pred["trace_s"] = time.perf_counter() - t0
+    return pred
+
+
+def serve_prefill(arch: str, device) -> dict:
+    """``arch``'s prompts prefilled on one card into a dense blockfloat8
+    cache of ``SERVE_CAP`` positions (the model's chunked prefill, the
+    engine's call; chunks of ``SERVE_CHUNK``), the parameters drawn from
+    seed 0 on the card: the cache, each lane's first greedy token and its
+    next position."""
+    cfg = serve_cfg(arch)
+    prompts = SERVE_CASES[arch]["prompts"]
+    b, longest = len(prompts), max(prompts)
+    codec = model_layers.KVCodecConfig("blockfloat8")
+    model = registry.build_model(cfg, device=device)
+    params = step_lib.init_param_blocks(model, None, torch.Generator(device=device).manual_seed(0))
+    rng = np.random.default_rng(SEED)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, size=(b, longest)).astype(np.int32)).to(device)
+    lens = torch.tensor(prompts, dtype=torch.int32, device=device)
+    cache = model.init_cache(b, SERVE_CAP, codec)
+    last = torch.zeros((b, cfg.padded_vocab), dtype=torch.float32, device=device)
+    for c0 in range(0, longest, SERVE_CHUNK):
+        length = torch.clamp(lens - c0, 0, SERVE_CHUNK)
+        index = torch.full((b,), c0, dtype=torch.int32, device=device)
+        logits, cache = model.prefill(params, cache, toks[:, c0:c0 + SERVE_CHUNK], index, length,
+                                      codec)
+        ends = (lens > c0) & (lens <= c0 + SERVE_CHUNK)
+        last[ends] = logits[ends]
+    return {"cache": {k: v.cpu() for k, v in cache.items()},
+            "token": last.argmax(-1).to(torch.int32).cpu(), "index": lens.cpu()}
+
+
+def serve_start(port: int) -> list:
+    """Phase 31's group: ``SERVE_RANKS`` ranks, each this script with
+    ``--serve-rank``, all on cuda:0."""
+    procs = []
+    for rank in range(SERVE_RANKS):
+        log = open(SERVE_DIR / f"r{rank}.log", "w")
+        procs.append(subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--serve-rank", str(rank),
+             str(SERVE_RANKS), str(port), str(SERVE_DIR)], stdout=log, stderr=subprocess.STDOUT))
+    CHILD_PROCS.extend(procs)
+    return procs
+
+
+def serve_worker(argv: list[str]) -> int:
+    """One rank of :func:`serve_start`'s group: each of ``SERVE_CASES`` in
+    turn (:func:`_serve_arch`)."""
+    rank, world, port, out = int(argv[0]), int(argv[1]), argv[2], Path(argv[3])
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", world_size=world,
+                            rank=rank)
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        mesh = make_mesh(tuple(SERVE_MESH.values()), tuple(SERVE_MESH), "cuda")
+        res = {arch: _serve_arch(arch, rank, mesh) for arch in SERVE_CASES}
+        with open(out / f"rank{rank}.pkl", "wb") as f:
+            pickle.dump(res, f)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+class Routes:
+    """Records every MoE routing's chosen experts and kept assignments
+    (host copies) while active."""
+
+    def __enter__(self):
+        self._orig, self.calls = moe_lib.route, []
+
+        def recorded(p, c, xf):
+            r = self._orig(p, c, xf)
+            self.calls.append((r.top_e.cpu(), r.valid.cpu()))
+            return r
+
+        moe_lib.route = recorded
+        return self
+
+    def __exit__(self, *exc):
+        moe_lib.route = self._orig
+
+
+def k10_exact_block(q, kc, ks, vc, vs, index, offset: int):
+    """K10's block function in float64 (row r at position ``offset + r``),
+    with :func:`k10_exact`'s terms: (out, lse, L, V, S)."""
+    pos = offset + torch.arange(kc.shape[1], device=q.device)
+    idx = torch.as_tensor(index, dtype=torch.int32, device=q.device).reshape(-1)
+    live = pos[None, :] <= idx[:, None]  # (B, S)
+    n_rep = q.shape[1] // kc.shape[2]
+    k = torch.repeat_interleave(kc.double() * ks.double()[..., None], n_rep, dim=2)
+    logits = torch.einsum("bhd,bshd->bhs", q.double(), k) * q.shape[-1] ** -0.5
+    lse = torch.logsumexp(logits.masked_fill(~live[:, None, :], -math.inf), dim=-1)
+    local = (idx - offset).clamp(-1, kc.shape[1] - 1)
+    out, lmax, vmax, slen = k10_exact(q, kc, ks, vc, vs, local)
+    return out, lse, lmax, vmax, slen
+
+
+class K10Blocks:
+    """While active, holds each K10 call on a cache block (``offset`` and
+    ``lse``) against its plain version on the same inputs and against the
+    same function in float64 (:func:`k10_exact_block`), with
+    :class:`K10Held`'s bar: ``out`` within half an ulp of its dtype plus
+    2^-24 * V * (L + S) of float64's, ``lse`` within 2^-24 * (|lse| +
+    (log2(D) + 3) L + S) (a logit's float32 sum of D products is log2(D)
+    roundings deep, and two multiplies follow), -inf at exactly the lanes
+    with no position in the block; within twice those of the plain version
+    (each float32 program within one).
+    The plain version's distance from float64 is recorded beside it.  The
+    comparisons launch no K10."""
+
+    def __init__(self):
+        self.calls, self.err, self.lse_err, self.plain_err, self.share = 0, 0.0, 0.0, 0.0, 0.0
+
+    def __enter__(self):
+        self._orig = ops.kvc_attention
+
+        def held(q, kc, ks, vc, vs, index, offset=0, lse=False):
+            got = self._orig(q, kc, ks, vc, vs, index, offset, lse)
+            if not lse:
+                return got
+            out, l = got
+            ex, ex_lse, lmax, vmax, slen = k10_exact_block(q, kc, ks, vc, vs, index, offset)
+            half = torch.finfo(out.dtype).eps * torch.ldexp(torch.ones_like(ex),
+                                                            torch.frexp(ex.abs())[1] - 2)
+            bar = 2.0 ** -24 * vmax * (lmax + slen)
+            excess = float(((out.double() - ex).abs() - half).max())
+            check(excess <= bar, f"K10 block at offset {offset} is {excess} beyond its output "
+                  f"rounding from float64 (bar {bar}: L {lmax}, V {vmax}, S {slen})")
+            check(torch.equal(torch.isinf(l), torch.isinf(ex_lse)),
+                  f"K10 block at offset {offset}: lse -inf at other lanes than float64's")
+            fin = torch.isfinite(ex_lse)
+            # a logit sums D products (log2 D roundings deep) and takes two
+            # more multiplies; the sum of exponents adds S roundings
+            depth = math.log2(q.shape[-1]) + 3
+            lbar = 2.0 ** -24 * (ex_lse[fin].abs() + depth * lmax + slen)
+            if bool(fin.any()):
+                dl = (l[fin].double() - ex_lse[fin]).abs()
+                check(bool((dl <= lbar).all()), f"K10 block at offset {offset}: lse "
+                      f"{float(dl.max())} from float64 (bar {float(lbar.max())})")
+                self.lse_err = max(self.lse_err, float(dl.max()))
+            plain, plain_lse = kref.kvc_decode_attention_ref(q, kc, ks, vc, vs, index, offset,
+                                                             True)
+            check(float(((out.double() - plain.double()).abs() - half).max()) <= 2 * bar,
+                  f"K10 block at offset {offset}: beyond twice the bar {bar} from the plain version")
+            check(torch.equal(torch.isinf(l), torch.isinf(plain_lse)) and bool(
+                ((l - plain_lse)[fin].double().abs() <= 2 * lbar).all() if bool(fin.any())
+                else True), f"K10 block at offset {offset}: lse apart from the plain version's")
+            self.plain_err = max(self.plain_err, float((plain.double() - ex).abs().max()))
+            self.err = max(self.err, float((out.double() - ex).abs().max()))
+            self.share = max(self.share, max(excess, 0.0) / bar if bar else 0.0)
+            self.calls += 1
+            return got
+
+        ops.kvc_attention = held
+        return self
+
+    def __exit__(self, *exc):
+        ops.kvc_attention = self._orig
+
+
+def _gather_rows(x: torch.Tensor, mesh) -> torch.Tensor:
+    """Every ``data`` rank's rows of ``x`` (this rank's, dim 0) on the host,
+    in rank order."""
+    group = mesh.get_group("data")
+    parts = [torch.empty_like(x.cpu()) for _ in range(SERVE_MESH["data"])]
+    dist.all_gather(parts, x.detach().cpu().contiguous(), group=group)
+    return torch.cat(parts)
+
+
+def _serve_arch(arch: str, rank: int, mesh) -> dict:
+    """One architecture of phase 31 on this rank: the prefilled cache
+    placed, then ``steps`` greedy decode steps of the sharded serving step
+    (``(B,)`` per-slot index, K10 on this rank's block in every layer); the
+    first step under ``FlopCounterMode`` with its peak counted, the bytes
+    sent by kind and axis, every step's host ms."""
+    cfg, case = serve_cfg(arch), SERVE_CASES[arch]
+    codec = model_layers.KVCodecConfig("blockfloat8")
+    device = torch.device("cuda", 0)
+    t_arch = time.perf_counter()
+    model = registry.build_model(cfg, device=device)
+    serve, place_cache, (p_abs, p_shard) = step_lib.build_serve_step(
+        model, mesh, codec, torch.float32, "fused")
+    params = step_lib.init_param_blocks(model, mesh, torch.Generator(device=device).manual_seed(0))
+    pre = torch.load(SERVE_DIR / f"{arch}.pt")
+    whole = sum(v.numel() * v.element_size() for v in pre["cache"].values())
+    cache = place_cache({k: v.to(device) for k, v in pre["cache"].items()})
+    locals_ = [sharding.local(x) for x in tree_util.tree_flatten(cache)[0]]
+    res = {"cache_bytes": sum(t.numel() * t.element_size() for t in locals_), "whole_bytes": whole,
+           "specs": {k: sharding.spec_of(v) if sharding.is_dtensor(v) else ()
+                     for k, v in cache.items()}}
+    args = sum(dryrun.alloc_bytes(t.numel() * t.element_size()) for t in locals_ + [
+        sharding.local(x) for x in tree_util.tree_flatten(params)[0]])
+    del locals_, pre["cache"]
+    token, index = pre["token"].to(device), pre["index"].to(device)
+    (torch.ones(8, 8, device=device) @ torch.ones(8, 8, device=device)).sum().item()  # cuBLAS
+    steps = case["steps"]
+    held_steps = {s % steps for s in SERVE_HELD_STEPS}
+    tokens, logits, ms, routes = [token.cpu()], [], [], []
+    k10.launches["kvc_decode_attention"] = 0
+    held = K10Blocks()
+    for t in range(steps):
+        ctx = contextlib.ExitStack()
+        rec = ctx.enter_context(Routes())
+        if t == 0:
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            spmd.reset_sent_bytes()
+            counter = ctx.enter_context(FlopCounterMode(display=False))
+        elif t in held_steps:
+            ctx.enter_context(held)
+        with ctx:
+            t0 = time.perf_counter()
+            lg, cache = serve(params, cache, token, index)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        if t == 0:
+            res["flops"] = float(counter.get_total_flops())
+            res["peak"] = torch.cuda.max_memory_allocated() - (before - args)
+            res["by_axis"] = sent_by_axis()
+        rows = _gather_rows(sharding.local(lg), mesh)
+        logits.append(rows)
+        routes.append(rec.calls)
+        token = rows.argmax(-1).to(torch.int32).to(device)
+        index = index + 1
+        tokens.append(token.cpu())
+    res.update(launches=k10.launches["kvc_decode_attention"], ms=ms, tokens=tokens,
+               logits=logits if rank == 0 else None, routes=routes, k10_calls=held.calls,
+               k10_err=held.err, k10_lse_err=held.lse_err, k10_plain_err=held.plain_err,
+               k10_share=held.share,
+               blocks={k: sharding.local(v).cpu() for k, v in cache.items()})
+    print(f"rank {rank}, {arch}: step ms {[round(x, 1) for x in ms]}, peak {res['peak']}, "
+          f"flops {res['flops']}, K10 launches {res['launches']}", flush=True)
+    del params, cache, serve
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.barrier()
+    res["arch_s"] = time.perf_counter() - t_arch
+    return res
+
+
+def _whole_cache(blocks: list, specs: dict) -> dict:
+    """The whole cache from each rank's blocks (rank order over
+    ``SERVE_MESH``; ``(None, "data", "model")`` splits lanes and
+    positions)."""
+    out = {}
+    for name, spec in specs.items():
+        check(tuple(spec) == (None, "data", "model"), f"phase 31: cache {name} placed {spec}")
+        rows = []
+        for d in range(SERVE_MESH["data"]):
+            rows.append(torch.cat([blocks[d * SERVE_MESH["model"] + m][name]
+                                   for m in range(SERVE_MESH["model"])], dim=2))
+        out[name] = torch.cat(rows, dim=1)
+    return out
+
+
+@contextlib.contextmanager
+def _no_writes():
+    """The model's cache writes made no-ops while active (a pinned step
+    attends to the sharded run's cache, the rows it wrote included)."""
+    real = model_layers.cache_write
+    model_layers.cache_write = lambda cache, *args, **kwargs: cache
+    try:
+        yield
+    finally:
+        model_layers.cache_write = real
+
+
+def hold_serve(arch: str, runs: list, pre: dict, pred: dict, device) -> dict:
+    """Phase 31's checks of ``arch`` (module docstring), replaying each step
+    on one card in float32 (K10) and float64 from the sharded run's cache."""
+    cfg, case = serve_cfg(arch), SERVE_CASES[arch]
+    steps, layers = case["steps"], case["layers"]
+    codec = model_layers.KVCodecConfig("blockfloat8")
+    r0 = runs[0]
+    for r, run in enumerate(runs):
+        check(all(torch.equal(a, b) for a, b in zip(run["tokens"], r0["tokens"])),
+              f"phase 31 {arch}: rank {r}'s tokens differ from rank 0's")
+        check(run["launches"] == layers * steps,
+              f"phase 31 {arch}: rank {r} launched K10 {run['launches']} times, not "
+              f"{layers} layers x {steps} steps")
+        check(run["cache_bytes"] * SERVE_RANKS == run["whole_bytes"],
+              f"phase 31 {arch}: rank {r} holds {run['cache_bytes']} cache bytes of "
+              f"{run['whole_bytes']}")
+        check(run["k10_calls"] == layers * len(SERVE_HELD_STEPS),
+              f"phase 31 {arch}: rank {r} held {run['k10_calls']} K10 block calls")
+    ratio = pred["peak"] / r0["peak"]
+    check(abs(ratio - 1) <= DRYRUN_PEAK_TOL, f"phase 31 {arch}: predicted peak {pred['peak']} B, "
+          f"rank 0's {r0['peak']} B (ratio {ratio:.4f})")
+    check(r0["flops"] == pred["flops"], f"phase 31 {arch}: the card counts {r0['flops']} FLOPs "
+          f"on rank 0, the meta trace {pred['flops']}")
+    check(r0["by_axis"] == pred["by_axis"], f"phase 31 {arch}: rank 0 sent {r0['by_axis']} a "
+          f"step, the meta trace {pred['by_axis']}")
+    final = _whole_cache([run["blocks"] for run in runs], r0["specs"])
+    model = registry.build_model(cfg, device=device)
+    params = step_lib.init_param_blocks(model, None, torch.Generator(device=device).manual_seed(0))
+    p64 = tree_util.tree_unflatten(tree_util.tree_structure(params), [
+        x.double() for x in tree_util.tree_flatten(params)[0]])
+    # each step reads positions up to its index, which the sharded run's
+    # final cache holds as they were at that step (later rows lie past it)
+    cache = {k: v.to(device) for k, v in final.items()}
+    index = pre["index"].to(device)
+    d1, ds, one_routes = [], [], []
+    for t in range(steps):
+        tok = r0["tokens"][t].to(device)
+        with _no_writes(), Routes() as rec:
+            l1, _ = model.decode_step(params, cache, tok, index, codec, attention="fused")
+        one_routes.append(rec.calls)
+        with _no_writes(), float64_model(model):
+            l64, _ = model.decode_step(p64, cache, tok, index, codec, attention="xla")
+        ls = r0["logits"][t].to(device)
+        check(torch.equal(l1.argmax(-1).to(torch.int32).cpu(), r0["tokens"][t + 1]),
+              f"phase 31 {arch} step {t}: the one-card tokens {l1.argmax(-1).tolist()}, the "
+              f"sharded run's {r0['tokens'][t + 1].tolist()}")
+        d1.append((float((l1.double() - l64).abs().max()), float((l1.double() - l64).norm())))
+        ds.append((float((ls.double() - l64).abs().max()), float((ls.double() - l64).norm())))
+        index = index + 1
+    for t, (a, b) in enumerate(zip(one_routes, r0["routes"])):
+        check(len(a) == len(b) and all(torch.equal(x[0], y[0]) and torch.equal(x[1], y[1])
+                                       for x, y in zip(a, b)),
+              f"phase 31 {arch} step {t}: the MoE routing (top_e, drop mask) differs from the "
+              "one-card run's")
+    rms = [math.sqrt(sum(d[i] ** 2 for d in d1) / len(d1)) for i in (0, 1)]
+    for t, (a, b) in enumerate(zip(d1, ds)):
+        for i, what in enumerate(("largest element", "L2")):
+            check(b[i] <= SERVE_F32_FACTOR * max(a[i], rms[i]),
+                  f"phase 31 {arch} step {t}: the sharded logits lie {b[i]} ({what}) from float64, "
+                  f"the one-card float32 run's {a[i]} (RMS over the steps {rms[i]}), more than "
+                  f"{SERVE_F32_FACTOR}x")
+    row = {"peak_pred": pred["peak"], "peak_rank0": r0["peak"], "ratio": ratio,
+           "flops": r0["flops"], "sent_by_axis": r0["by_axis"],
+           "cache_bytes_rank": r0["cache_bytes"], "cache_bytes_whole": r0["whole_bytes"],
+           "k10_launches_rank": [run["launches"] for run in runs],
+           "k10_block_f64_max_abs": max(run["k10_err"] for run in runs),
+           "k10_plain_block_f64_max_abs": max(run["k10_plain_err"] for run in runs),
+           "k10_block_lse_f64_max_abs": max(run["k10_lse_err"] for run in runs),
+           "k10_largest_share_of_bar": max(run["k10_share"] for run in runs),
+           "logits_f64_one_card": d1, "logits_f64_sharded": ds,
+           "dropped": sum(int((~v).sum()) for calls in r0["routes"] for _, v in calls),
+           "step_ms_rank0": r0["ms"], "arch_s": [run["arch_s"] for run in runs]}
+    print(f"phase 31, {arch} ({card_line()}): " + json.dumps(row))
+    del model, params, p64, cache
+    free_card()
+    return {"kvc_decode_attention": sum(run["launches"] for run in runs)}
+
+
+def k10_block_times(device) -> dict:
+    """K10 at phase 31's block (starcoder2-3b's widths: 2 lanes of a data
+    rank, 24 q over 2 KV heads, D 128, float32 q, 4096 positions a block,
+    offset 4096, lanes at 4099 and 6999): the block entry with its
+    log-sum-exp, the whole-cache call over both blocks, the plain block
+    version; CUDA-graph replays, the bound from the positions read."""
+    b, s, h, hkv, d = 2, SERVE_CAP, 24, 2, 128
+    g = torch.Generator(device=device).manual_seed(SEED)
+    q = torch.randn((b, h, d), generator=g, device=device)
+    kc, vc = (torch.randint(-127, 128, (b, s, hkv, d), generator=g, device=device,
+                            dtype=torch.int8) for _ in range(2))
+    ks, vs = (torch.rand((b, s, hkv), generator=g, device=device) * 0.05 + 1e-3 for _ in range(2))
+    ix = torch.tensor([4099, 6999], dtype=torch.int32, device=device)
+    half = s // 2
+    blk = [t[:, half:].contiguous() for t in (kc, ks, vc, vs)]
+    live = sum(int(i) + 1 - half for i in ix)
+    nbytes = live * hkv * (2 * d + 8) + 2 * 4 * b * h * d + 4 * b * h + 4 * b
+    row = {"block_ms": graph_ms(lambda: k10.kvc_decode_attention(q, *blk, ix, half, True)),
+           "whole_ms": graph_ms(lambda: k10.kvc_decode_attention(q, kc, ks, vc, vs, ix)),
+           "plain_block_ms": graph_ms(lambda: kref.kvc_decode_attention_ref(q, *blk, ix, half,
+                                                                            True),
+                                      iters=PLAIN_ITERS),
+           "positions": live, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+           "splits": k10.split_plan(b, hkv, half, torch.cuda.get_device_properties(
+               device).multi_processor_count)[0]}
+    row["share_of_bound"] = row["bound_ms"] / row["block_ms"]
+    print(f"K10 at phase 31's block ({card_line()}): " + json.dumps(row))
+    return row
+
+
+def serve_phase(device) -> dict:
+    """Phase 31: the sharded serving step of each of ``SERVE_CASES`` on the
+    card (module docstring)."""
+    shutil.rmtree(SERVE_DIR, ignore_errors=True)
+    SERVE_DIR.mkdir(parents=True)
+    preds, pres = {}, {}
+    for arch in SERVE_CASES:
+        preds[arch] = pred = serve_prediction(arch)
+        print(f"phase 31 prediction, {arch} (dry-run counters, rank 0): " + json.dumps(
+            {"peak_bytes": pred["peak"], "argument_bytes": pred["argument_bytes"],
+             "flops": pred["flops"], "sent_by_axis": pred["by_axis"],
+             "trace_s": pred["trace_s"]}))
+        t0 = time.perf_counter()
+        pres[arch] = serve_prefill(arch, device)
+        torch.save(pres[arch], SERVE_DIR / f"{arch}.pt")
+        print(f"phase 31 {arch}: one-card prefill of {SERVE_CASES[arch]['prompts']} tokens in "
+              f"{time.perf_counter() - t0:.2f} s")
+    free_card()
+    t0 = time.perf_counter()
+    procs = serve_start(free_port())
+    for p in procs:
+        try:
+            rc = p.wait(timeout=600)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            p.wait()
+            rc = "timeout"
+        if rc != 0:
+            logs = "\n".join(q.read_text()[-3000:] for q in sorted(SERVE_DIR.glob("r*.log")))
+            raise RuntimeError(f"chip_smoke check failed: phase 31 rank exited {rc}\n{logs}")
+    print(f"phase 31 group wall: {time.perf_counter() - t0:.2f} s")
+    runs = [pickle.load(open(SERVE_DIR / f"rank{r}.pkl", "rb")) for r in range(SERVE_RANKS)]
+    launches: dict = {}
+    for arch in SERVE_CASES:
+        for k, v in hold_serve(arch, [run[arch] for run in runs], pres[arch], preds[arch],
+                               device).items():
+            launches[k] = launches.get(k, 0) + v
+    k10_block_times(device)
+    return launches
+
+
 def run(device) -> dict:
     t0 = time.perf_counter()
     logs = _build.build(verbose=True)
@@ -4972,7 +5485,9 @@ def run(device) -> dict:
                       ("28 rwkv6, hymba, whisper and the new families card vs CPU",
                        lambda: other_families(device)),
                       ("29 the dry run against the card", lambda: dryrun_vs_card(device)),
-                      ("30 the sharded train step on model blocks", lambda: step_phase(device))):
+                      ("30 the sharded train step on model blocks", lambda: step_phase(device)),
+                      ("31 the sharded serving step, K10 on cache blocks",
+                       lambda: serve_phase(device))):
         t0 = time.perf_counter()
         for k, v in fn().items():
             launches[k] = launches.get(k, 0) + v
@@ -5016,6 +5531,8 @@ def main() -> int:
         return drill_worker(sys.argv[2:])
     if sys.argv[1:2] == ["--step-rank"]:  # one rank of phase 30's group (step_start)
         return step_worker(sys.argv[2:])
+    if sys.argv[1:2] == ["--serve-rank"]:  # one rank of phase 31's group (serve_start)
+        return serve_worker(sys.argv[2:])
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs a CUDA card",
               file=sys.stderr)
@@ -5035,6 +5552,7 @@ def main() -> int:
         shutil.rmtree(DRILL_DIR, ignore_errors=True)
         shutil.rmtree(DRYRUN_DIR, ignore_errors=True)
         shutil.rmtree(STEP_DIR, ignore_errors=True)
+        shutil.rmtree(SERVE_DIR, ignore_errors=True)
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps(report))
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

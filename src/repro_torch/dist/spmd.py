@@ -51,7 +51,14 @@ passes are their adjoints, so the sum over the ranks that hold distinct
 rows of their gradients is the gradient of the sum of their losses, and
 the step divides by the number of such ranks in a pod.
 
-Without :func:`use` (serving, one process) every hook is the identity.  A
+The sharded serving step (``train.step.build_serve_step``) runs a
+model's decode under :func:`use` too, without gradients: the parameters
+are gathered as above, and a KV cache whose sequence the step split over a
+mesh axis carries its block (:func:`tag_seq`, read back by
+:func:`seq_block`); attention over such a cache combines the blocks'
+partial softmaxes with :func:`reduce_over` (``models.layers``).
+
+Without :func:`use` (serving on one card) every hook is the identity.  A
 ``gloo`` group moves CPU tensors, so CUDA tensors cross it through host
 copies (ranks sharing one card); ``nccl`` moves them on the card.  Each
 rank's bytes are counted by kind in :data:`sent_bytes` and by kind and
@@ -177,20 +184,26 @@ class Context:
 
     def all_gather(self, t: torch.Tensor, axis: str, dim: int) -> torch.Tensor:
         """Every rank's ``t`` on mesh ``axis``, concatenated on ``dim`` in
-        rank order."""
+        rank order.  Through the host, the parts land on the device before
+        they are joined, so the device holds what a device transport's
+        parts and result take (the dry run's count of the same step)."""
         group, host, wire = self._wire(axis, t)
         parts = [torch.empty_like(wire) for _ in range(self.sizes[axis])]
         _count("all_gather", axis, wire)
         dist.all_gather(parts, wire, group=group)
-        out = torch.cat(parts, dim)
-        return out.to(t.device) if host else out
+        return torch.cat([p.to(t.device) for p in parts] if host else parts, dim)
 
     def reduce_scatter(self, t: torch.Tensor, axis: str, dim: int) -> torch.Tensor:
-        """The sum over mesh ``axis`` of ``t``, this rank's chunk of ``dim``."""
-        group, host, wire = self._wire(axis, t)
-        parts = [c.contiguous() for c in wire.chunk(self.sizes[axis], dim)]
+        """The sum over mesh ``axis`` of ``t``, this rank's chunk of ``dim``
+        (the chunks made contiguous on ``t``'s device, as a device
+        transport's are, before a host copy crosses)."""
+        group = self.mesh.get_group(axis)
+        host = insitu.via_host(group, t)
+        parts = [c.contiguous() for c in t.detach().chunk(self.sizes[axis], dim)]
+        if host:
+            parts = [c.cpu() for c in parts]
         out = torch.empty_like(parts[0])
-        _count("reduce_scatter", axis, wire)
+        _count("reduce_scatter", axis, t)
         dist.reduce_scatter(out, parts, group=group)
         return out.to(t.device) if host else out
 
@@ -368,8 +381,13 @@ def gather_outer(params: Any) -> Any:
 
 def unbind(t: torch.Tensor) -> list:
     """``t.unbind(0)``; a tagged stacked leaf's slices carry its spec and
-    axes without the leading ``layers`` dimension (which never splits)."""
+    axes without the leading ``layers`` dimension (which never splits), and
+    a stacked cache leaf's slices its sequence block (:func:`tag_seq`)."""
     parts = list(t.unbind(0))
+    seq = getattr(t, "_seq", None)
+    if seq is not None:
+        for p in parts:
+            p._seq = seq
     info = _info(t)
     if info is not None:
         if info.spec[0] is not None:
@@ -512,3 +530,54 @@ def all_experts(y: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if axis is None:
         return y
     return _Gather.apply(y, _ACTIVE, ((axis, 0),), ())
+
+
+# ------------------------------------------------ serving: cache blocks --
+
+@dataclasses.dataclass(frozen=True)
+class SeqBlock:
+    """The block of a KV cache's sequence that this rank holds: position
+    ``offset + r`` lies at row ``r``; ``count`` blocks along mesh ``axis``."""
+
+    axis: str
+    offset: int
+    count: int
+
+
+def tag_seq(t: torch.Tensor, block: Optional[SeqBlock]) -> torch.Tensor:
+    """Mark cache leaf ``t`` (layers first, the sequence on dim 2) as
+    holding ``block`` of the sequence; ``None`` leaves it unmarked.  Its
+    per-layer slices (:func:`unbind`) carry the mark."""
+    if block is not None:
+        t._seq = block
+    return t
+
+
+def seq_block(t: torch.Tensor) -> Optional[SeqBlock]:
+    """The sequence block that cache leaf ``t`` holds inside :func:`use`;
+    ``None`` for a whole sequence (or outside :func:`use`)."""
+    return getattr(t, "_seq", None) if _ACTIVE is not None else None
+
+
+def model_index() -> int:
+    """This rank's coordinate along ``model`` (0 without ``model_blocks``)."""
+    ctx = _ACTIVE
+    return ctx.coord["model"] if ctx is not None and ctx.model_blocks else 0
+
+
+def gather_model(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Every ``model`` rank's block of ``x`` along ``dim``, in rank order
+    (no gradient); ``x`` without ``model_blocks``."""
+    ctx = _ACTIVE
+    if ctx is None or not ctx.model_blocks:
+        return x
+    return ctx.all_gather(x, "model", dim)
+
+
+def reduce_over(x: torch.Tensor, axis: str, op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """The elementwise sum (or ``op``) over mesh ``axis`` of ``x`` (no
+    gradient); ``x`` itself where the axis has one rank."""
+    ctx = _ACTIVE
+    if ctx is None or ctx.sizes.get(axis, 1) == 1:
+        return x
+    return ctx.all_reduce(x.detach(), axis, op=op)

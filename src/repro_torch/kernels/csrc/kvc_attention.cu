@@ -19,7 +19,11 @@
 // table[b, p / page], row p % page; a dense (B, S, Hkv, D) cache is the
 // pool of B pages of S rows with table[b] = b (table = nullptr), so both
 // entries run this one kernel.  Positions past index[b] are never read,
-// whatever the zero page or stale pages hold.
+// whatever the zero page or stale pages hold.  A cache whose sequence is
+// split over ranks passes its block's first global position (``offset``):
+// row r holds position offset + r, and the kernel can also write each
+// row's m + log l (``lse``, -inf for a lane with no position in the block),
+// so the blocks' partial softmaxes combine exactly.
 //
 // Bound.  Bytes: every code and scale of positions 0..index[b] is read once
 // (2 D + 8 bytes per position and KV head), plus q, the output and the
@@ -94,7 +98,9 @@ struct Args {
   float* part_l;
   float* part_acc;
   unsigned* tickets;     // (B * Hkv,), zero between calls
+  float* lse;            // (B, H) m + log l of the positions read, or nullptr
   int B, H, Hkv, n_rep, page, max_pages, splits, chunk, q_bf16;
+  int offset;            // the global position of the cache's row 0 (a sequence block)
   float scale;           // D ** -0.5, rounded to f32 on the host as the reference does
 };
 
@@ -231,6 +237,11 @@ __device__ __forceinline__ void store_out4(const Args& a, size_t i, float4 O, fl
   }
 }
 
+// m + log l of a row's merged (max, sum): -inf where no position was read
+__device__ __forceinline__ float block_lse(float m, float l) {
+  return l > 0.f ? m + logf(l) : -INFINITY;
+}
+
 template <int D>
 __global__ void __launch_bounds__(THREADS, 4)
 kvc_attention_kernel(const Args a) {
@@ -243,7 +254,8 @@ kvc_attention_kernel(const Args a) {
 
   const int bg = blockIdx.x, b = bg / a.Hkv, g = bg - b * a.Hkv, split = blockIdx.y;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, gid = lane >> 2, t4 = lane & 3;
-  const int len = min(__ldg(a.index + b) + 1, a.page * a.max_pages);  // <= 0 for a free lane
+  // local rows 0 .. len - 1 hold global positions offset .. index[b]
+  const int len = min(__ldg(a.index + b) + 1 - a.offset, a.page * a.max_pages);  // <= 0: none
   const int begin = split * a.chunk;
   const int end = min(begin + a.chunk, len);
   const int tiles = end > begin ? (end - begin + TILE - 1) / TILE : 0;
@@ -549,6 +561,7 @@ kvc_attention_kernel(const Args a) {
       }
       if (a.splits == 1) {
         store_out4(a, (head0 + h) * D + 4 * d4, O, fmaxf(sm_ml[WROWS + h], 1e-30f));
+        if (a.lse && d4 == 0) a.lse[head0 + h] = block_lse(sm_ml[h], sm_ml[WROWS + h]);
       } else {
         const size_t pi = (head0 + h) * a.splits + split;
         reinterpret_cast<float4*>(a.part_acc + pi * D)[d4] = O;
@@ -590,6 +603,7 @@ kvc_attention_kernel(const Args a) {
     if (lane == 0) {
       sm_ml[h] = M;
       sm_ml[WROWS + h] = Lsum;
+      if (a.lse) a.lse[head0 + h] = block_lse(M, Lsum);
     }
   }
   __syncthreads();
@@ -645,7 +659,10 @@ extern "C" const char* repro_error_string(int code) {
 // Hkv, D); ks, vs: f32 (n_pages, page, Hkv); table: int32 (B, max_pages)
 // page ids below n_pages, or nullptr for a dense (B, S, Hkv, D) cache
 // (page = S, max_pages = 1); index: int32 (B,); out: (B, H, D) in q's
-// dtype.  With splits > 1, part_m and part_l hold B*H*splits floats,
+// dtype.  ``offset``: the global position of row 0 (a block of a cache
+// whose sequence is split; 0 for a whole cache): lane b reads rows whose
+// position offset + row is at most index[b].  ``lse``: nullptr, or (B, H)
+// f32 written with m + log l of the rows read (-inf where none).  With splits > 1, part_m and part_l hold B*H*splits floats,
 // part_acc B*H*splits*D, and tickets B*Hkv zeros (left zero).  Needs H =
 // n_rep * Hkv, n_rep <= 16, D in {16, 32, 64, 128}, chunk % 64 == 0, fewer
 // than 2^31 pool rows (n_pages * page * Hkv) and 16-byte aligned codes; the
@@ -654,12 +671,12 @@ extern "C" const char* repro_error_string(int code) {
 extern "C" int kvc_attention(const void* q, int q_bf16, const int8_t* kc, const float* ks,
                              const int8_t* vc, const float* vs, const int32_t* table,
                              const int32_t* index, void* out, float* part_m, float* part_l,
-                             float* part_acc, unsigned* tickets, int B, int H, int Hkv, int D,
-                             int page, int max_pages, int splits, int chunk, float scale,
-                             cudaStream_t stream) {
+                             float* part_acc, unsigned* tickets, float* lse, int B, int H,
+                             int Hkv, int D, int page, int max_pages, int splits, int chunk,
+                             int offset, float scale, cudaStream_t stream) {
   if (B == 0 || H == 0) return 0;
-  const Args a{q, kc, ks, vc, vs, table, index, out, part_m, part_l, part_acc, tickets,
-               B, H, Hkv, H / Hkv, page, max_pages, splits, chunk, q_bf16, scale};
+  const Args a{q, kc, ks, vc, vs, table, index, out, part_m, part_l, part_acc, tickets, lse,
+               B, H, Hkv, H / Hkv, page, max_pages, splits, chunk, q_bf16, offset, scale};
   switch (D) {
     case 16: return launch<16>(a, stream);
     case 32: return launch<32>(a, stream);

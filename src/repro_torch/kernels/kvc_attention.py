@@ -17,7 +17,12 @@ entries share the one kernel in ``csrc/kvc_attention.cu``:
   counterpart of the Pallas function (a pool of B pages of S positions).
 
 Either reads only positions 0..index[b] of lane b and takes any capacity,
-so the reference's padding to its 128-row chunk has no counterpart.  On CUDA
+so the reference's padding to its 128-row chunk has no counterpart.  A
+cache whose sequence is split over ranks (the sharded serving step) passes
+its block's first global position (``offset``: row r holds position offset
++ r) and asks for each row's log-sum-exp (``lse=True``), with which the
+blocks' partial softmaxes combine exactly; the whole-cache call (offset 0,
+no ``lse``) is unchanged.  On CUDA
 tensors an entry launches the kernel once (the splits of the capacity merge
 inside it) or raises; on CPU tensors it runs the plain version in
 :mod:`repro_torch.kernels.ref`.  ``launches`` counts kernel launches,
@@ -121,8 +126,10 @@ def _check_cuda(q, codes, scales, index, paged: bool):
     return b, h, hkv, d, idx.reshape(-1).expand(b).contiguous()
 
 
-def _launch(q, kc, ks, vc, vs, table, idx, b, h, hkv, d, page, max_pages) -> torch.Tensor:
+def _launch(q, kc, ks, vc, vs, table, idx, b, h, hkv, d, page, max_pages, offset: int = 0,
+            lse: bool = False):
     out = torch.empty_like(q)
+    lse_out = torch.empty((b, h), dtype=torch.float32, device=q.device) if lse else None
     splits, chunk = split_plan(b, hkv, page * max_pages, _sm_count(q.device))
     parts = [None, None, None, None]
     if splits > 1:
@@ -132,47 +139,64 @@ def _launch(q, kc, ks, vc, vs, table, idx, b, h, hkv, d, page, max_pages) -> tor
                  tickets(q.device, b * hkv)]
     P, I = _build.P, _build.I
     _build.launch("kvc_attention", "kvc_attention",
-                  [P, I, P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, ctypes.c_float],
+                  [P, I, P, P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I,
+                   ctypes.c_float],
                   q.data_ptr(), int(q.dtype == torch.bfloat16), kc.data_ptr(), ks.data_ptr(),
                   vc.data_ptr(), vs.data_ptr(), table.data_ptr() if table is not None else None,
                   idx.data_ptr(), out.data_ptr(),
                   *[p.data_ptr() if p is not None else None for p in parts],
-                  b, h, hkv, d, page, max_pages, splits, chunk, float(d ** -0.5),
+                  lse_out.data_ptr() if lse else None,
+                  b, h, hkv, d, page, max_pages, splits, chunk, int(offset), float(d ** -0.5),
                   device=q.device)
     launches["kvc_decode_attention"] += 1
-    return out
+    return (out, lse_out) if lse else out
+
+
+def _check_offset(offset) -> int:
+    offset = int(offset)
+    if not 0 <= offset < 2 ** 31:
+        raise ValueError(f"offset {offset}: want a position in [0, 2^31)")
+    return offset
 
 
 def kvc_decode_attention(q: torch.Tensor, k_codes: torch.Tensor, k_scale: torch.Tensor,
-                         v_codes: torch.Tensor, v_scale: torch.Tensor, index) -> torch.Tensor:
+                         v_codes: torch.Tensor, v_scale: torch.Tensor, index, offset: int = 0,
+                         lse: bool = False):
     """q: (B, H, D) f32 or bf16; codes: (B, S, Hkv, D) int8; scales:
     (B, S, Hkv) f32; index: () shared position or (B,) per-slot positions
-    (on CUDA an int32 tensor on q's device); lane b attends to
-    cache[0..index[b]], and a lane with index -1 gives exactly 0.  Returns
-    (B, H, D) in q's dtype.  On CUDA: D in ``HEAD_DIMS``, n_rep <= 16."""
+    (on CUDA an int32 tensor on q's device); lane b attends to the rows
+    whose position ``offset + row`` is at most index[b] (a whole cache:
+    cache[0..index[b]]), and a lane with no such row gives exactly 0.
+    Returns (B, H, D) in q's dtype, and with ``lse`` also each row's
+    log-sum-exp of its scaled logits, (B, H) float32 (-inf for a lane with
+    no row).  On CUDA: D in ``HEAD_DIMS``, n_rep <= 16."""
+    offset = _check_offset(offset)
     tensors = (q, k_codes, k_scale, v_codes, v_scale, torch.as_tensor(index))
     if all(t.device.type == "cpu" for t in tensors):
-        return ref.kvc_decode_attention_ref(q, k_codes, k_scale, v_codes, v_scale, index)
+        return ref.kvc_decode_attention_ref(q, k_codes, k_scale, v_codes, v_scale, index,
+                                            offset, lse)
     b, h, hkv, d, idx = _check_cuda(q, (k_codes, v_codes), (k_scale, v_scale), index,
                                     paged=False)
     return _launch(q, k_codes, k_scale, v_codes, v_scale, None, idx, b, h, hkv, d,
-                   k_codes.shape[1], 1)
+                   k_codes.shape[1], 1, offset, lse)
 
 
 def kvc_decode_attention_paged(q: torch.Tensor, k_pool: torch.Tensor, k_scale_pool: torch.Tensor,
                                v_pool: torch.Tensor, v_scale_pool: torch.Tensor,
-                               page_table: torch.Tensor, index) -> torch.Tensor:
+                               page_table: torch.Tensor, index, offset: int = 0,
+                               lse: bool = False):
     """K10 over the paged pool: exactly ``kvc_decode_attention(q,
-    *cache_codes(pool, PagedKV(index, page_table)), index)`` without the
-    gathered copy.  Pools: (n_pages, page, Hkv, D) int8 codes and (n_pages,
+    *cache_codes(pool, PagedKV(index, page_table)), index, offset, lse)``
+    without the gathered copy.  Pools: (n_pages, page, Hkv, D) int8 codes and (n_pages,
     page, Hkv) f32 scales; ``page_table``: (B, max_pages) int32 page ids
     below n_pages (page 0 is the zero page, where unmapped entries point;
     an id may repeat); lane b's position p lies in page ``page_table[b, p //
     page]``.  The capacity is max_pages * page."""
+    offset = _check_offset(offset)
     tensors = (q, k_pool, k_scale_pool, v_pool, v_scale_pool, page_table, torch.as_tensor(index))
     if all(t.device.type == "cpu" for t in tensors):
         return ref.kvc_decode_attention_paged_ref(q, k_pool, k_scale_pool, v_pool, v_scale_pool,
-                                                  page_table, index)
+                                                  page_table, index, offset, lse)
     b, h, hkv, d, idx = _check_cuda(q, (k_pool, v_pool), (k_scale_pool, v_scale_pool), index,
                                     paged=True)
     _build.check_cuda(page_table, torch.int32, "kvc_attention page_table")
@@ -180,4 +204,4 @@ def kvc_decode_attention_paged(q: torch.Tensor, k_pool: torch.Tensor, k_scale_po
         raise ValueError(f"page_table: want ({b}, max_pages) on {q.device}, got "
                          f"{tuple(page_table.shape)} on {page_table.device}")
     return _launch(q, k_pool, k_scale_pool, v_pool, v_scale_pool, page_table, idx, b, h, hkv, d,
-                   k_pool.shape[1], page_table.shape[1])
+                   k_pool.shape[1], page_table.shape[1], offset, lse)

@@ -116,14 +116,17 @@ def zfp_decompress_kernel(c: zfp_core.ZFPCompressed, path: str = "auto") -> torc
 # ---------------------------------------------- compressed-KV attention ----
 
 
-def kvc_attention(q: torch.Tensor, k_codes, k_scale, v_codes, v_scale, index) -> torch.Tensor:
+def kvc_attention(q: torch.Tensor, k_codes, k_scale, v_codes, v_scale, index, offset: int = 0,
+                  lse: bool = False):
     """Fused dequant+attention decode step (K10), dispatched by the device of
     its tensors: the kernel on CUDA, the plain version on the CPU.  q:
     (B, H, D); codes (B, S, Hkv, D) with Hkv dividing H (un-repeated GQA);
     ``index`` is a scalar shared position or a (B,) per-slot position
     vector.  Any S: the reference's padding to its chunk has no
-    counterpart."""
-    return _kvc.kvc_decode_attention(q, k_codes, k_scale, v_codes, v_scale, index)
+    counterpart.  A block of a cache whose sequence is split passes its
+    first global position (``offset``) and takes ``(out, lse)`` back with
+    ``lse=True`` (:mod:`repro_torch.kernels.kvc_attention`)."""
+    return _kvc.kvc_decode_attention(q, k_codes, k_scale, v_codes, v_scale, index, offset, lse)
 
 
 def kvc_attention_paged(q: torch.Tensor, k_pool, k_scale_pool, v_pool, v_scale_pool, page_table,

@@ -74,12 +74,16 @@ def zfp3d_transform_ref(blocks: torch.Tensor):
     return i64_to_u32(u), emax, gtops.to(torch.int32)
 
 
-def kvc_decode_attention_ref(q, k_codes, k_scale, v_codes, v_scale, index):
+def kvc_decode_attention_ref(q, k_codes, k_scale, v_codes, v_scale, index, offset: int = 0,
+                             lse: bool = False):
     """Dequantize-then-attend (the unfused two-pass baseline; the plain
     version of K10).  q: (B, H, D); codes (B, S, Hkv, D) int8 and scales
     (B, S, Hkv) f32 with Hkv dividing H: they are repeated H / Hkv times
     first, as the reference's caller does.  ``index``: () shared position
-    or (B,) per-slot positions."""
+    or (B,) per-slot positions.  Row r holds global position ``offset + r``
+    (a block of a cache whose sequence is split); with ``lse`` also
+    returns each row's log-sum-exp of its scaled logits over the positions
+    read, (B, H) float32, -inf where there are none."""
     n_rep = q.shape[1] // k_codes.shape[2]
     if n_rep > 1:
         k_codes, v_codes = (torch.repeat_interleave(t, n_rep, dim=2) for t in (k_codes, v_codes))
@@ -90,12 +94,16 @@ def kvc_decode_attention_ref(q, k_codes, k_scale, v_codes, v_scale, index):
     logits = torch.einsum("bhd,bshd->bhs", q.to(torch.float32), k) * scale
     s = k.shape[1]
     idx = torch.as_tensor(index, dtype=torch.int32, device=q.device).reshape(-1, 1, 1)
-    mask = torch.arange(s, device=q.device)[None, None, :] <= idx
+    mask = offset + torch.arange(s, device=q.device)[None, None, :] <= idx
+    raw = logits
     logits = torch.where(mask, logits, -1e30)
     # fully-masked lanes (index -1 = free slot) output exactly 0 instead of
     # a uniform average over stale cache rows, as the kernel does
     p = torch.softmax(logits, dim=-1) * mask
-    return torch.einsum("bhs,bshd->bhd", p, v).to(q.dtype)
+    out = torch.einsum("bhs,bshd->bhd", p, v).to(q.dtype)
+    if not lse:
+        return out
+    return out, torch.logsumexp(torch.where(mask, raw, -torch.inf), dim=-1)
 
 
 def gather_pages(pool: torch.Tensor, page_table: torch.Tensor) -> torch.Tensor:
@@ -108,8 +116,8 @@ def gather_pages(pool: torch.Tensor, page_table: torch.Tensor) -> torch.Tensor:
 
 
 def kvc_decode_attention_paged_ref(q, k_pool, k_scale_pool, v_pool, v_scale_pool, page_table,
-                                   index):
+                                   index, offset: int = 0, lse: bool = False):
     """The plain version of K10's paged entry: the gather through the page
     table, then :func:`kvc_decode_attention_ref`."""
     return kvc_decode_attention_ref(q, *(gather_pages(p, page_table) for p in (
-        k_pool, k_scale_pool, v_pool, v_scale_pool)), index)
+        k_pool, k_scale_pool, v_pool, v_scale_pool)), index, offset, lse)

@@ -28,8 +28,10 @@ method keeps the whole 80-cell sweep short:
      (< 15% of that cell's flops).
 
 The meshes are the dry run's (:func:`repro_torch.launch.dryrun.fake_mesh`):
-train cells on the reference's (16, 16) and (2, 16, 16) with the sharded
-state, prefill and decode cells with ``model`` folded onto one card.
+every cell on the reference's (16, 16) and (2, 16, 16), the parameters
+placed as its ``DEFAULT_RULES`` place them; decode cells take one step of
+``train.step.build_serve_step`` over a cache placed as the reference's
+(the sequence over ``model`` from 4096 positions).
 
 ``meta`` tensors never allocate, so the full-attention tensors (e.g. (B, H,
 32k, 32k) f32) are shape metadata only.  ``compile_s`` keeps the reference's
@@ -183,7 +185,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool) -> dict:
         return cell
     t0 = time.time()
     try:
-        with dryrun.fake_mesh(multi_pod, folded=shape.kind != "train") as mesh:
+        with dryrun.fake_mesh(multi_pod) as mesh:
             total, mult, k = cell_cost(cfg, shape, mesh)
             n_dev = mesh.size()
         if shape.kind == "train":

@@ -26,35 +26,38 @@ arise here.
 
 What differs from the reference, and why:
 
-* **Mesh.**  Train cells run on the reference's meshes: ``single`` is
-  (16, 16) over ("data", "model"), ``multi`` (2, 16, 16) over ("pod",
-  "data", "model"), on a fake process group of 256 or 512 ranks that
+* **Mesh.**  Every cell runs on the reference's meshes: ``single`` is (16,
+  16) over ("data", "model"), ``multi`` (2, 16, 16) over ("pod", "data",
+  "model"), on a fake process group of 256 or 512 ranks that
   :func:`run_cell` creates and destroys (it refuses to run beside a group
-  that is already up); the state is sharded as the reference's
-  (``train.step.make_state_specs``) and the step gathers and
-  reduce-scatters it (``dist.spmd``).  Prefill and decode cells stay on the
-  reference's meshes with the ``model`` axis folded into one card, (16, 1)
-  and (2, 16, 1): the reference shards their parameters and caches through
-  ``build_serve_step``, which the port has no twin of (its serving runs on
-  one card).  A prefill or decode cell's global batch splits over pod x
-  data exactly as the reference splits it over ``data``; so does a train
-  cell's where the model computes on Megatron blocks over ``model`` (the
-  dense, vlm, MoE and audio families: the ranks along ``model`` share
-  their rows, as under the reference's GSPMD program).  rwkv6 and hymba
-  gather their weights whole, so their rows split over pod x data x model,
-  and a cell whose rows do not divide over those ranks is skipped with its
-  reason (the step would raise): ``train_4k``'s 256 rows on the 512 ranks
-  of the multi-pod mesh (:func:`train_refusal`).  The train cells predict
-  the port's partition, which is fixed where XLA's may choose: each MoE
-  layer routes the whole microbatch on every rank and gathers every
-  expert's output.
+  that is already up).  Parameters are placed as the reference's
+  ``DEFAULT_RULES`` place them (``train.step.make_state_specs``) and
+  gathered where they are used (``dist.spmd``).  A cell's global batch
+  splits over pod x data exactly as the reference splits it; the ranks
+  along ``model`` share their rows where the model computes on Megatron
+  blocks over ``model`` (the dense, vlm, MoE and audio families), as under
+  the reference's GSPMD program.  rwkv6 and hymba gather their weights
+  whole; in a train cell their rows split over pod x data x model, and a
+  cell whose rows do not divide over those ranks is skipped with its reason
+  (the step would raise): ``train_4k``'s 256 rows on the 512 ranks of the
+  multi-pod mesh (:func:`train_refusal`).  Their prefill and decode rows
+  split over pod x data, as the reference's.  A decode cell's cache is
+  placed as the reference's ``cache_shardings`` places it
+  (``train.step.cache_shardings``: the batch over pod x data, the sequence
+  over ``model`` from 4096 positions; ``long_500k``'s one lane takes the
+  sequence over ``data``), and each rank attends to its block of
+  positions.  The cells predict the port's partition, which is fixed where
+  XLA's may choose: each MoE layer routes the whole microbatch on every
+  rank and gathers every expert's output.
 * **Steps.**  Train runs :func:`repro_torch.train.step.build_train_step`
   with bfloat16 parameters (and the compressed pod hop with ``--grad-comp``
   on the multi mesh) on a ``meta`` state; the batch comes from the host, as
   the trainer's does, so each rank's rows reach the device inside the step.
-  Prefill runs ``model.forward`` under ``torch.no_grad()`` and keeps the
-  last position's logits.  Decode runs ``model.decode_step(...,
-  attention="xla")`` over ``model.init_cache`` (codec ``blockfloat8`` for
+  Prefill runs ``model.forward`` on this rank's rows under
+  ``torch.no_grad()`` and keeps the last position's logits (gathered over
+  the vocabulary's ``model`` blocks).  Decode runs one step of
+  :func:`repro_torch.train.step.build_serve_step` (attention ``xla``) over
+  a placed cache of the cell's length (codec ``blockfloat8`` for
   ``long_500k``, ``none`` otherwise), every lane at the cell's one position.
 * **Card sizes.**  ``fits_device`` compares the predicted peak with one
   H100 80GB HBM3's memory (:data:`DEVICE_MEMORY_BYTES`).  The microbatch
@@ -97,10 +100,11 @@ from torch.utils.flop_counter import FlopCounterMode
 from repro_torch import tree as tree_util
 from repro_torch.configs import registry
 from repro_torch.dist import sharding as shardlib
+from repro_torch.dist import spmd
 from repro_torch.dist.collectives import (GradCompressionConfig, pod_hop_device_bytes,
                                           wire_bytes_per_param)
 from repro_torch.models import layers as L
-from repro_torch.models.spec import empty_params, param_count
+from repro_torch.models.spec import param_count
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.train import step as step_lib
 
@@ -111,11 +115,8 @@ OUT_DIR = Path(__file__).resolve().parents[3] / "experiments" / "torch_dryrun"
 DEVICE_MEMORY_BYTES = 85_017_493_504
 ALLOC_BLOCK = 512  # the CUDA caching allocator's block: every allocation is a multiple
 
-SINGLE_POD = (16, 16)  # ("data", "model"): train cells, the reference's mesh
+SINGLE_POD = (16, 16)  # ("data", "model"): the reference's meshes
 MULTI_POD = (2, 16, 16)  # ("pod", "data", "model")
-# prefill and decode: the reference's meshes with "model" folded into one card
-FOLDED_SINGLE_POD = (16, 1)
-FOLDED_MULTI_POD = (2, 16, 1)
 
 _log = logging.getLogger("repro_torch.launch.dryrun")
 
@@ -250,9 +251,8 @@ def measure(fn: Callable[[], Any], *held: Any) -> dict:
 
 
 @contextlib.contextmanager
-def fake_mesh(multi_pod: bool, folded: bool = False):
-    """The production mesh (module docstring; ``folded``: with ``model`` on
-    one card, the prefill and decode cells') on a fake process group of
+def fake_mesh(multi_pod: bool):
+    """The production mesh (module docstring) on a fake process group of
     which this process is rank 0; the group is destroyed on exit.  Refuses
     to replace a group the caller already has up."""
     from torch.distributed.device_mesh import init_device_mesh
@@ -261,10 +261,7 @@ def fake_mesh(multi_pod: bool, folded: bool = False):
     if dist.is_initialized():
         raise RuntimeError("the dry run lays its mesh out on a fake process group of its own, "
                            "and a process group is already initialized")
-    if folded:
-        shape = FOLDED_MULTI_POD if multi_pod else FOLDED_SINGLE_POD
-    else:
-        shape = MULTI_POD if multi_pod else SINGLE_POD
+    shape = MULTI_POD if multi_pod else SINGLE_POD
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
     dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=math.prod(shape))
     try:
@@ -314,10 +311,12 @@ def loop_cost(c1: dict, c2: dict, k: int) -> dict:
 
 
 def local_batch(shape, mesh) -> int:
-    """This rank's rows of a prefill or decode cell's global batch (pod x
-    data ranks)."""
+    """This rank's rows of a prefill or decode cell's global batch: split
+    over the pod x data ranks where it divides, else every row (the
+    reference's ``bshard``)."""
     sizes = mesh_sizes(mesh)
-    return max(shape.global_batch // (sizes.get("pod", 1) * sizes.get("data", 1)), 1)
+    n = sizes.get("pod", 1) * sizes.get("data", 1)
+    return shape.global_batch // n if shape.global_batch % n == 0 else shape.global_batch
 
 
 def row_axes(cfg) -> tuple[str, ...]:
@@ -369,35 +368,58 @@ def choose_microbatches(trace: Callable[[int], dict], b_local: int, state_bytes:
         k = min(2 * k, b_local)
 
 
+def _param_blocks(model, mesh) -> tuple:
+    """``(bfloat16 parameter blocks of this rank, their shardings)``."""
+    scfg = step_lib.TrainStepConfig(param_dtype=torch.bfloat16)
+    state_abs, shard = step_lib.make_state_specs(model, mesh, scfg)
+    return step_lib.empty_blocks(state_abs["params"], shard["params"], mesh,
+                                 model.device), shard["params"]
+
+
 def prefill_cost(model, cfg, shape, mesh) -> dict:
     """``model.forward`` over this rank's rows under ``torch.no_grad()``,
-    bfloat16 parameters, keeping the last position's logits."""
-    params = empty_params(model.specs(), model.device, torch.bfloat16)
-    ins = registry.input_specs(cfg, shape, batch_override=local_batch(shape, mesh))
+    bfloat16 parameter blocks gathered where they are used, keeping the last
+    position's logits."""
+    params, p_shard = _param_blocks(model, mesh)
+    b = local_batch(shape, mesh)
+    ins = registry.input_specs(cfg, shape, batch_override=b)
     extras = [ins[k] for k in extra_keys(cfg)]
+    sizes = mesh_sizes(mesh)
+    rows = tuple(a for a in ("pod", "data") if a in sizes) if b < shape.global_batch else ()
 
     def prefill():
         with torch.no_grad():
-            # serving semantic: only the last position's logits feed sampling
-            return model.forward(params, ins["tokens"], *extras)[:, -1, :]
+            if mesh is None:
+                # serving semantic: only the last position's logits feed sampling
+                return model.forward(params, ins["tokens"], *extras)[:, -1, :]
+            blocks = step_lib.tagged_params(model, params, p_shard)
+            with spmd.use(spmd.Context(mesh, rows, b, model_blocks=model.tensor_parallel)):
+                last = model.forward(blocks, ins["tokens"], *extras)[:, -1, :]
+                if last.shape[-1] != cfg.padded_vocab:  # a vocab-parallel block
+                    last = spmd.gather_model(last, 1)
+                return last
 
     return measure(prefill, params, ins)
 
 
 def decode_cost(model, cfg, shape, mesh) -> dict:
-    """One ``model.decode_step(..., attention="xla")`` of this rank's rows
-    over a ``model.init_cache`` of the cell's length, bfloat16 parameters."""
-    b = local_batch(shape, mesh)
+    """One step of ``train.step.build_serve_step`` (attention ``xla``) over
+    a cache of the cell's length placed as the reference's, bfloat16
+    parameter blocks; the global batch's token, each rank computing its
+    rows."""
     codec = L.KVCodecConfig("blockfloat8" if shape.name == "long_500k" else "none")
-    params = empty_params(model.specs(), model.device, torch.bfloat16)
-    cache = model.init_cache(b, shape.seq_len, codec)
-    ins = registry.input_specs(cfg, shape, batch_override=b)
+    serve, _, (p_abs, p_shard) = step_lib.build_serve_step(model, mesh, codec, torch.bfloat16,
+                                                           "xla")
+    params = step_lib.empty_blocks(p_abs, p_shard, mesh, model.device)
+    cache_abs = model.cache_spec(shape.global_batch, shape.seq_len, codec)
+    cache = step_lib.empty_blocks(cache_abs, step_lib.cache_shardings(cache_abs, mesh), mesh,
+                                  model.device)
+    ins = registry.input_specs(cfg, shape)
     # every lane at the cell's one position: the (B,) form of the scalar
     # index, which the port decodes without reading it back to the host
-    index = ins["index"].expand(b)
+    index = ins["index"].expand(shape.global_batch)
     with AllLive():
-        return measure(lambda: model.decode_step(params, cache, ins["token"], index, codec,
-                                                 attention="xla"), params, cache, ins)
+        return measure(lambda: serve(params, cache, ins["token"], index), params, cache, ins)
 
 
 def grad_wire(model, mesh, grad_comp: bool) -> dict:
@@ -488,7 +510,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, verbose: bool = True,
     t0 = time.time()
     try:
         gc_on = grad_comp and multi_pod
-        with fake_mesh(multi_pod, folded=shape.kind != "train") as mesh:
+        with fake_mesh(multi_pod) as mesh:
             cost, k = cell_cost(cfg, shape, mesh, gc_on)
             n_dev = mesh.size()
             mesh_shape = mesh_sizes(mesh)

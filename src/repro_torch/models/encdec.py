@@ -53,6 +53,22 @@ def cross_attention(p: dict, c, x: torch.Tensor, mem_k: torch.Tensor,
     return L._close_heads(L._out_proj(L._weighted(probs, v), p["wo"]), hb)
 
 
+def cross_decode(p: dict, c, x: torch.Tensor, mem_k: torch.Tensor,
+                 mem_v: torch.Tensor) -> torch.Tensor:
+    """Decode cross-attention over the cached memory (every kv head): in
+    the sharded serving step every query head is gathered over ``model``
+    and the row-parallel ``wo`` runs on this rank's heads
+    (``layers.serve_out``); elsewhere :func:`cross_attention`."""
+    hb = L.head_blocks(p, c, x.device)
+    if hb is None:
+        return cross_attention(p, c, x, mem_k, mem_v)
+    q = spmd.gather_model(L._proj_heads(x, p["wq"]), 2)
+    k, v = L._kv_for_q(mem_k, c, None), L._kv_for_q(mem_v, c, None)
+    logits = L._scores(q, k) * c.head_dim**-0.5
+    probs = torch.softmax(logits, dim=-1).to(x.dtype)
+    return L.serve_out(L._weighted(probs, v), p, hb)
+
+
 def encode_memory(p: dict, c, enc_out: torch.Tensor):
     return L._proj_heads(enc_out, p["wk"]), L._proj_heads(enc_out, p["wv"])
 
@@ -138,7 +154,7 @@ class EncDecLM:
         remat = torch.is_grad_enabled()
         for lp in unstack(params["enc_layers"], c.n_encoder_layers):
             x = (spmd.remat(self._enc_layer, lp, x, positions) if remat
-                 else self._enc_layer(lp, x, positions))
+                 else self._enc_layer(spmd.gather(lp), x, positions))
         return L.layernorm(params["enc_final"], x)
 
     def forward(self, params: dict, tokens: torch.Tensor,
@@ -157,7 +173,7 @@ class EncDecLM:
         remat = torch.is_grad_enabled()
         for lp in unstack(params["dec_layers"], c.n_layers):
             x = (spmd.remat(self._dec_layer, lp, x, enc, positions) if remat
-                 else self._dec_layer(lp, x, enc, positions))
+                 else self._dec_layer(spmd.gather(lp), x, enc, positions))
         x = L.layernorm(params["dec_final"], x)
         return L.unembed(params["embed"], x)  # whisper ties embeddings
 
@@ -199,26 +215,31 @@ class EncDecLM:
         blockfloat8 self-attention with a (B,) index through K10."""
         c = self.cfg
         dt = self.dtype
+        if spmd.seq_block(cache["mem_k"]) is not None:
+            raise ValueError("the cross-attention memory's positions are not split over ranks")
+        params = spmd.gather_outer(params)
         x = L.embed(params["embed"], token[:, None], dt)
+        self_names = [k for k in cache if k.startswith("self_")]
         plan = None
         if index.ndim == 1:  # (B,) per-slot positions (continuous batching)
             rows = torch.clamp(index.to(torch.int64), 0, params["dec_pos"].shape[0] - 1)
             x = x + params["dec_pos"][rows][:, None].to(dt)
-            plan = L.attend_plan(index, (index >= 0).to(torch.int32), 1,
-                                 cache[next(k for k in cache if k.startswith("self_"))].shape[1:])
+            leaf = cache[self_names[0]]
+            plan = L.attend_plan(index, (index >= 0).to(torch.int32), 1, leaf.shape[1:],
+                                 L.seq_offset(leaf))
         else:  # dynamic_slice_in_dim clamps the start into range
             i = min(max(int(index), 0), params["dec_pos"].shape[0] - 1)
             x = x + params["dec_pos"][i:i + 1].to(dt)[None]
-        self_names = [k for k in cache if k.startswith("self_")]
+        scaches = unstack({k[5:]: cache[k] for k in self_names}, c.n_layers)
         for li, lp in enumerate(unstack(params["dec_layers"], c.n_layers)):
-            scache = {k[5:]: cache[k][li] for k in self_names}
+            lp = spmd.gather(lp)
             h = L.layernorm(lp["self_norm"], x)
-            a, _ = L.decode_attention(lp["self_attn"], c.attn(), h, scache, codec, index,
+            a, _ = L.decode_attention(lp["self_attn"], c.attn(), h, scaches[li], codec, index,
                                       attention, plan)
             x = x + a
             h = L.layernorm(lp["cross_norm"], x)
-            x = x + cross_attention(lp["cross_attn"], c.attn(), h, cache["mem_k"][li],
-                                    cache["mem_v"][li])
+            x = x + cross_decode(lp["cross_attn"], c.attn(), h, cache["mem_k"][li],
+                                 cache["mem_v"][li])
             x = x + L.mlp(lp["mlp"], L.layernorm(lp["mlp_norm"], x), "gelu")
         x = L.layernorm(params["dec_final"], x)
         return L.unembed(params["embed"], x)[:, 0, :], cache

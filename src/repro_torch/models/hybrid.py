@@ -208,7 +208,7 @@ class HymbaLM:
             if remat:
                 x = spmd.remat(self._fused_layer, lp, window, x, positions)
             else:
-                x = self._fused_layer(lp, window, x, positions)
+                x = self._fused_layer(spmd.gather(lp), window, x, positions)
         x = L.rmsnorm(params["final_norm"], x)
         skip = c.n_meta_tokens + (prefix.shape[1] if prefix is not None else 0)
         return L.unembed(params["unembed"], x[:, skip:, :])
@@ -241,27 +241,37 @@ class HymbaLM:
             raise ValueError("HymbaLM decodes with its own windowed attention: no K10 route")
         c = self.cfg
         dt = self.dtype
+        params = spmd.gather_outer(params)
         x = L.embed(params["embed"], token[:, None], dt)
         ac = self._attn_config()
         n_rep = ac.n_heads // ac.n_kv_heads
         vector = index.ndim == 1
         pos = index[:, None] if vector else index.reshape(1)  # (B, 1) | (1,)
         idx = index.reshape(-1, 1) if vector else index  # (B, 1) | ()
-        attn_names = [k for k in cache if k.startswith("attn_")]
+        acaches = unstack({k[5:]: cache[k] for k in cache if k.startswith("attn_")},
+                          c.n_layers)
         for i, (lp, window) in enumerate(zip(unstack(params["layers"], c.n_layers),
                                              self._windows())):
+            lp = spmd.gather(lp)
             h = L.rmsnorm(lp["norm"], x)
-            acache = {k[5:]: cache[k][i] for k in attn_names}
+            acache = acaches[i]
             q, k_new, v_new = L._qkv(lp["attn"], ac, h, pos)
             L.cache_update(acache, codec, k_new, v_new, index)
+            blk = spmd.seq_block(next(iter(acache.values())))  # a split sequence's block
             kk, vv = L.cache_read(acache, codec, h.dtype)
             kk, vv = L._repeat_kv(kk, n_rep), L._repeat_kv(vv, n_rep)
             kpos = torch.arange(kk.shape[1], dtype=torch.int32, device=x.device)[None, :]
+            if blk is not None:
+                kpos = kpos + blk.offset
             logits = L._scores(q, kk) * ac.head_dim**-0.5
             mask = (kpos <= idx) & (kpos > idx - window)  # (B, S) | (1, S)
             logits = logits.masked_fill(~mask[:, None, None, :], -1e30)
-            probs = torch.softmax(logits, dim=-1).to(h.dtype)
-            a_out = L._out_proj(L._weighted(probs, vv), lp["attn"]["wo"])
+            if blk is None:
+                probs = torch.softmax(logits, dim=-1).to(h.dtype)
+                att = L._weighted(probs, vv)
+            else:
+                att = L._softmax_over(logits, vv, blk, h.dtype)
+            a_out = L._out_proj(att, lp["attn"]["wo"])
 
             sp = lp["ssd"]
             xh, Bm, Cm, dtv, a = _ssd_inputs(sp, c, h)

@@ -35,6 +35,16 @@ Differences from the reference, none of them in the numbers:
   and the unembedding are vocab-parallel.  Heads that fall back to
   replication run whole on every rank.  Outside the step every hook is the
   identity.
+* In the sharded serving step (``train.step.build_serve_step``) decode
+  attention gathers the query heads over ``model`` and computes every new
+  kv head (a rank of the cache holds them all), attends every head over
+  this rank's cache, then applies the row-parallel ``wo`` to its own heads.
+  Where the step split the cache's sequence over a mesh axis
+  (``spmd.seq_block``), each rank attends to its block of positions, the
+  new token's k/v land on the rank whose block holds its position, and the
+  blocks' partial softmaxes combine exactly: the max over the axis, then
+  the sums and the weighted values summed over it (:func:`_softmax_over`;
+  K10's route returns each block's log-sum-exp, :func:`_combine_lse`).
 * The reference's process-wide flags are not ported: the flash threshold
   is ``AttnConfig.flash_threshold`` alone, and ``KVC_FUSED`` is the
   ``attention`` argument carried from ``EngineConfig`` to
@@ -411,14 +421,16 @@ class WritePlan:
     dst: tuple[torch.Tensor, torch.Tensor]
 
 
-def write_plan(index, wpos: torch.Tensor, leaf_shape) -> WritePlan:
+def write_plan(index, wpos: torch.Tensor, leaf_shape, offset: int = 0) -> WritePlan:
     """Where per-slot token rows land in a cache leaf of ``leaf_shape``.
 
     ``wpos``: (B, T) global write positions; entries < 0 or past capacity
     are dropped (masked prompt padding and free lanes).  Dense leaves are
-    (B, S, ...); paged leaves are pools (n_pages, page, ...) addressed
-    through ``index.page_table``, where positions past ``page * max_pages``
-    and page ids outside the pool are dropped too.
+    (B, S, ...), whose row r holds position ``offset + r`` (a block of a
+    sequence split over ranks: positions outside it are dropped); paged
+    leaves are pools (n_pages, page, ...) addressed through
+    ``index.page_table``, where positions past ``page * max_pages`` and page
+    ids outside the pool are dropped too.
     """
     if isinstance(index, PagedKV):
         n_pages, page = leaf_shape[0], leaf_shape[1]
@@ -431,6 +443,8 @@ def write_plan(index, wpos: torch.Tensor, leaf_shape) -> WritePlan:
         src = keep.nonzero(as_tuple=True)
         return WritePlan(src, (pages[src], w[src] % page))
     w = wpos.to(torch.int64)
+    if offset:
+        w = torch.where(w >= 0, w - offset, -1)
     keep = (w >= 0) & (w < leaf_shape[1])
     src = keep.nonzero(as_tuple=True)
     return WritePlan(src, (src[0], w[src]))
@@ -453,7 +467,8 @@ def cache_write(cache: dict, codec: KVCodecConfig, k_new: torch.Tensor,
     ``wpos`` (B, T); negative positions are dropped. ``index`` selects the
     layout (``PagedKV`` pool vs dense (B, S) lanes)."""
     if plan is None:
-        plan = write_plan(index, wpos, next(iter(cache.values())).shape)
+        leaf = next(iter(cache.values()))
+        plan = write_plan(index, wpos, leaf.shape, seq_offset(leaf))
     if codec.mode == "blockfloat8":
         kc, ks = _bf8_encode(k_new)
         vc, vs = _bf8_encode(v_new)
@@ -483,8 +498,14 @@ def cache_update(cache: dict, codec: KVCodecConfig, k_new: torch.Tensor, v_new: 
         pos = index.pos if isinstance(index, PagedKV) else index
         return cache_write(cache, codec, k_new, v_new, index, _vector_wpos(pos, k_new.shape[1]))
     t = k_new.shape[1]
-    s = next(iter(cache.values())).shape[1]
-    i = min(max(int(index), 0), s - t)
+    leaf = next(iter(cache.values()))
+    s = leaf.shape[1]
+    blk = spmd.seq_block(leaf)
+    i = min(max(int(index), 0), (s * blk.count if blk else s) - t)
+    lo = i - (blk.offset if blk else 0)  # this block's rows lo .. lo + t - 1
+    a, b = max(lo, 0), min(lo + t, s)
+    if a >= b:  # the position lies in another rank's block
+        return cache
     if codec.mode == "blockfloat8":
         kc, ks = _bf8_encode(k_new)
         vc, vs = _bf8_encode(v_new)
@@ -492,7 +513,7 @@ def cache_update(cache: dict, codec: KVCodecConfig, k_new: torch.Tensor, v_new: 
     else:
         new = {"k": k_new, "v": v_new}
     for name, val in new.items():
-        cache[name][:, i:i + t] = val.to(cache[name].dtype)
+        cache[name][:, a:b] = val[:, a - lo:b - lo].to(cache[name].dtype)
     return cache
 
 
@@ -517,14 +538,76 @@ def cache_read(cache: dict, codec: KVCodecConfig, dtype=torch.bfloat16, index=No
     return cache["k"], cache["v"]
 
 
-def attend_plan(index, length: torch.Tensor, t: int, leaf_shape) -> WritePlan:
+def attend_plan(index, length: torch.Tensor, t: int, leaf_shape, offset: int = 0) -> WritePlan:
     """The :class:`WritePlan` of :func:`_attend_cached` for tokens (B, T):
-    lane b keeps its first ``length[b]`` tokens from its start position."""
+    lane b keeps its first ``length[b]`` tokens from its start position
+    (``offset``: the first position of the cache block, :func:`write_plan`)."""
     start = index.pos if isinstance(index, PagedKV) else index
     tpos = torch.arange(t, dtype=torch.int32, device=start.device)
     gpos = start[:, None] + tpos[None, :]
     valid = (tpos[None, :] < length[:, None]) & (start[:, None] >= 0)
-    return write_plan(index, torch.where(valid, gpos, -1), leaf_shape)
+    return write_plan(index, torch.where(valid, gpos, -1), leaf_shape, offset)
+
+
+def seq_offset(leaf: torch.Tensor) -> int:
+    """The first position of the sequence block that cache leaf ``leaf``
+    holds in the sharded serving step (``spmd.seq_block``); 0 otherwise."""
+    blk = spmd.seq_block(leaf)
+    return 0 if blk is None else blk.offset
+
+
+def serve_qkv(p: dict, c: AttnConfig, x: torch.Tensor, positions: torch.Tensor):
+    """``(q, k_new, v_new, hb)`` of a cached attention layer: every query
+    head and every kv head of ``x``'s tokens.  In the sharded serving step
+    (``hb`` from :func:`head_blocks`: the q heads split over ``model``) the
+    query heads are gathered over ``model``, and the kv heads are gathered
+    too where they split like the q heads, or computed whole from their
+    replicated leaves; ``hb`` is ``None`` elsewhere, where this is
+    :func:`_qkv`."""
+    hb = head_blocks(p, c, x.device)
+    q, k, v = _qkv(p, c, x, positions)  # p: the q blocks beside whole or split kv leaves
+    if hb is None:
+        return q, k, v, None
+    if hb.kv_index is None:
+        k, v = spmd.gather_model(k, 2), spmd.gather_model(v, 2)
+    return spmd.gather_model(q, 2), k, v, hb
+
+
+def serve_out(out: torch.Tensor, p: dict, hb: Optional[HeadBlocks]) -> torch.Tensor:
+    """The output projection of every head's attention ``out`` (B, T, H,
+    D): the row-parallel ``wo`` on this rank's heads, reduced over
+    ``model``, where :func:`serve_qkv` gave ``hb``."""
+    if hb is None:
+        return _out_proj(out, p["wo"])
+    h_local = p["wo"].shape[0]
+    own = out.narrow(2, spmd.model_index() * h_local, h_local)
+    return spmd.from_model(_out_proj(own, p["wo"]))
+
+
+def _softmax_over(logits: torch.Tensor, v: torch.Tensor, blk, dtype) -> torch.Tensor:
+    """softmax(logits) @ v over a sequence split into blocks along mesh
+    axis ``blk.axis``: ``logits`` (B, H, T, S) float32 over this rank's
+    positions (masked with -1e30), ``v`` (B, S, H, D).  The max and the sum
+    of exponents are reduced over the axis, each rank weighs its values by
+    the global probabilities (rounded to ``dtype`` as the whole softmax's
+    are), and the weighted sums are summed over the axis in float32."""
+    m = spmd.reduce_over(logits.amax(dim=-1), blk.axis, op=torch.distributed.ReduceOp.MAX)
+    e = torch.exp(logits - m[..., None])
+    den = spmd.reduce_over(e.sum(dim=-1), blk.axis)
+    part = _weighted((e / den[..., None]).to(dtype), v)
+    return spmd.reduce_over(part.to(torch.float32), blk.axis).to(part.dtype)
+
+
+def _combine_lse(out: torch.Tensor, lse: torch.Tensor, blk) -> torch.Tensor:
+    """K10's per-block results combined over mesh axis ``blk.axis``:
+    ``out`` (B, H, D) normalized over this rank's positions and ``lse``
+    (B, H) their log-sum-exp (-inf for none).  Each block weighs
+    exp(lse - max lse); a lane with no position anywhere gives exactly 0."""
+    big = spmd.reduce_over(lse, blk.axis, op=torch.distributed.ReduceOp.MAX)
+    w = torch.exp(lse - torch.where(torch.isfinite(big), big, torch.zeros_like(big)))
+    den = spmd.reduce_over(w, blk.axis)
+    acc = spmd.reduce_over(w[..., None] * out.to(torch.float32), blk.axis)
+    return (acc / torch.clamp_min(den, 1e-30)[..., None]).to(out.dtype)
 
 
 def _attend_cached(p: dict, c: AttnConfig, x: torch.Tensor, cache: dict,
@@ -548,9 +631,13 @@ def _attend_cached(p: dict, c: AttnConfig, x: torch.Tensor, cache: dict,
     t = x.shape[1]
     tpos = torch.arange(t, dtype=torch.int32, device=x.device)
     gpos = start[:, None] + tpos[None, :]  # (B, T) global positions
-    q, k_new, v_new = _qkv(p, c, x, gpos)
+    q, k_new, v_new, hb = serve_qkv(p, c, x, gpos)
+    leaf = next(iter(cache.values()))
+    blk = spmd.seq_block(leaf)  # this rank's block of a split sequence, or None
+    if blk is not None and isinstance(index, PagedKV):
+        raise ValueError("a paged pool is one card's: its sequence does not split over ranks")
     if plan is None:
-        plan = attend_plan(index, length, t, next(iter(cache.values())).shape)
+        plan = attend_plan(index, length, t, leaf.shape, seq_offset(leaf))
     cache = cache_write(cache, codec, k_new, v_new, index, None, plan)
     n_rep = c.n_heads // c.n_kv_heads
     if t == 1 and codec.mode == "blockfloat8" and attention == "fused" and c.window is None:
@@ -560,22 +647,32 @@ def _attend_cached(p: dict, c: AttnConfig, x: torch.Tensor, cache: dict,
             out = _kops.kvc_attention_paged(q[:, 0].contiguous(), cache["k_codes"],
                                             cache["k_scale"], cache["v_codes"], cache["v_scale"],
                                             index.page_table, start)[:, None]
-        else:
+        elif blk is None:
             kc, ks, vc, vs = cache_codes(cache, index)
             out = _kops.kvc_attention(q[:, 0].contiguous(), kc, ks, vc, vs, start)[:, None]
+        else:  # K10 over this rank's block, the blocks combined by their log-sum-exp
+            kc, ks, vc, vs = cache_codes(cache, index)
+            o, lse = _kops.kvc_attention(q[:, 0].contiguous(), kc, ks, vc, vs, start,
+                                         blk.offset, lse=True)
+            out = _combine_lse(o, lse, blk)[:, None]
     else:
         k, v = cache_read(cache, codec, x.dtype, index)
         k, v = _repeat_kv(k, n_rep), _repeat_kv(v, n_rep)
         k_pos = torch.arange(k.shape[1], dtype=torch.int32, device=x.device)
+        if blk is not None:
+            k_pos = k_pos + blk.offset
         mask = k_pos[None, None, :] <= gpos[:, :, None]  # (B, T, S) causal
         if c.window is not None:
             mask &= k_pos[None, None, :] > gpos[:, :, None] - c.window
         scale = c.head_dim**-0.5
         logits = _scores(q, k) * scale
         logits = logits.masked_fill(~mask[:, None], -1e30)
-        probs = torch.softmax(logits, dim=-1).to(x.dtype)
-        out = _weighted(probs, v)
-    return _out_proj(out, p["wo"]), cache
+        if blk is None:
+            probs = torch.softmax(logits, dim=-1).to(x.dtype)
+            out = _weighted(probs, v)
+        else:
+            out = _softmax_over(logits, v, blk, x.dtype)
+    return serve_out(out, p, hb), cache
 
 
 def prefill_attention(p: dict, c: AttnConfig, x: torch.Tensor, cache: dict,
@@ -598,18 +695,26 @@ def decode_attention(p: dict, c: AttnConfig, x: torch.Tensor, cache: dict,
         length = (pos >= 0).to(torch.int32)  # free lanes write nothing
         return _attend_cached(p, c, x, cache, codec, index, length, attention, plan)
     positions = index.reshape(1)
-    q, k_new, v_new = _qkv(p, c, x, positions)
+    q, k_new, v_new, hb = serve_qkv(p, c, x, positions)
     cache = cache_update(cache, codec, k_new, v_new, index)
+    blk = spmd.seq_block(next(iter(cache.values())))
     k, v = cache_read(cache, codec, x.dtype)
     n_rep = c.n_heads // c.n_kv_heads
     k, v = _repeat_kv(k, n_rep), _repeat_kv(v, n_rep)
     max_len = k.shape[1]
     k_pos = torch.arange(max_len, dtype=torch.int32, device=x.device)
-    if max_len > c.flash_threshold:
+    if blk is not None:  # this rank's block of the positions, combined over its axis
+        k_pos = k_pos + blk.offset
+        mask = k_pos[None, :] <= positions[:, None]
+        if c.window is not None:
+            mask &= k_pos[None, :] > positions[:, None] - c.window
+        logits = (_scores(q, k) * q.shape[-1] ** -0.5).masked_fill(~mask[None, None], -1e30)
+        out = _softmax_over(logits, v, blk, q.dtype)
+    elif max_len > c.flash_threshold:
         out = _sdpa_flash(q, k, v, positions, k_pos, c.window, c.chunk_kv)
     else:
         out = _sdpa_full(q, k, v, positions, k_pos, c.window)
-    return _out_proj(out, p["wo"]), cache
+    return serve_out(out, p, hb), cache
 
 
 # ------------------------------------------------------------------ MLP ----

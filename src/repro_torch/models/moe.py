@@ -201,7 +201,7 @@ class MoELM(DenseLM):
             if remat:
                 x, aux = spmd.remat(self._layer_with_aux, lp, x, positions)
             else:
-                x, aux = self._layer_with_aux(lp, x, positions)
+                x, aux = self._layer_with_aux(spmd.gather(lp), x, positions)
             auxes.append(aux)
         x = self.norm(params["final_norm"], x)
         if prefix is not None:

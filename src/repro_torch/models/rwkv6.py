@@ -227,7 +227,7 @@ class RWKV6LM:
         x = L.layernorm(params["ln_in"], x)
         remat = torch.is_grad_enabled()
         for lp in unstack(params["layers"], c.n_layers):
-            x = spmd.remat(self._layer, lp, x) if remat else self._layer(lp, x)
+            x = spmd.remat(self._layer, lp, x) if remat else self._layer(spmd.gather(lp), x)
         x = L.layernorm(params["final_norm"], x)
         if prefix is not None:
             x = x[:, prefix.shape[1]:, :]
@@ -262,9 +262,11 @@ class RWKV6LM:
             raise ValueError("RWKV6LM has no attention, so no K10 route")
         c = self.cfg
         f32 = torch.float32
+        params = spmd.gather_outer(params)
         x = L.embed(params["embed"], token[:, None], self.dtype)
         x = L.layernorm(params["ln_in"], x)
         for i, lp in enumerate(unstack(params["layers"], c.n_layers)):
+            lp = spmd.gather(lp)
             tp, cp = lp["time"], lp["channel"]
             xn = L.layernorm(tp["ln"], x)
             prev = cache["tm_x"][i][:, None, :].to(xn.dtype)

@@ -12,9 +12,10 @@ parameter tree.  It carries the device its caches are made on.
 enabled each layer runs under ``torch.utils.checkpoint`` (non-reentrant,
 through ``dist.spmd.remat``), the counterpart of the reference's per-layer
 ``jax.checkpoint``, so only a layer's input is kept for the backward pass.
-Inside the sharded train step (``dist.spmd.use``) the parameters arrive as
-this rank's blocks and are gathered where they are used: the outer leaves
-at the top of ``forward``, a layer's inside its checkpoint.  Attention, the
+Inside the sharded train and serving steps (``dist.spmd.use``) the
+parameters arrive as this rank's blocks and are gathered where they are
+used: the outer leaves at the top of ``forward`` and ``decode_step``, a
+layer's inside its checkpoint (or, without gradients, as the layer runs).  Attention, the
 MLPs, the embedding, the unembedding and :func:`lm_loss` compute on their
 ``model`` blocks (``tensor_parallel``; ``models.layers``).  ``decode_step``
 and ``prefill`` (the serving path) run without gradients.
@@ -119,7 +120,7 @@ class DenseLM(nn.Module):
             if remat:
                 x = spmd.remat(self._layer, lp, x, positions)
             else:
-                x = self._layer(lp, x, positions)
+                x = self._layer(spmd.gather(lp), x, positions)
         x = self.norm(params["final_norm"], x)
         if prefix is not None:
             x = x[:, prefix.shape[1]:, :]
@@ -145,6 +146,7 @@ class DenseLM(nn.Module):
         c = self.cfg
         caches = unstack(cache, c.n_layers)
         for lp, lc in zip(unstack(params["layers"], c.n_layers), caches):
+            lp = spmd.gather(lp)
             x = x + attend(lp["attn"], self.norm(lp["attn_norm"], x), lc)
             x = self._mlp_block(lp, x)
         return self.norm(params["final_norm"], x)
@@ -157,12 +159,14 @@ class DenseLM(nn.Module):
         place (and returns it).  ``attention="fused"`` sends blockfloat8
         decode attention through K10."""
         c = self.cfg
+        params = spmd.gather_outer(params)
         x = L.embed(params["embed"], token[:, None], self.dtype)
         plan = None
         if L._is_vector_index(index):
             pos = index.pos if isinstance(index, L.PagedKV) else index
-            plan = L.attend_plan(index, (pos >= 0).to(torch.int32), 1,
-                                 next(iter(cache.values())).shape[1:])
+            leaf = next(iter(cache.values()))
+            plan = L.attend_plan(index, (pos >= 0).to(torch.int32), 1, leaf.shape[1:],
+                                 L.seq_offset(leaf))
 
         def attend(ap, h, lc):
             return L.decode_attention(ap, c.attn(), h, lc, codec, index, attention, plan)[0]

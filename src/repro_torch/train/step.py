@@ -1,5 +1,6 @@
-"""The train step with the compressed cross-pod gradient hop (the port of
-``repro.train.step``'s ``build_train_step``).
+"""The train step with the compressed cross-pod gradient hop, and the
+sharded serving step (the port of ``repro.train.step``'s
+``build_train_step`` and ``build_serve_step``).
 
 ``build_train_step`` returns ``(state, batch) -> (state, metrics)``: the
 loss and its gradient (per-layer activation checkpointing is in the model),
@@ -63,6 +64,16 @@ What differs from the reference:
 * The reference's jitted step is not its ``jnp`` program bit for bit (XLA
   rewrites divisions by constants and contracts products into FMAs); the
   port follows the program, so the two agree within float32 rounding.
+
+:func:`build_serve_step` is the reference's decode step on the same mesh:
+parameters placed as :func:`make_state_specs` places them and gathered
+inside each layer (``dist.spmd``), the cache placed as the reference's
+``cache_shardings`` says (:func:`cache_shardings`: batch over (``pod``,
+``data``), the sequence over ``model`` from 4096 positions, a batch that
+does not split takes the sequence over ``data``), and each rank attending
+to its block of a split cache, the blocks' partial softmaxes combined
+exactly (``models.layers``).  The serving engine (``serving/engine.py``)
+stays on one card.
 """
 
 from __future__ import annotations
@@ -71,6 +82,7 @@ import contextlib
 import dataclasses
 import functools
 import math
+import re
 from typing import Any, Optional
 
 import torch
@@ -79,7 +91,7 @@ from repro_torch import tree as tree_util
 from repro_torch.dist import collectives
 from repro_torch.dist import sharding as shardlib
 from repro_torch.dist import spmd
-from repro_torch.models.layers import TensorSpec
+from repro_torch.models.layers import KVCodecConfig, TensorSpec
 from repro_torch.models.spec import init_params, spec_items
 from repro_torch.optim import adamw, schedules
 
@@ -188,17 +200,7 @@ def init_state(model, mesh=None, generator: Optional[torch.Generator] = None,
     leaf is dropped before the next draw)."""
     if generator is None:
         generator = torch.Generator(device=model.device).manual_seed(0)
-    _, shard = make_state_specs(model, mesh, step_cfg)
-    p_shard = shard["params"]
-
-    def keep(path, _p, leaf):
-        sh = p_shard
-        for k in path:
-            sh = sh[k]
-        return _block(leaf, sh)
-
-    params = init_params(model.specs(), generator, model.device, step_cfg.param_dtype,
-                         keep=None if mesh is None else keep)
+    params = init_param_blocks(model, mesh, generator, step_cfg.param_dtype)
     leaves, treedef = tree_util.tree_flatten(params)
     zeros = lambda dt: tree_util.tree_unflatten(  # noqa: E731
         treedef, [_zeros_like_block(p, dt) for p in leaves])
@@ -210,21 +212,61 @@ def init_state(model, mesh=None, generator: Optional[torch.Generator] = None,
     return state
 
 
+def init_param_blocks(model, mesh, generator: torch.Generator,
+                      dtype: torch.dtype = torch.float32) -> Any:
+    """The parameters drawn from ``generator`` on the model's device, each
+    leaf drawn whole in the order and with the values of the replicated
+    draw and only this rank's block of it kept (:func:`make_state_specs`'
+    placement; every leaf whole without a mesh)."""
+    _, shard = make_state_specs(model, mesh, TrainStepConfig(param_dtype=dtype))
+    p_shard = shard["params"]
+
+    def keep(path, _p, leaf):
+        sh = p_shard
+        for k in path:
+            sh = sh[k]
+        return _block(leaf, sh)
+
+    return init_params(model.specs(), generator, model.device, dtype,
+                       keep=None if mesh is None else keep)
+
+
+def empty_blocks(abs_tree: Any, shardings: Any, mesh, device) -> Any:
+    """Uninitialised tensors on ``device`` for a tree of ``TensorSpec``
+    leaves, each this rank's block under its sharding (``shardings``: a
+    matching tree, ``None`` without a mesh): a ``DTensor`` where it splits."""
+    leaves, treedef = tree_util.tree_flatten(abs_tree)
+    out = []
+    for s, sh in zip(leaves, _flat_shardings(shardings, mesh, len(leaves))):
+        if sh is None or not sh.spec:
+            out.append(torch.empty(s.shape, dtype=s.dtype, device=device))
+            continue
+        local = torch.empty(shardlib.local_shape(s.shape, sh.spec, mesh), dtype=s.dtype,
+                            device=device)
+        out.append(shardlib.from_local(local, sh, s.shape))
+    return tree_util.tree_unflatten(treedef, out)
+
+
 def empty_state(model, mesh=None, step_cfg: TrainStepConfig = TrainStepConfig()) -> dict:
     """The state of :func:`make_state_specs` as uninitialised tensors on the
     model's device, each leaf this rank's block on a mesh: on ``meta``, the
     cost sweep's state (no data, no draw)."""
     state_abs, shard = make_state_specs(model, mesh, step_cfg)
-    leaves, treedef = tree_util.tree_flatten(state_abs)
-    out = []
-    for s, sh in zip(leaves, _flat_shardings(shard, mesh, len(leaves))):
-        if sh is None or not sh.spec:
-            out.append(torch.empty(s.shape, dtype=s.dtype, device=model.device))
-            continue
-        local = torch.empty(shardlib.local_shape(s.shape, sh.spec, mesh), dtype=s.dtype,
-                            device=model.device)
-        out.append(shardlib.from_local(local, sh, s.shape))
-    return tree_util.tree_unflatten(treedef, out)
+    return empty_blocks(state_abs, shard, mesh, model.device)
+
+
+def tagged_params(model, params: Any, shardings: Any) -> Any:
+    """This rank's parameter blocks of ``params`` (``DTensor`` or plain
+    leaves placed by ``shardings``, :func:`make_state_specs`' ``params``),
+    each a local tensor tagged with its spec and logical axes for
+    ``dist.spmd``'s gathers (:func:`spmd.tag`)."""
+    leaves, treedef = tree_util.tree_flatten(params)
+    shs = tree_util.tree_flatten(shardings)[0]
+    items = list(spec_items(model.specs()))
+    return tree_util.tree_unflatten(treedef, [
+        spmd.tag(shardlib.local(x).detach(), sh.spec, p.axes)
+        for x, sh, (_, p) in zip(leaves, shs, items)])
+
 
 
 def _schedule(step_cfg: TrainStepConfig):
@@ -383,3 +425,170 @@ def build_train_step(model, mesh=None, step_cfg: TrainStepConfig = TrainStepConf
         return new_state, {"loss": loss, "lr": lr, **metrics}
 
     return train_step
+
+
+# ----------------------------------------------------------- serving --
+
+SEQ_SPLIT_MIN = 4096  # the reference's shortest cache sequence that splits
+# cache leaves whose dim 2 is a sequence of positions (a model's attention
+# caches, under an optional "self_" or "attn_" prefix)
+_ATTN_LEAVES = ("k", "v", "k_codes", "v_codes", "k_scale", "v_scale")
+
+
+def _row_axes(mesh) -> tuple[str, ...]:
+    """The mesh axes a serving batch splits over: ``pod`` and ``data``."""
+    return tuple(a for a in ("pod", "data") if a in _sizes(mesh))
+
+
+def _first(axes: tuple):
+    """A spec entry over ``axes``: one name, or the composed tuple."""
+    return axes if len(axes) > 1 else (axes[0] if axes else None)
+
+
+def cache_shardings(cache_abs: Any, mesh) -> Any:
+    """The reference's ``cache_shardings``: a
+    :class:`repro_torch.dist.sharding.NamedSharding` per cache leaf
+    (``TensorSpec`` or tensor, layers first), rule for rule: the batch (dim
+    1) over (``pod``, ``data``) where it divides, and in addition the
+    sequence (dim 2) over ``model`` where it divides and holds 4096
+    positions or more; a batch that does not divide (batch 1,
+    ``long_500k``) takes a sequence of 4096 or more over ``data`` where it
+    divides; every other leaf is replicated.  The mesh needs only axis
+    names and sizes."""
+    sizes = _sizes(mesh)
+    axes = _row_axes(mesh)
+    size = math.prod(sizes[a] for a in axes)
+    first = _first(axes)
+    d, tp = sizes.get("data", 1), sizes.get("model", 1)
+
+    def one(s):
+        shape = tuple(s.shape)
+        batch_ok = len(shape) >= 2 and size > 1 and shape[1] % size == 0
+        seq_model = (len(shape) >= 3 and tp > 1 and shape[2] % tp == 0
+                     and shape[2] >= SEQ_SPLIT_MIN)
+        if batch_ok and seq_model:
+            spec = (None, first, "model")
+        elif batch_ok:
+            spec = (None, first)
+        elif len(shape) >= 3 and d > 1 and shape[2] % d == 0 and shape[2] >= SEQ_SPLIT_MIN:
+            spec = (None, None, "data")  # batch 1 (long-context decode): sequence over data
+        else:
+            spec = ()
+        return shardlib.NamedSharding(mesh, spec)
+
+    leaves, treedef = tree_util.tree_flatten(cache_abs)
+    return tree_util.tree_unflatten(treedef, [one(s) for s in leaves])
+
+
+def place_tree(tree: Any, shardings: Any) -> Any:
+    """Each whole tensor of ``tree`` as this rank's block under its
+    sharding (``DTensor`` where it splits, the tensor on the mesh's device
+    where it is replicated): :func:`build_serve_step`'s parameters from a
+    whole tree (``models.interop.params_from_jax``, ``init_params``)."""
+    leaves, treedef = tree_util.tree_flatten(tree)
+    shs = tree_util.tree_flatten(shardings)[0]
+    if len(shs) != len(leaves):
+        raise ValueError(f"tree has {len(leaves)} leaves, its shardings {len(shs)}")
+    out = []
+    for x, sh in zip(leaves, shs):
+        out.append(shardlib.place(x, sh) if sh.spec else x.to(shardlib.mesh_device(sh.mesh)))
+    return tree_util.tree_unflatten(treedef, out)
+
+
+def build_serve_step(model, mesh=None, codec: KVCodecConfig = KVCodecConfig(),
+                     param_dtype: torch.dtype = torch.bfloat16, attention: str = "xla"):
+    """Decode step on ``mesh``: ``(serve_step, place_cache, (param_specs,
+    param_shardings))``, the reference's ``(serve_step, jit_step, (p_abs,
+    p_shard))``.
+
+    ``serve_step(params, cache, token, index) -> (logits, cache)``:
+    ``params`` this rank's blocks as placed by ``param_shardings``
+    (:func:`make_state_specs`' ``params``; :func:`place_tree` or
+    :func:`init_state`), ``cache`` as ``place_cache`` placed it (written in
+    place), ``token`` the global (B,) batch and ``index`` a scalar or the
+    global (B,) per-slot positions.  Each rank computes its rows (the
+    reference's ``bshard``: the batch over (``pod``, ``data``) where it
+    divides, else every row), the ranks along ``model`` sharing them, and
+    returns their logits over the whole (padded) vocabulary: a ``DTensor``
+    split on the batch where the rows split, a tensor otherwise.
+    ``attention="fused"`` sends blockfloat8 decode attention through K10
+    (on a split cache each rank's block, with its log-sum-exp).
+
+    ``place_cache(cache)``: a whole cache as this rank's blocks under
+    :func:`cache_shardings`.  ``mesh=None``: one process, ``serve_step`` is
+    ``model.decode_step`` and ``place_cache`` the identity."""
+    scfg = TrainStepConfig(param_dtype=param_dtype)
+    state_abs, shard = make_state_specs(model, mesh, scfg)
+    p_abs, p_shard = state_abs["params"], shard["params"]
+    if mesh is None:
+        def serve_local(params, cache, token, index):
+            return model.decode_step(params, cache, torch.as_tensor(token, device=model.device),
+                                     torch.as_tensor(index, device=model.device), codec,
+                                     attention)
+
+        return serve_local, lambda cache: cache, (p_abs, p_shard)
+
+    _check_mesh(mesh)
+    sizes = _sizes(mesh)
+    coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
+    axes = _row_axes(mesh)
+    n_rows = math.prod(sizes[a] for a in axes)
+    items = list(spec_items(model.specs()))
+    vocab = model.cfg.padded_vocab
+    device = model.device
+
+    def place_cache(cache):
+        return place_tree(cache, cache_shardings(cache, mesh))
+
+    def seq_blocks(names, leaves):
+        """Each local cache leaf marked with the sequence block it holds."""
+        out = []
+        for name, x in zip(names, leaves):
+            local = shardlib.local(x)
+            spec = shardlib.spec_of(x) if shardlib.is_dtensor(x) else ()
+            axis = spec[2] if len(spec) > 2 else None
+            if axis is not None:
+                if name.split("_", 1)[-1] not in _ATTN_LEAVES and name not in _ATTN_LEAVES:
+                    raise ValueError(f"cache leaf {name!r} splits its dim 2 over {axis!r}: only "
+                                     "attention caches hold a sequence there")
+                block = spmd.SeqBlock(axis, coord[axis] * local.shape[2], sizes[axis])
+                spmd.tag_seq(local, block)
+            out.append(local)
+        return out
+
+    def serve_step(params, cache, token, index):
+        token = torch.as_tensor(token, device=device)
+        index = torch.as_tensor(index, device=device)
+        b = token.shape[0]
+        split = n_rows > 1 and b % n_rows == 0
+        rows = b // n_rows if split else b
+        if split:
+            r = 0
+            for a in axes:
+                r = r * sizes[a] + coord[a]
+            token = token[r * rows:(r + 1) * rows]
+            if index.ndim == 1:
+                index = index[r * rows:(r + 1) * rows]
+        blocks = tagged_params(model, params, p_shard)
+        names = [re.findall(r"\['([^']*)'\]", path)[-1]
+                 for path, _ in tree_util.tree_flatten_with_path(cache)[0]]
+        c_leaves, c_def = tree_util.tree_flatten(cache)
+        local_cache = tree_util.tree_unflatten(c_def, seq_blocks(names, c_leaves))
+        ctx = spmd.Context(mesh, axes if split else (), rows, model_blocks=model.tensor_parallel)
+        with spmd.use(ctx):
+            logits, _ = model.decode_step(blocks, local_cache, token, index, codec, attention)
+            wrong = [items[i][0] for i, t in enumerate(tree_util.tree_flatten(blocks)[0])
+                     if spmd._info(t).blocked and not spmd._info(t).claimed]
+            if wrong:
+                raise RuntimeError("the model used model blocks of parameter leaves as whole "
+                                   f"leaves (spmd.model_split): {wrong}")
+            if logits.shape[-1] != vocab:  # a vocab-parallel unembedding's block
+                logits = spmd.gather_model(logits, logits.ndim - 1)
+        if logits.shape[-1] != vocab:
+            raise RuntimeError(f"logits of width {logits.shape[-1]}, the vocabulary {vocab}")
+        if split:
+            logits = shardlib.from_local(
+                logits, shardlib.NamedSharding(mesh, (_first(axes),)), (b, vocab))
+        return logits, cache
+
+    return serve_step, place_cache, (p_abs, p_shard)

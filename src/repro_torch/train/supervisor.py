@@ -59,7 +59,9 @@ rank at the same step.
     shrunk mesh's :attr:`Trainer.shardings`).
   * **Grow-back is bitwise and loses no step**: each rank of a rejoining
     pod gets the blocks of the surviving rank at its own (data, model)
-    coordinate (``elastic.grow_back``).  There is no restore.
+    coordinate, and after lost data rows each rank of the full mesh gets
+    its blocks' rows from the survivors that hold them
+    (``elastic.grow_back``).  There is no restore.
   * **Checkpoints follow the mesh**: a save of split leaves is a collective
     of the mesh's ranks, so each rebuild gives the manager a ``gloo`` group
     over the new mesh's ranks (after its pending saves have drained).
@@ -461,10 +463,11 @@ def run_supervised(builder: Callable[[dict, int], Trainer],
             # grow back: the live state carries onto the full mesh —
             # bitwise (each surviving block to its rejoining pods), no
             # restore, zero lost steps
+            shrunk = dict(trainer.mesh_shape)
             trainer = ranks.rebuilt(builder(dict(full_shape), global_batch))
             with obs_trace.span("supervisor.grow_back", step=step):
                 if trainer.shardings is not None:
-                    state = elastic.grow_back(state, trainer.shardings)
+                    state = elastic.grow_back(state, trainer.shardings, shrunk)
             if not ranks.first and hasattr(injector, "adopt_log"):
                 injector.adopt_log(out["log"])  # a rejoining rank's fired events
             result.transitions.append(Transition(

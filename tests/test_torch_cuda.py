@@ -608,6 +608,58 @@ def test_cuda_kvc_matches_plain(cuda_device, b, s, h, hkv, d, qdtype):
         assert _bf16_close(scalar, want)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,hkv,d,blocks,qdtype", [
+    (4, 8192, 24, 2, 128, 2, torch.float32), (4, 8192, 24, 2, 128, 2, torch.bfloat16),
+    (3, 900, 8, 1, 64, 3, torch.float32), (5, 512, 4, 2, 16, 4, torch.float32)])
+def test_cuda_kvc_block_offset_and_lse_match_plain(cuda_device, b, s, h, hkv, d, blocks, qdtype):
+    """K10 on each block of a cache whose sequence is split (``offset`` =
+    the block's first position, ``lse=True``) against its plain version on
+    the same CUDA inputs: ``out`` within the whole-cache call's tolerances
+    (f32 rtol 2e-5 / atol 2e-6, bf16 one ulp plus 2e-6), exactly 0 where a
+    lane has no position in the block, ``lse`` within 2e-6 of its magnitude
+    and -inf at the same lanes; one launch a call; ``lse=True`` leaves the
+    whole-cache call's output bit for bit, and the blocks combined by their
+    ``lse`` give the whole-cache result (f32 within rtol 1e-5 / atol 1e-6)."""
+    from repro_torch.kernels import kvc_attention as tkvc
+    from repro_torch.kernels import ref as tref
+
+    q, kc, ks, vc, vs = _kvc_inputs(b * s + blocks, b, s, h, hkv, d, cuda_device, qdtype)
+    blk = s // blocks
+    idx = torch.tensor(([-1, blk - 1, blk, s - 1, blk // 2] * 2)[:b], dtype=torch.int32,
+                       device=cuda_device)
+    whole = tkvc.kvc_decode_attention(q, kc, ks, vc, vs, idx)
+    same, _ = tkvc.kvc_decode_attention(q, kc, ks, vc, vs, idx, 0, True)
+    assert torch.equal(same, whole)
+    parts = []
+    for r in range(blocks):
+        sl = slice(r * blk, (r + 1) * blk)
+        args = (q, kc[:, sl].contiguous(), ks[:, sl].contiguous(), vc[:, sl].contiguous(),
+                vs[:, sl].contiguous(), idx, r * blk)
+        before = tkvc.launches["kvc_decode_attention"]
+        out, lse = tkvc.kvc_decode_attention(*args, lse=True)
+        torch.cuda.synchronize()
+        assert tkvc.launches["kvc_decode_attention"] == before + 1
+        want, wl = tref.kvc_decode_attention_ref(*args, lse=True)
+        if qdtype == torch.float32:
+            torch.testing.assert_close(out, want, rtol=2e-5, atol=2e-6)
+        else:
+            assert _bf16_close(out, want)
+        empty = idx < r * blk
+        assert torch.equal(out[empty], torch.zeros_like(out[empty]))
+        assert torch.equal(torch.isinf(lse), torch.isinf(wl)) and bool(torch.isinf(lse[empty]).all())
+        fin = torch.isfinite(wl)
+        assert bool(((lse[fin] - wl[fin]).abs() <= 2e-6 * wl[fin].abs().clamp_min(1)).all())
+        parts.append((out.float(), lse))
+    if qdtype == torch.float32:
+        big = torch.stack([p[1] for p in parts]).amax(0)
+        w = torch.stack([torch.exp(p[1] - torch.where(torch.isfinite(big), big, 0.0))
+                         for p in parts])
+        comb = (w[..., None] * torch.stack([p[0] for p in parts])).sum(0)
+        comb = comb / torch.clamp_min(w.sum(0), 1e-30)[..., None]
+        torch.testing.assert_close(comb, whole, rtol=1e-5, atol=1e-6)
+
+
 def _kvc_pool(seed, b, cap, h, hkv, d, device, qdtype):
     """``kvc_cases.paged_pool`` at positions from cap / 2 up, lane 0 free and
     the last lane at the end of its mapped pages."""

@@ -13,16 +13,19 @@ tensors and a fake process group, no card.
   ``experiments/dryrun/minicpm-2b__train_4k__multi.json``;
 * a SMOKE dense forward's FLOPs equal to the matmul count from its shapes,
   and the live-bytes tracker's peak on a hand-made allocate / free sequence;
-* the CLI at full width on ``starcoder2-3b decode_32k single`` and a
-  skipped ``long_500k`` cell;
+* the CLI at full width on ``starcoder2-3b decode_32k single`` (on the
+  unfolded ``(16, 16)`` mesh: the cache's bytes a device are the whole
+  cache over data x model, the argument bytes exactly the parameter and
+  cache blocks) and a skipped ``long_500k`` cell;
 * train cells on the reference's unfolded meshes (with the sharded
   state): a traced step's state is each leaf's local block (its bytes the
   sum of the blocks' from the specs) and its all-gather and reduce-scatter
   bytes are non-zero; the committed ``experiments/torch_dryrun/`` train
   cells lie on ``(16, 16)`` and ``(2, 16, 16)`` with non-zero all-gather
   and reduce-scatter bytes (rwkv6's and hymba's multi-pod cells skipped),
-  the prefill and decode cells on the folded ``(16, 1)`` and ``(2, 16,
-  1)``;
+  the prefill, decode and ``long_500k`` cells on the same unfolded meshes,
+  every ``decode_32k`` cell fitting one card; a prefill cell traces on the
+  unfolded meshes with its parameters in blocks;
 * the train step's rows: a family on Megatron blocks splits them over pod
   x data (the ranks along ``model`` share them) and refuses rows that do
   not split there; ``train_4k``'s 256 rows lie on the 512 ranks for
@@ -196,15 +199,28 @@ def test_cli_at_full_width_decode_and_a_skipped_cell(tmp_path):
     assert dryrun.main(["--arch", "starcoder2-3b", "--shape", "decode_32k",
                         "--out", str(tmp_path)]) == 0
     cell = json.loads((tmp_path / "starcoder2-3b__decode_32k__single.json").read_text())
-    assert cell["status"] == "ok" and cell["n_devices"] == 16
-    assert cell["mesh_shape"] == {"data": 16, "model": 1}
-    # 8 rows of a 32768-position cache: 30 layers of bf16 K and V, 2 kv heads x 128
-    cache = 30 * 2 * 8 * 32768 * 2 * 128 * 2
-    params = 3181274112 * 2
-    assert cell["memory"]["argument_bytes"] >= cache + params
+    assert cell["status"] == "ok" and cell["n_devices"] == 256
+    assert cell["mesh_shape"] == {"data": 16, "model": 16}
+    # 128 rows of a 32768-position cache (30 layers of bf16 K and V, 2 kv
+    # heads x 128), 8 rows and 2048 positions a device
+    cache = 30 * 2 * 128 * 32768 * 2 * 128 * 2
+    model = treg.build_model(treg.get_config("starcoder2-3b"), device="meta")
+    shape = treg.SHAPES["decode_32k"]
+    with dryrun.fake_mesh(False) as mesh:
+        cache_abs = model.cache_spec(128, shape.seq_len, dryrun.L.KVCodecConfig("none"))
+        blocks = dryrun.step_lib.empty_blocks(
+            cache_abs, dryrun.step_lib.cache_shardings(cache_abs, mesh), mesh, "meta")
+        local = [dryrun.shardlib.local(x) for x in blocks.values()]
+        params = dryrun._param_blocks(model, mesh)[0]
+        p_local = [dryrun.shardlib.local(x) for x in dryrun.tree_util.tree_flatten(params)[0]]
+    assert sum(t.numel() * t.element_size() for t in local) * 256 == cache
+    assert cell["memory"]["argument_bytes"] == sum(
+        dryrun.alloc_bytes(t.numel() * t.element_size()) for t in local + p_local) + 2 * 512
     assert cell["fits_device"] and cell["peak_bytes_per_device"] < dryrun.DEVICE_MEMORY_BYTES
-    assert cell["flops_per_device"] > 2 * 8 * params / 2  # every weight once per row
-    assert sum(cell["collective_bytes_per_device"].values()) == 0
+    params = 3181274112
+    assert cell["flops_per_device"] > 2 * 8 * params / 16  # its rows on every weight's block
+    coll = cell["collective_bytes_per_device"]
+    assert coll["all-gather"] > 0 and coll["all-reduce"] > 0  # weights over data, softmax over model
     assert "fits_16gb" not in cell
     assert dryrun.main(["--arch", "starcoder2-3b", "--shape", "long_500k",
                         "--out", str(tmp_path)]) == 0
@@ -253,7 +269,7 @@ def test_train_cell_without_a_mesh_holds_the_whole_state():
 def test_committed_cells_lie_on_their_meshes():
     cells = [json.loads(p.read_text()) for p in sorted((ROOT / "experiments/torch_dryrun")
                                                        .glob("*.json"))]
-    assert len(cells) == 42
+    assert len(cells) == 62
     for c in cells:
         multi = c["mesh"] == "multi"
         cfg = treg.get_config(c["arch"])
@@ -270,8 +286,35 @@ def test_committed_cells_lie_on_their_meshes():
             assert c["collective_bytes_per_device"]["all-gather"] > 0
             assert c["collective_bytes_per_device"]["reduce-scatter"] > 0
         else:
-            assert c["mesh_shape"] == ({"pod": 2, "data": 16, "model": 1} if multi
-                                       else {"data": 16, "model": 1}), c["arch"]
+            assert c["mesh_shape"] == ({"pod": 2, "data": 16, "model": 16} if multi
+                                       else {"data": 16, "model": 16}), c["arch"]
+            assert c["collective_bytes_per_device"]["all-gather"] > 0, c["arch"]
+            if c["shape"] == "decode_32k":
+                assert c["fits_device"], c["arch"]
+
+
+@pytest.mark.parametrize("multi_pod", [False, True])
+def test_prefill_cell_on_the_unfolded_mesh_holds_blocks(multi_pod):
+    """A prefill cell on (16, 16) or (2, 16, 16): the parameters are this
+    rank's blocks, gathered where they are used, and its rows split over
+    pod x data."""
+    cfg = treg.get_config("minicpm-2b", smoke=True)
+    shape = treg.ShapeCell("prefill_small", 64, 64 if multi_pod else 32, "prefill")
+    with dryrun.fake_mesh(multi_pod) as mesh:
+        model = treg.build_model(cfg, device="meta")
+        cost = dryrun.prefill_cost(model, cfg, shape, mesh)
+        params = dryrun._param_blocks(model, mesh)[0]
+        blocks = sum(dryrun.alloc_bytes(x.to_local().numel() * x.element_size())
+                     if dryrun.shardlib.is_dtensor(x) else dryrun.alloc_bytes(
+                         x.numel() * x.element_size())
+                     for x in dryrun.tree_util.tree_flatten(params)[0])
+        assert dryrun.local_batch(shape, mesh) == 2
+    whole = sum(p.nbytes for p in dryrun.tree_util.tree_flatten(
+        dryrun.step_lib.make_state_specs(model, None, dryrun.step_lib.TrainStepConfig(
+            param_dtype=torch.bfloat16))[0]["params"])[0])
+    ins = dryrun.alloc_bytes(2 * 64 * 4)  # this rank's two rows of tokens
+    assert cost["argument_bytes"] == blocks + ins and blocks < whole / 4
+    assert cost["collective"]["all-gather"] > 0 and cost["flops"] > 0
 
 
 @pytest.mark.parametrize("multi_pod", [False, True])
