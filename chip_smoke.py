@@ -253,14 +253,15 @@ Needs one CUDA card and ``nvcc``; it builds the hand-written kernels from
     the two ranks at each (data, model) coordinate hold the same blocks bit
     for bit, and the same drill's CPU group (started beside phases 2-15)
     gives the same transitions and step trace.  Each rank has a timeout.
-    Each of phases 22-30 prints its wall time; their kernel launches join
-    the line of 21 (25-26 and 29 launch none);
-27. serves qwen3-moe-30b-a3b at its published widths and depth (48 layers,
-    d_model 2048, heads 32/4, head dim 128, 128 experts top-8, d_ff 768 per
-    expert, vocab 151,936: 30.5 B parameters, random bf16 weights drawn on
-    the card, the expert stacks a layer slice at a time) through phase 19's
+    Each of phases 22-32 prints its wall time; their kernel launches join
+    the line of 21 (25-26, 29 and 32 launch none);
+27. serves qwen3-moe-30b-a3b at its published widths cut to 16 of its 48
+    layers (``MOE_LAYERS``; d_model 2048, heads 32/4, head dim 128, 128
+    experts top-8, d_ff 768 per expert, vocab 151,936: 10.7 B parameters,
+    random bf16 weights drawn on the card, the expert stacks a layer slice
+    at a time) through phase 19's
     traffic and engine configuration, after every earlier phase's tensors
-    are freed.  ``attention="auto"`` must pick K10, K10 launch exactly 48
+    are freed.  ``attention="auto"`` must pick K10, K10 launch exactly 16
     times per decode step, decode gather no pages, the pool be clean after
     the drain, a second run give the same tokens (the routed combine adds in
     a fixed order) and the ``attention="xla"`` run launch no K10 and give the
@@ -316,9 +317,11 @@ Needs one CUDA card and ``nvcc``; it builds the hand-written kernels from
     Megatron column- and row-parallel attention and MLPs, a vocab-parallel
     embedding and loss, and expert parallelism over ``model``, whose ranks
     share their rows) of phi3.5-moe-42b-a6.6b (1.56 B parameters: 32 q and
-    8 kv heads split 16 and 4 a rank, 16 experts 8 a rank) and of
+    8 kv heads split 16 and 4 a rank, 16 experts 8 a rank), of
     minicpm-2b (36 heads split 18 a rank, dense SwiGLU, the tied 122,753 x
-    2304 table vocab-parallel), each at its published widths cut to 1
+    2304 table vocab-parallel), of rwkv6-1.6b (32 wkv heads split 16 a rank,
+    d_ff 3584 a rank) and of hymba-1.5b (25 attention and SSD heads
+    replicated, the MLP 2752 a rank), each at its published widths cut to 1
     layer (f32 state and compute, TF32 off), on 4 ``gloo`` ranks on cuda:0
     as ``{"data": 2, "model": 2}`` (this script with ``--step-rank``), 3
     steps of 8 x 256 tokens at lr 1e-3, then the same steps on one
@@ -346,26 +349,41 @@ Needs one CUDA card and ``nvcc``; it builds the hand-written kernels from
 31. takes the sharded serving step (``train.step.build_serve_step``: the
     parameters placed as the train state's and gathered in each layer, the
     cache's batch over ``data`` and its sequence over ``model``) of
-    starcoder2-3b (published widths cut to 2 layers) and qwen3-moe-30b-a3b
-    (1 layer, 64 experts a rank) on 4 ``gloo`` ranks on cuda:0 as
-    ``{"data": 2, "model": 2}`` (this script with ``--serve-rank``), f32,
-    over a blockfloat8 cache of 8192 positions (4096 a ``model`` rank)
-    prefilled on one card and placed with ``place_cache``: 16 and 8 greedy
-    decode steps with a ``(B,)`` index (prompts of 1000, 4090, 4100 and
-    7000 tokens, and 4093 and 6000: lanes on both sides of the block
-    border, two crossing it), K10 on each rank's block in every layer with
-    its log-sum-exp.  Held: the ranks' tokens equal; each step replayed on
-    one card from the sharded run's cache gives the same tokens and MoE
-    routing (``top_e``, drop mask), and the sharded logits lie within
-    ``SERVE_F32_FACTOR`` times that float32 run's distance from a float64
-    evaluation of the step; each rank's K10 ``(out, lse)`` against the plain
-    version on its block and a float64 evaluation at two steps
-    (:class:`K10Blocks`); K10 launches layers x steps on each
-    rank; each rank's cache bytes a quarter of the whole; rank 0's peak
-    within ``DRYRUN_PEAK_TOL`` of the dry run's trace of the same step at
-    this mesh, its FLOPs and its bytes sent by kind and axis equal to the
-    trace's.  Prints each step's host ms (gloo through the host, not a
-    mesh's interconnect) and K10's time at the block.
+    starcoder2-3b, qwen3-moe-30b-a3b (64 experts a rank), rwkv6-1.6b and
+    hymba-1.5b, each at its published widths cut to 1 layer,
+    on 4 ``gloo`` ranks on cuda:0 as ``{"data": 2, "model": 2}`` (this
+    script with ``--serve-rank``), f32, over a blockfloat8 cache of 8192
+    positions (4096 a ``model`` rank) prefilled on one card (drawn at random
+    for rwkv6 and hymba, which have no prefill) and placed with
+    ``place_cache``: 8 greedy decode steps each (4 for qwen3-moe) with a
+    ``(B,)`` index (prompts of 1000, 4090, 4100
+    and 7000 tokens, 4093 and 6000 for qwen3-moe and hymba: lanes on both
+    sides of the block border, two crossing it; 12 and 20 for rwkv6), K10
+    on each rank's block in every layer with its log-sum-exp where the
+    model has the route.  Held: the ranks' tokens equal; each step replayed
+    on one card from the sharded run's cache (a recurrent state from the
+    prefill's, advanced by the replay) gives the same tokens and MoE
+    routing (``top_e``, drop mask), and the sharded logits, and each
+    rank's whole recurrent state (rwkv6's ``wkv`` and token shifts, hymba's
+    ``ssd_state``: every ``model`` rank holds all heads) after every step,
+    lie within ``SERVE_F32_FACTOR`` times that float32 run's distance from a
+    float64 evaluation of the step; each rank's K10 ``(out, lse)`` against
+    the plain version on its block and a float64 evaluation at two steps
+    (:class:`K10Blocks`); K10 launches layers x steps on each rank (none
+    for rwkv6 and hymba); each rank's cache bytes its blocks' under the
+    placed specs; rank 0's peak within ``DRYRUN_PEAK_TOL`` of the dry
+    run's trace of the same step at this mesh, its FLOPs and its bytes sent
+    by kind and axis equal to the trace's.  Prints each step's host ms
+    (gloo through the host, not a mesh's interconnect) and K10's time at
+    the block;
+32. serves one hymba-1.5b request of 1100 prompt tokens and 32 new ones
+    through the engine's token-by-token path at its published widths cut to
+    4 layers (layer 1 windowed at 1024, the others global), float32 weights
+    and a dense cache: no K10, and the card's greedy tokens equal the
+    CPU's: the ticks that choose them taken again by the CPU's
+    ``decode_step`` from the same weights, each from the card's state
+    before it (its cache, K/V writes and SSD state pinned: unpinned, the
+    random-weight request is chaotic).  Prints the median tick ms.
 
 Any failure raises and exits non-zero; so does a machine without CUDA, and a
 directory without the rest of the repository.
@@ -430,8 +448,10 @@ from repro_torch.kernels import zfp_fused as zff  # noqa: E402
 from repro_torch.launch import costrun, dryrun  # noqa: E402
 from repro_torch.launch import train as launch_train_lib  # noqa: E402
 from repro_torch.launch.mesh import make_mesh  # noqa: E402
+from repro_torch.models import hybrid as hybrid_lib  # noqa: E402
 from repro_torch.models import layers as model_layers  # noqa: E402
 from repro_torch.models import moe as moe_lib  # noqa: E402
+from repro_torch.models import rwkv6 as rwkv6_lib  # noqa: E402
 from repro_torch.models import transformer as transformer_lib  # noqa: E402
 from repro_torch.models.spec import init_params, param_count  # noqa: E402
 from repro_torch.obs import metrics as obs_metrics  # noqa: E402
@@ -3634,6 +3654,9 @@ def drill_phase(cpu_group: list) -> dict:
 # ------------------------- the other model families (phases 27-28) -----------
 
 MOE_ARCH = "qwen3-moe-30b-a3b"  # the one MoE config that fits one card at its published size
+# phase 27's depth: 16 of 48 layers keep the script inside its time limit
+# (all 48, 30.5 B parameters, took 77-83 s of it)
+MOE_LAYERS = 16
 SERIAL_ARCHS = ("rwkv6-1.6b", "hymba-1.5b")  # token-by-token engine fallback, no K10 route
 SERIAL = dict(batch_slots=4, max_len=128, codec="blockfloat8")
 SERIAL_REQUESTS, SERIAL_NEW, SERIAL_PROMPT = 6, 12, (8, 24)
@@ -3766,12 +3789,12 @@ class DropCount:
 
 
 def moe_full_width(device) -> dict:
-    """Phase 27: qwen3-moe-30b-a3b at its published widths and depth through
-    the engine, phase 19's traffic, K10 on its decode path."""
+    """Phase 27: qwen3-moe-30b-a3b at its published widths, ``MOE_LAYERS``
+    deep, through the engine, phase 19's traffic, K10 on its decode path."""
     gc.collect()
     torch.cuda.empty_cache()
     held = torch.cuda.memory_allocated() / 2**30
-    cfg = registry.get_config(MOE_ARCH)
+    cfg = registry.get_config(MOE_ARCH).scaled(n_layers=MOE_LAYERS)
     model = registry.build_model(cfg)
     check(isinstance(model, moe_lib.MoELM) and model.device.type == "cuda",
           f"{MOE_ARCH} did not build as a MoELM on the card")
@@ -4072,6 +4095,114 @@ def hymba_window(device) -> dict:
     return out
 
 
+HYMBA_SERVED = dict(layers=4, prompt=1100, new=32)  # layer 1 of 4 is windowed (1024)
+
+
+class PinnedWrites:
+    """While active, records every ``models.layers.cache_update`` call's new
+    K/V (host copies), or, given another run's record, writes that run's
+    K/V instead of the ones computed (in call order)."""
+
+    def __init__(self, pins=None):
+        self.pins, self.writes = pins, []
+
+    def __enter__(self):
+        self._orig = model_layers.cache_update
+
+        def update(cache, codec, k, v, index):
+            if self.pins is not None:
+                check(len(self.writes) < len(self.pins), "pinned run wrote more than its record")
+                k, v = (t.to(k.device) for t in self.pins[len(self.writes)])
+            self.writes.append((k.to("cpu", copy=True), v.to("cpu", copy=True)))
+            return self._orig(cache, codec, k, v, index)
+
+        model_layers.cache_update = update
+        return self
+
+    def __exit__(self, *exc):
+        model_layers.cache_update = self._orig
+
+
+def hymba_served_past_window(device) -> dict:
+    """Phase 32: one request of ``HYMBA_SERVED['prompt']`` tokens through
+    the serving engine on the card (token by token, a dense cache with codec
+    none) at hymba-1.5b's published widths cut to 4 layers (layer 1
+    windowed at 1024, the others global), float32 weights drawn on the
+    card, recording each tick's inputs, K/V writes and SSD state; then the
+    ticks that choose the ``new`` tokens taken again by the CPU's
+    ``decode_step`` from the same weights, each from the card's state
+    before it (the cache the card had written, the tick's writes pinned to
+    the card's K/V, the SSD state copied in), as phase 28b pins one step:
+    unpinned, the random-weight request is chaotic, and two float32
+    programs give other tokens within it.  Held: the engine took its
+    token-by-token path and launched no K10, and the CPU's greedy tokens
+    are the card's.  Prints the card's median tick ms and how far the
+    compared ticks' logits lie apart (not held: at these widths the SSD
+    states grow large and a tick's float32 rounding is ill conditioned, on
+    the card and on the CPU alike)."""
+    cfg = registry.get_config(HYMBA).scaled(n_layers=HYMBA_SERVED["layers"], dtype="float32")
+    prompt, new = HYMBA_SERVED["prompt"], HYMBA_SERVED["new"]
+    ecfg = EngineConfig(batch_slots=1, max_len=prompt + new + 8, codec="none")
+    codec = model_layers.KVCodecConfig("none")
+    model = registry.build_model(cfg)
+    windows = model._windows()
+    check([w < prompt for w in windows] == [False, True, False, False],
+          f"hymba at {cfg.n_layers} layers: windows {windows}, not layer 1 windowed")
+    params = init_params(model.specs(), torch.Generator(device=device).manual_seed(SEED), device,
+                         torch.float32)
+    req = prompts(1, cfg.vocab, prompt, prompt)
+    decode, ticks = model.decode_step, []
+
+    def recorded(params_, cache, token, index, *args, **kwargs):
+        chooses = len(ticks) >= prompt - 1  # a tick whose logits choose a new token
+        state = cache["ssd_state"].to("cpu", copy=True) if chooses else None
+        lg, cache = decode(params_, cache, token, index, *args, **kwargs)
+        ticks.append((token.to("cpu", copy=True), index.to("cpu", copy=True), state,
+                      lg[0].float().to("cpu", copy=True) if chooses else None))
+        return lg, cache
+
+    model.decode_step = recorded
+    obs_metrics.enable()
+    try:
+        with PinnedWrites() as card:
+            eng, reqs, counts, stats, wall = serve(model, params, ecfg, req, new)
+    finally:
+        obs_metrics.disable()
+        obs_metrics.reset()
+    check(not eng.paged and not eng._can_prefill and not eng._fused,
+          "hymba: the engine took a paged, prefill or K10 path")
+    check(counts["kvc_decode_attention"] == 0, "hymba: K10 launched")
+    tokens = reqs[0].out_tokens
+    layers, first = cfg.n_layers, prompt - 1  # tick ``prompt - 1`` chooses the first new token
+    check(len(ticks) == eng.steps == prompt + new - 1 and len(card.writes) == layers * len(ticks),
+          f"hymba: {len(ticks)} ticks and {len(card.writes)} writes for {prompt} + {new} tokens")
+    cpu = torch.device("cpu")
+    cpu_params = on_device(params, cpu)
+    del model, params, eng
+    free_card()
+    cpu_model = registry.build_model(cfg, device=cpu)
+    cache = cpu_model.init_cache(1, ecfg.max_len, codec)
+    for t in range(first):  # the positions the card wrote before the first compared tick
+        for i in range(layers):
+            model_layers.cache_update({"k": cache["attn_k"][i], "v": cache["attn_v"][i]}, codec,
+                                      *card.writes[t * layers + i], ticks[t][1])
+    got, rel = [], []
+    for t in range(first, len(ticks)):
+        token, index, state, card_logits = ticks[t]
+        cache["ssd_state"].copy_(state)
+        with PinnedWrites(card.writes[t * layers:(t + 1) * layers]):
+            lg, cache = cpu_model.decode_step(cpu_params, cache, token, index, codec)
+        got.append(int(torch.argmax(lg[0])))
+        rel.append(float((card_logits - lg[0]).abs().max() / card_logits.abs().max()))
+    check(got == tokens, f"hymba past its window: card tokens {tokens}, CPU {got}")
+    out = {"ticks": len(ticks), "tick_ms_median": stats["tick"]["p50"] * 1e3, "wall_s": wall,
+           "window": cfg.window, "prompt": prompt, "new": new, "tokens": tokens,
+           "logits_rel_max": max(rel), "logits_rel": rel}
+    print(f"{HYMBA} at {cfg.n_layers} layers, float32, one request past the window "
+          f"({card_line()}): " + json.dumps(out))
+    return {}
+
+
 def families_card_vs_cpu(device) -> int:
     """Phase 28d: each new family at SMOKE size, the same bf16 parameters on
     the card and on the CPU: forward logits, then 8 blockfloat8 decode
@@ -4320,8 +4451,12 @@ STEP_DIR = SNAPSHOT_DIR.parent / ".chip_smoke_sharded_step"  # gitignored; remov
 # 47.5-49.3 s (gloo through the host), too long for this script's time limit.
 # phi3.5-moe: 32 q and 8 kv heads split 16 and 4 per rank, 16 experts 8 per
 # rank; minicpm-2b: 36 heads split 18 per rank, dense SwiGLU, the tied
-# 122,753 x 2304 table vocab-parallel
-STEP_ARCHS, STEP_LAYERS = ("phi3.5-moe-42b-a6.6b", "minicpm-2b"), 1
+# 122,753 x 2304 table vocab-parallel; rwkv6-1.6b: 32 wkv heads split 16 a
+# rank (column-parallel r, k, v, g, row-parallel wo), d_ff 3584 a rank;
+# hymba-1.5b: 25 attention and 25 SSD heads replicated (25 does not divide
+# over 2), the MLP 2752 a rank, the 32,256-row tables vocab-parallel
+STEP_ARCHS = ("phi3.5-moe-42b-a6.6b", "minicpm-2b", "rwkv6-1.6b", "hymba-1.5b")
+STEP_LAYERS = 1
 STEP_SNAPSHOT_ARCH = "phi3.5-moe-42b-a6.6b"  # the in-situ snapshot of the sharded params
 STEP_MESH = {"data": 2, "model": 2}  # 4 gloo ranks on cuda:0; a fifth runs the replicated step
 STEP_BATCH, STEP_SEQ, STEP_STEPS, STEP_LR = 8, 256, 3, 1e-3
@@ -4362,6 +4497,9 @@ STEP_MIN_BYTES = 1 << 20  # leaves below this stay out of the snapshot and are s
 STEP_TOL = {"loss_rtol": 1e-5, "param_atol": 1e-5, "mv_rtol": 1e-2, "norm_rtol": 1e-5}
 STEP_F32_FACTOR = 4.0
 STEP_RANKS = math.prod(STEP_MESH.values())
+# cuBLAS and cuBLASLt workspaces of the forward and the autograd threads, 32
+# MiB each, and room for small buffers
+STEP_WORKSPACE_MAX = 5 * 32 * 2**20
 
 
 def step_cfg(arch: str):
@@ -4429,10 +4567,17 @@ def _timed_steps(step, state, batches) -> tuple:
     counted from its start, the others timed (each ended by a
     ``synchronize``).  Returns the state and a record: losses, gradient
     norms, rates, FLOPs and peak of the first step, ms of the others and
-    the bytes this rank sent in the second."""
+    the bytes this rank sent in the second.  The peak is the step's: what
+    stays allocated after it beyond the state's blocks (the cuBLAS and
+    cuBLASLt workspaces of the forward and the autograd threads, made on
+    their first products in a fresh process: 32 MiB each) is not the
+    model's, and ``workspace`` records it."""
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    blocks = [sharding.local(x) for x in tree_util.tree_flatten(state)[0]]
+    state_alloc = sum(dryrun.alloc_bytes(x.numel() * x.element_size()) for x in blocks)
+    del blocks
     rec = {"losses": [], "norms": [], "lrs": [], "ms": [], "sent": {}}
 
     def keep(m):
@@ -4443,7 +4588,10 @@ def _timed_steps(step, state, batches) -> tuple:
     with FlopCounterMode(display=False) as counter:
         state, m = step(state, batches[0])
     keep(m)
-    rec["flops"], rec["peak"] = float(counter.get_total_flops()), torch.cuda.max_memory_allocated()
+    torch.cuda.synchronize()
+    rec["workspace"] = torch.cuda.memory_allocated() - state_alloc
+    rec["flops"] = float(counter.get_total_flops())
+    rec["peak"] = torch.cuda.max_memory_allocated() - rec["workspace"]
     for i, b in enumerate(batches[1:]):
         spmd.reset_sent_bytes()
         insitu.reset_sent_bytes()
@@ -4542,12 +4690,12 @@ def _rank_blocks(shape, spec, mesh) -> Iterator[tuple]:
 def float64_model(model):
     """``model`` computing in float64: its compute dtype, and the float32
     casts of the model modules (norms, RoPE, attention scores, routing, the
-    loss) made float64 through a stand-in for their ``torch``; restored on
-    exit."""
+    loss, the wkv and SSD scans and states) made float64 through a stand-in
+    for their ``torch``; restored on exit."""
     proxy = types.ModuleType("torch")
     proxy.__dict__.update(vars(torch))
     proxy.float32 = torch.float64
-    mods = (model_layers, moe_lib, transformer_lib)
+    mods = (model_layers, moe_lib, transformer_lib, rwkv6_lib, hybrid_lib)
     saved, dtype = [m.torch for m in mods], model.dtype
     for m in mods:
         m.torch = proxy
@@ -4853,6 +5001,7 @@ def hold_step(arch: str, runs: list, pred: dict) -> dict:
            "gradients": grads, "end": end, "lrs": lrs, "compare_s": rep["compare_s"],
            "state_bytes_rank0": r0["state_bytes"], "predicted_state_bytes": pred["argument_bytes"],
            "peak_rank0": r0["peak"], "predicted_peak": pred["peak"], "peak_ratio": ratio,
+           "workspace_rank0": r0["workspace"],
            "replicated_peak": rep["peak"], "flops_rank0": r0["flops"],
            "step_ms_rank0": r0["ms"], "step_ms": [run["ms"] for run in shard],
            "replicated_step_ms_less_forcing": [ms - f["s"] * 1e3
@@ -4900,6 +5049,9 @@ def hold_step(arch: str, runs: list, pred: dict) -> dict:
           f"on rank 0, the meta trace {pred['flops']}")
     check(abs(ratio - 1) <= DRYRUN_PEAK_TOL, f"phase 30 {arch}: predicted peak {pred['peak']} B, "
           f"rank 0's {r0['peak']} B (ratio {ratio:.4f})")
+    check(0 <= r0["workspace"] <= STEP_WORKSPACE_MAX, f"phase 30 {arch}: rank 0 keeps "
+          f"{r0['workspace']} B allocated beyond its state after a step (library workspaces are "
+          f"at most {STEP_WORKSPACE_MAX})")
     check(r0["by_axis"] == pred["by_axis"], f"phase 30 {arch}: rank 0 sent {r0['by_axis']} a step, "
           f"the meta trace {pred['by_axis']}")
     # only the MoE's router and expert outputs are gathered over model
@@ -4917,9 +5069,16 @@ SERVE_RANKS = math.prod(SERVE_MESH.values())
 SERVE_CAP = 8192  # the cache's capacity: 4096 positions on each model rank
 # published widths, depth cut (every step gathers the parameters over data
 # through the host); prompt lengths put lanes on both sides of the block
-# border at 4096, and two of them cross it while decoding
-SERVE_CASES = {"starcoder2-3b": dict(layers=2, prompts=(1000, 4090, 4100, 7000), steps=16),
-               "qwen3-moe-30b-a3b": dict(layers=1, prompts=(4093, 6000), steps=8)}
+# border at 4096, and two of them cross it while decoding.  rwkv6 and hymba
+# (1 layer: hymba's only layer is a global one) have no prefill: a cache
+# drawn at random stands for their prompts (serve_prefill), and every model
+# rank holds their whole recurrent state.  One layer and 8 steps a case (4
+# for qwen3-moe, whose steps take 4-5 s) keep the phase inside the script's
+# time limit and still cross the border
+SERVE_CASES = {"starcoder2-3b": dict(layers=1, prompts=(1000, 4090, 4100, 7000), steps=8),
+               "qwen3-moe-30b-a3b": dict(layers=1, prompts=(4093, 6000), steps=4),
+               "rwkv6-1.6b": dict(layers=1, prompts=(12, 20), steps=8),
+               "hymba-1.5b": dict(layers=1, prompts=(4093, 6000), steps=8)}
 SERVE_CHUNK = 512  # the one-card prefill's chunk
 SERVE_HELD_STEPS = (1, -1)  # steps whose K10 calls each rank holds to the plain version
 # The sharded run's logits against the one-card float32 run's on the same
@@ -4933,6 +5092,13 @@ SERVE_F32_FACTOR = 4.0
 def serve_cfg(arch: str):
     return registry.get_config(arch).scaled(n_layers=SERVE_CASES[arch]["layers"],
                                             dtype="float32")
+
+
+def serve_attention(arch: str) -> str:
+    """K10 (``fused``) where the model has the route, else its own plain
+    attention (rwkv6 has none, hymba's windowed layers are not K10's)."""
+    cls = registry.model_class(registry.get_config(arch))
+    return "fused" if cls.supports_fused_attention else "xla"
 
 
 def serve_prediction(arch: str) -> dict:
@@ -4960,7 +5126,7 @@ def serve_prediction(arch: str) -> dict:
         mesh = init_device_mesh("cpu", tuple(SERVE_MESH.values()), mesh_dim_names=tuple(SERVE_MESH))
         model = registry.build_model(cfg, device="meta")
         serve, _, (p_abs, p_shard) = step_lib.build_serve_step(model, mesh, codec, torch.float32,
-                                                               "fused")
+                                                               serve_attention(arch))
         params = step_lib.empty_blocks(p_abs, p_shard, mesh, "meta")
         cache_abs = model.cache_spec(b, SERVE_CAP, codec)
         cache = step_lib.empty_blocks(cache_abs, step_lib.cache_shardings(cache_abs, mesh), mesh,
@@ -4983,7 +5149,10 @@ def serve_prefill(arch: str, device) -> dict:
     cache of ``SERVE_CAP`` positions (the model's chunked prefill, the
     engine's call; chunks of ``SERVE_CHUNK``), the parameters drawn from
     seed 0 on the card: the cache, each lane's first greedy token and its
-    next position."""
+    next position.  A model without prefill (rwkv6, hymba) takes a cache
+    drawn at random in its place, as phase 28b's (codes, positive scales,
+    recurrent states of scale 0.1), and random first tokens: fed token by
+    token, hymba's 6000-token prompt took a large share of this phase."""
     cfg = serve_cfg(arch)
     prompts = SERVE_CASES[arch]["prompts"]
     b, longest = len(prompts), max(prompts)
@@ -4995,13 +5164,25 @@ def serve_prefill(arch: str, device) -> dict:
     lens = torch.tensor(prompts, dtype=torch.int32, device=device)
     cache = model.init_cache(b, SERVE_CAP, codec)
     last = torch.zeros((b, cfg.padded_vocab), dtype=torch.float32, device=device)
-    for c0 in range(0, longest, SERVE_CHUNK):
-        length = torch.clamp(lens - c0, 0, SERVE_CHUNK)
-        index = torch.full((b,), c0, dtype=torch.int32, device=device)
-        logits, cache = model.prefill(params, cache, toks[:, c0:c0 + SERVE_CHUNK], index, length,
-                                      codec)
-        ends = (lens > c0) & (lens <= c0 + SERVE_CHUNK)
-        last[ends] = logits[ends]
+    if hasattr(model, "prefill"):
+        for c0 in range(0, longest, SERVE_CHUNK):
+            length = torch.clamp(lens - c0, 0, SERVE_CHUNK)
+            index = torch.full((b,), c0, dtype=torch.int32, device=device)
+            logits, cache = model.prefill(params, cache, toks[:, c0:c0 + SERVE_CHUNK], index,
+                                          length, codec)
+            ends = (lens > c0) & (lens <= c0 + SERVE_CHUNK)
+            last[ends] = logits[ends]
+    else:
+        gen = torch.Generator(device=device).manual_seed(SEED)
+        for name, leaf in cache.items():
+            if leaf.dtype == torch.int8:
+                leaf.copy_(torch.randint(-127, 128, leaf.shape, generator=gen, device=device,
+                                         dtype=torch.int8))
+            elif name.endswith("scale"):
+                leaf.copy_(torch.rand(leaf.shape, generator=gen, device=device) * 1.9e-2 + 1e-3)
+            else:
+                leaf.copy_(torch.randn(leaf.shape, generator=gen, device=device) * 0.1)
+        last = torch.randn(last.shape, generator=gen, device=device)
     return {"cache": {k: v.cpu() for k, v in cache.items()},
             "token": last.argmax(-1).to(torch.int32).cpu(), "index": lens.cpu()}
 
@@ -5157,7 +5338,7 @@ def _serve_arch(arch: str, rank: int, mesh) -> dict:
     t_arch = time.perf_counter()
     model = registry.build_model(cfg, device=device)
     serve, place_cache, (p_abs, p_shard) = step_lib.build_serve_step(
-        model, mesh, codec, torch.float32, "fused")
+        model, mesh, codec, torch.float32, serve_attention(arch))
     params = step_lib.init_param_blocks(model, mesh, torch.Generator(device=device).manual_seed(0))
     pre = torch.load(SERVE_DIR / f"{arch}.pt")
     whole = sum(v.numel() * v.element_size() for v in pre["cache"].values())
@@ -5165,7 +5346,8 @@ def _serve_arch(arch: str, rank: int, mesh) -> dict:
     locals_ = [sharding.local(x) for x in tree_util.tree_flatten(cache)[0]]
     res = {"cache_bytes": sum(t.numel() * t.element_size() for t in locals_), "whole_bytes": whole,
            "specs": {k: sharding.spec_of(v) if sharding.is_dtensor(v) else ()
-                     for k, v in cache.items()}}
+                     for k, v in cache.items()}, "data_rank": mesh.get_coordinate()[0]}
+    recurrent = [k for k, spec in res["specs"].items() if len(spec) < 3]  # no sequence split
     args = sum(dryrun.alloc_bytes(t.numel() * t.element_size()) for t in locals_ + [
         sharding.local(x) for x in tree_util.tree_flatten(params)[0]])
     del locals_, pre["cache"]
@@ -5173,7 +5355,7 @@ def _serve_arch(arch: str, rank: int, mesh) -> dict:
     (torch.ones(8, 8, device=device) @ torch.ones(8, 8, device=device)).sum().item()  # cuBLAS
     steps = case["steps"]
     held_steps = {s % steps for s in SERVE_HELD_STEPS}
-    tokens, logits, ms, routes = [token.cpu()], [], [], []
+    tokens, logits, ms, routes, states = [token.cpu()], [], [], [], []
     k10.launches["kvc_decode_attention"] = 0
     held = K10Blocks()
     for t in range(steps):
@@ -5201,13 +5383,14 @@ def _serve_arch(arch: str, rank: int, mesh) -> dict:
         rows = _gather_rows(sharding.local(lg), mesh)
         logits.append(rows)
         routes.append(rec.calls)
+        states.append({k: sharding.local(cache[k]).cpu() for k in recurrent})
         token = rows.argmax(-1).to(torch.int32).to(device)
         index = index + 1
         tokens.append(token.cpu())
     res.update(launches=k10.launches["kvc_decode_attention"], ms=ms, tokens=tokens,
                logits=logits if rank == 0 else None, routes=routes, k10_calls=held.calls,
                k10_err=held.err, k10_lse_err=held.lse_err, k10_plain_err=held.plain_err,
-               k10_share=held.share,
+               k10_share=held.share, states=states,
                blocks={k: sharding.local(v).cpu() for k, v in cache.items()})
     print(f"rank {rank}, {arch}: step ms {[round(x, 1) for x in ms]}, peak {res['peak']}, "
           f"flops {res['flops']}, K10 launches {res['launches']}", flush=True)
@@ -5222,14 +5405,16 @@ def _serve_arch(arch: str, rank: int, mesh) -> dict:
 def _whole_cache(blocks: list, specs: dict) -> dict:
     """The whole cache from each rank's blocks (rank order over
     ``SERVE_MESH``; ``(None, "data", "model")`` splits lanes and
-    positions)."""
+    positions, ``(None, "data")`` lanes, the first ``model`` rank's taken)."""
     out = {}
     for name, spec in specs.items():
-        check(tuple(spec) == (None, "data", "model"), f"phase 31: cache {name} placed {spec}")
+        check(tuple(spec) in ((None, "data", "model"), (None, "data")),
+              f"phase 31: cache {name} placed {spec}")
         rows = []
         for d in range(SERVE_MESH["data"]):
-            rows.append(torch.cat([blocks[d * SERVE_MESH["model"] + m][name]
-                                   for m in range(SERVE_MESH["model"])], dim=2))
+            parts = [blocks[d * SERVE_MESH["model"] + m][name]
+                     for m in range(SERVE_MESH["model"])]
+            rows.append(torch.cat(parts, dim=2) if len(spec) > 2 else parts[0])
         out[name] = torch.cat(rows, dim=1)
     return out
 
@@ -5246,23 +5431,36 @@ def _no_writes():
         model_layers.cache_write = real
 
 
+def _distances(a: torch.Tensor, b: torch.Tensor) -> tuple[float, float]:
+    """(largest element, L2) of ``a - b`` in float64."""
+    d = a.double() - b.double()
+    return float(d.abs().max()), float(d.norm())
+
+
 def hold_serve(arch: str, runs: list, pre: dict, pred: dict, device) -> dict:
     """Phase 31's checks of ``arch`` (module docstring), replaying each step
-    on one card in float32 (K10) and float64 from the sharded run's cache."""
+    on one card in float32 (K10 where the model has the route) and float64
+    from the sharded run's cache; a recurrent state starts from the
+    prefill's and each replay advances its own."""
     cfg, case = serve_cfg(arch), SERVE_CASES[arch]
     steps, layers = case["steps"], case["layers"]
     codec = model_layers.KVCodecConfig("blockfloat8")
+    attention = serve_attention(arch)
+    k10_layers = layers if attention == "fused" else 0
     r0 = runs[0]
+    specs = r0["specs"]
+    share = {k: math.prod(SERVE_MESH[a] for a in spec if a) for k, spec in specs.items()}
+    want_bytes = sum(v.numel() * v.element_size() // share[k] for k, v in pre["cache"].items())
     for r, run in enumerate(runs):
         check(all(torch.equal(a, b) for a, b in zip(run["tokens"], r0["tokens"])),
               f"phase 31 {arch}: rank {r}'s tokens differ from rank 0's")
-        check(run["launches"] == layers * steps,
+        check(run["launches"] == k10_layers * steps,
               f"phase 31 {arch}: rank {r} launched K10 {run['launches']} times, not "
-              f"{layers} layers x {steps} steps")
-        check(run["cache_bytes"] * SERVE_RANKS == run["whole_bytes"],
-              f"phase 31 {arch}: rank {r} holds {run['cache_bytes']} cache bytes of "
-              f"{run['whole_bytes']}")
-        check(run["k10_calls"] == layers * len(SERVE_HELD_STEPS),
+              f"{k10_layers} layers x {steps} steps")
+        check(run["cache_bytes"] == want_bytes,
+              f"phase 31 {arch}: rank {r} holds {run['cache_bytes']} cache bytes, its blocks of "
+              f"{run['whole_bytes']} placed {specs} are {want_bytes}")
+        check(run["k10_calls"] == k10_layers * len(SERVE_HELD_STEPS),
               f"phase 31 {arch}: rank {r} held {run['k10_calls']} K10 block calls")
     ratio = pred["peak"] / r0["peak"]
     check(abs(ratio - 1) <= DRYRUN_PEAK_TOL, f"phase 31 {arch}: predicted peak {pred['peak']} B, "
@@ -5271,29 +5469,45 @@ def hold_serve(arch: str, runs: list, pre: dict, pred: dict, device) -> dict:
           f"on rank 0, the meta trace {pred['flops']}")
     check(r0["by_axis"] == pred["by_axis"], f"phase 31 {arch}: rank 0 sent {r0['by_axis']} a "
           f"step, the meta trace {pred['by_axis']}")
-    final = _whole_cache([run["blocks"] for run in runs], r0["specs"])
+    final = _whole_cache([run["blocks"] for run in runs], specs)
+    recurrent = [k for k, spec in specs.items() if len(spec) < 3]
     model = registry.build_model(cfg, device=device)
     params = step_lib.init_param_blocks(model, None, torch.Generator(device=device).manual_seed(0))
     p64 = tree_util.tree_unflatten(tree_util.tree_structure(params), [
         x.double() for x in tree_util.tree_flatten(params)[0]])
     # each step reads positions up to its index, which the sharded run's
-    # final cache holds as they were at that step (later rows lie past it)
+    # final cache holds as they were at that step (later rows lie past it);
+    # a recurrent state is overwritten each step, so both replays start
+    # from the prefill's and advance their own
     cache = {k: v.to(device) for k, v in final.items()}
+    cache64 = dict(cache)
+    for k in recurrent:
+        cache[k] = pre["cache"][k].to(device).clone()
+        cache64[k] = pre["cache"][k].to(device, torch.float64)
     index = pre["index"].to(device)
+    lanes = len(case["prompts"]) // SERVE_MESH["data"]
     d1, ds, one_routes = [], [], []
+    held_states = []  # (step, leaf, rank, one-card distance, sharded distance) from float64
     for t in range(steps):
         tok = r0["tokens"][t].to(device)
         with _no_writes(), Routes() as rec:
-            l1, _ = model.decode_step(params, cache, tok, index, codec, attention="fused")
+            l1, _ = model.decode_step(params, cache, tok, index, codec, attention=attention)
         one_routes.append(rec.calls)
         with _no_writes(), float64_model(model):
-            l64, _ = model.decode_step(p64, cache, tok, index, codec, attention="xla")
+            l64, _ = model.decode_step(p64, cache64, tok, index, codec, attention="xla")
         ls = r0["logits"][t].to(device)
         check(torch.equal(l1.argmax(-1).to(torch.int32).cpu(), r0["tokens"][t + 1]),
               f"phase 31 {arch} step {t}: the one-card tokens {l1.argmax(-1).tolist()}, the "
               f"sharded run's {r0['tokens'][t + 1].tolist()}")
-        d1.append((float((l1.double() - l64).abs().max()), float((l1.double() - l64).norm())))
-        ds.append((float((ls.double() - l64).abs().max()), float((ls.double() - l64).norm())))
+        d1.append(_distances(l1, l64))
+        ds.append(_distances(ls, l64))
+        # every rank's whole state (its data rank's lanes) after this step
+        for k in recurrent:
+            for r, run in enumerate(runs):
+                rows = slice(run["data_rank"] * lanes, (run["data_rank"] + 1) * lanes)
+                held_states.append((t, k, r, _distances(cache[k][:, rows], cache64[k][:, rows]),
+                                    _distances(run["states"][t][k].to(device),
+                                               cache64[k][:, rows])))
         index = index + 1
     for t, (a, b) in enumerate(zip(one_routes, r0["routes"])):
         check(len(a) == len(b) and all(torch.equal(x[0], y[0]) and torch.equal(x[1], y[1])
@@ -5307,8 +5521,17 @@ def hold_serve(arch: str, runs: list, pre: dict, pred: dict, device) -> dict:
                   f"phase 31 {arch} step {t}: the sharded logits lie {b[i]} ({what}) from float64, "
                   f"the one-card float32 run's {a[i]} (RMS over the steps {rms[i]}), more than "
                   f"{SERVE_F32_FACTOR}x")
+    for k in recurrent:  # each rank's recurrent state, held as the logits are
+        mine = [x for x in held_states if x[1] == k]
+        srms = [math.sqrt(sum(x[3][i] ** 2 for x in mine) / len(mine)) for i in (0, 1)]
+        for t, _, r, a, b in mine:
+            for i, what in enumerate(("largest element", "L2")):
+                check(b[i] <= SERVE_F32_FACTOR * max(a[i], srms[i]),
+                      f"phase 31 {arch} step {t}: rank {r}'s state {k} lies {b[i]} ({what}) from "
+                      f"float64, the one-card float32 run's {a[i]} (RMS {srms[i]}), more than "
+                      f"{SERVE_F32_FACTOR}x")
     row = {"peak_pred": pred["peak"], "peak_rank0": r0["peak"], "ratio": ratio,
-           "flops": r0["flops"], "sent_by_axis": r0["by_axis"],
+           "flops": r0["flops"], "sent_by_axis": r0["by_axis"], "attention": attention,
            "cache_bytes_rank": r0["cache_bytes"], "cache_bytes_whole": r0["whole_bytes"],
            "k10_launches_rank": [run["launches"] for run in runs],
            "k10_block_f64_max_abs": max(run["k10_err"] for run in runs),
@@ -5316,10 +5539,12 @@ def hold_serve(arch: str, runs: list, pre: dict, pred: dict, device) -> dict:
            "k10_block_lse_f64_max_abs": max(run["k10_lse_err"] for run in runs),
            "k10_largest_share_of_bar": max(run["k10_share"] for run in runs),
            "logits_f64_one_card": d1, "logits_f64_sharded": ds,
+           "state_f64_one_card_max": max((x[3][0] for x in held_states), default=None),
+           "state_f64_sharded_max": max((x[4][0] for x in held_states), default=None),
            "dropped": sum(int((~v).sum()) for calls in r0["routes"] for _, v in calls),
            "step_ms_rank0": r0["ms"], "arch_s": [run["arch_s"] for run in runs]}
     print(f"phase 31, {arch} ({card_line()}): " + json.dumps(row))
-    del model, params, p64, cache
+    del model, params, p64, cache, cache64
     free_card()
     return {"kvc_decode_attention": sum(run["launches"] for run in runs)}
 
@@ -5480,14 +5705,16 @@ def run(device) -> dict:
                       ("25 supervised drill, one rank", lambda: supervised_phase(device)),
                       ("26 shrink and grow-back drill, 8 gloo ranks",
                        lambda: drill_phase(cpu_drill)),
-                      ("27 qwen3-moe-30b-a3b at its published size", lambda: moe_full_width(
+                      ("27 qwen3-moe-30b-a3b at its published widths", lambda: moe_full_width(
                           device)),
                       ("28 rwkv6, hymba, whisper and the new families card vs CPU",
                        lambda: other_families(device)),
                       ("29 the dry run against the card", lambda: dryrun_vs_card(device)),
                       ("30 the sharded train step on model blocks", lambda: step_phase(device)),
                       ("31 the sharded serving step, K10 on cache blocks",
-                       lambda: serve_phase(device))):
+                       lambda: serve_phase(device)),
+                      ("32 hymba-1.5b served past its window", lambda: hymba_served_past_window(
+                          device))):
         t0 = time.perf_counter()
         for k, v in fn().items():
             launches[k] = launches.get(k, 0) + v

@@ -27,7 +27,7 @@ goes, and :func:`place` puts a whole array there (what
 :func:`tree_shardings` gives a parameter tree's shardings from its logical
 axes, :func:`batch_sharding` the batch's (dim 0 over the composed
 ``("pod", "data")`` axes): what the train step's state and rows follow
-(the step splits each microbatch's rows over ``model`` too).
+(the ranks along ``model`` share each microbatch's rows).
 """
 
 from __future__ import annotations

@@ -13,26 +13,27 @@ model's sharding hooks live:
   :func:`remat` runs a layer under ``torch.utils.checkpoint`` and gathers
   that layer's slices (:func:`unbind`) *inside* it, so only one layer's
   gathered weights are live at a time and the backward pass gathers them
-  again.  A gather all-gathers over ``data`` (FSDP).  Over ``model`` it
-  depends on the model's design (``Context(model_blocks=)``, from the
-  model's ``tensor_parallel`` class attribute): where the model computes
-  on Megatron blocks, a leaf keeps its ``model`` block wherever its
-  logical axis on that dimension is ``heads``, ``kv_heads``, ``mlp`` or
-  ``vocab`` and its spec splits it there, and the layer that uses it takes
-  it as a block (:func:`model_split`) between the two region operators,
-  :func:`to_model` (identity forward, all-reduce over ``model`` backward)
-  and :func:`from_model` (all-reduce over ``model`` forward, identity
-  backward); a block no layer took as one makes the step raise
-  (:func:`unused`).  Other leaves (norms, ``embed``-only vectors, heads
-  that fall back to replication, the MoE router) are gathered whole.
+  again.  A gather all-gathers over ``data`` (FSDP).  Every model
+  computes on Megatron blocks over ``model``: a leaf keeps its ``model``
+  block wherever its logical axis on that dimension is ``heads``,
+  ``kv_heads``, ``mlp`` or ``vocab`` and its spec splits it there, and the
+  layer that uses it takes it as a block (:func:`model_split`) between the
+  two region operators, :func:`to_model` (identity forward, all-reduce
+  over ``model`` backward) and :func:`from_model` (all-reduce over
+  ``model`` forward, identity backward); a block no layer took as one
+  makes the step raise (:func:`unused`).  A layer whose blocks cut a head
+  (rwkv6's time mix at a ``model`` extent that does not divide its heads)
+  gathers them whole (:func:`model_gather`) and computes every head on
+  every rank.  Other leaves (norms, ``embed``-only vectors, heads that
+  fall back to replication, the MoE router) are gathered whole.
 * **Gradients.**  A gather's backward is its adjoint over the axes whose
   ranks computed distinct rows (a reduce-scatter, and an all-reduce over
   such axes the leaf is replicated on); over an axis whose ranks share
-  their rows (``model`` under Megatron blocks) every rank computed the
-  same whole gradient, so it keeps its own block of it and sums nothing.
-  A replicated weight that ranks use in part (k and v heads replicated
-  beside split q heads) enters the model region through
-  :func:`to_model`, whose backward sums its parts.
+  their rows (``model``) every rank computed the same whole gradient, so
+  it keeps its own block of it and sums nothing.  A replicated weight that
+  ranks use in part (k and v heads replicated beside split q heads, the
+  decay LoRA and token-shift mixes of rwkv6's time mix) enters the model
+  region through :func:`to_model`, whose backward sums its parts.
 * **Expert parallelism.**  A leaf whose leading logical axis is
   ``experts`` keeps that dimension local, and the gathered stack carries
   the axis that splits it: the MoE layer runs this rank's experts on its
@@ -40,9 +41,8 @@ model's sharding hooks live:
   outputs (:func:`all_experts`).
 * **Rows.**  Each rank computes the rows of each microbatch that the
   step's row axes give it (``Context.row_axes``, outer first): pod-major
-  and ``data``, the axes of ``dist.sharding.batch_sharding``; under
-  Megatron blocks the ranks along ``model`` share those rows, otherwise
-  they split them too (``train.step``).  The MoE routing sees every row of
+  and ``data``, the axes of ``dist.sharding.batch_sharding``; the ranks
+  along ``model`` share those rows (``train.step``).  The MoE routing sees every row of
   the microbatch, as the reference's does: :func:`all_rows` gathers them
   over the row axes and :func:`own_rows` keeps this rank's again.
 
@@ -90,7 +90,7 @@ KINDS = ("all_gather", "reduce_scatter", "all_reduce")
 sent_bytes = dict.fromkeys(KINDS, 0)
 sent_by_axis: dict = {k: {} for k in KINDS}
 _SENT_LOCK = threading.Lock()
-SUM_AXES = ("data", "model")  # a pod's axes: a gradient sums over those that split rows
+SUM_AXES = ("data",)  # a pod's axes that split rows: a gradient sums over them
 # logical axes whose ``model`` blocks a layer computes on (Megatron column
 # and row blocks, a vocab-parallel table); ``experts`` keeps its blocks too
 BLOCK_AXES = ("heads", "kv_heads", "mlp", "vocab")
@@ -161,16 +161,17 @@ def unused(leaves) -> list[int]:
 class Context:
     """A mesh's collectives for one microbatch: ``row_axes`` are the mesh
     axes that split the microbatch's rows (outer first), ``rows`` this
-    rank's row count; ``model_blocks``: the model computes on ``model``
-    blocks, and the ranks along ``model`` share their rows."""
+    rank's row count.  ``model_blocks``: the mesh has a ``model`` axis of
+    more than one rank, whose ranks compute on Megatron blocks and share
+    their rows."""
 
-    def __init__(self, mesh, row_axes: tuple = (), rows: int = 0, model_blocks: bool = False):
+    def __init__(self, mesh, row_axes: tuple = (), rows: int = 0):
         self.mesh = mesh
         self.sizes = shardlib.mesh_sizes(mesh)
         self.coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
         self.row_axes = tuple(a for a in row_axes if self.sizes.get(a, 1) > 1)
         self.rows = rows
-        self.model_blocks = model_blocks and self.sizes.get("model", 1) > 1
+        self.model_blocks = self.sizes.get("model", 1) > 1
         if self.model_blocks and "model" in self.row_axes:
             raise ValueError("ranks that compute on model blocks share their rows: 'model' is "
                              "not a row axis")
@@ -353,9 +354,9 @@ def _map(fn, tree: Any) -> Any:
 
 
 def gather(tree: Any, ctx: Optional[Context] = None) -> Any:
-    """Every tagged tensor of ``tree`` gathered for use (experts and, under
-    ``model_blocks``, Megatron ``model`` blocks kept local); the identity
-    outside :func:`use`."""
+    """Every tagged tensor of ``tree`` gathered for use (experts and
+    Megatron ``model`` blocks kept local); the identity outside
+    :func:`use`."""
     ctx = ctx or _ACTIVE
     if ctx is None:
         return tree
@@ -434,6 +435,17 @@ def model_split(*ts) -> Optional[tuple[int, int]]:
         if b.leaf is not None:
             b.leaf.claimed = True
     return blocks[0].index, blocks[0].count
+
+
+def model_gather(t: torch.Tensor, dim: int) -> torch.Tensor:
+    """A kept ``model`` block ``t`` (taken by :func:`model_split`) gathered
+    whole along ``dim``, for a layer that computes the whole leaf on every
+    ``model`` rank because its blocks cut a head: backward, this rank's
+    chunk of the gradient, which every rank computed whole alike.  ``t``
+    itself where it is whole."""
+    if getattr(t, "_model_block", None) is None:
+        return t
+    return _Gather.apply(t, _ACTIVE, (("model", dim),), ())
 
 
 def as_block(t: torch.Tensor, split: Optional[tuple[int, int]]) -> torch.Tensor:

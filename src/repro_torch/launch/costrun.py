@@ -144,7 +144,7 @@ def train_total(cfg, shape, mesh, k: int) -> dict:
 def choose_train(cfg, shape, mesh) -> tuple[int, dict]:
     """The dry run's microbatch rule on the extrapolated peak."""
     return dryrun.choose_microbatches(lambda k: train_total(cfg, shape, mesh, k),
-                                      dryrun.train_rows(shape, mesh, cfg),
+                                      dryrun.train_rows(shape, mesh),
                                       *dryrun.train_arg_bytes(_model(cfg), mesh))
 
 
@@ -176,7 +176,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool) -> dict:
     shape = registry.SHAPES[shape_name]
     ok, why = registry.supports(cfg, shape)
     if ok and shape.kind == "train":
-        why = dryrun.train_refusal(shape, multi_pod, cfg)
+        why = dryrun.train_refusal(shape, multi_pod)
         ok = why is None
     mesh_name = "multi" if multi_pod else "single"
     cell = {"arch": arch, "shape": shape_name, "mesh": mesh_name, "kind": shape.kind}

@@ -33,15 +33,11 @@ What differs from the reference, and why:
   that is already up).  Parameters are placed as the reference's
   ``DEFAULT_RULES`` place them (``train.step.make_state_specs``) and
   gathered where they are used (``dist.spmd``).  A cell's global batch
-  splits over pod x data exactly as the reference splits it; the ranks
-  along ``model`` share their rows where the model computes on Megatron
-  blocks over ``model`` (the dense, vlm, MoE and audio families), as under
-  the reference's GSPMD program.  rwkv6 and hymba gather their weights
-  whole; in a train cell their rows split over pod x data x model, and a
-  cell whose rows do not divide over those ranks is skipped with its reason
-  (the step would raise): ``train_4k``'s 256 rows on the 512 ranks of the
-  multi-pod mesh (:func:`train_refusal`).  Their prefill and decode rows
-  split over pod x data, as the reference's.  A decode cell's cache is
+  splits over pod x data exactly as the reference splits it, and the ranks
+  along ``model`` share their rows: every family computes on Megatron
+  blocks over ``model``, as under the reference's GSPMD program.  A train
+  cell whose rows do not divide over pod x data is skipped with its reason
+  (the step would raise; :func:`train_refusal`).  A decode cell's cache is
   placed as the reference's ``cache_shardings`` places it
   (``train.step.cache_shardings``: the batch over pod x data, the sequence
   over ``model`` from 4096 positions; ``long_500k``'s one lane takes the
@@ -319,37 +315,27 @@ def local_batch(shape, mesh) -> int:
     return shape.global_batch // n if shape.global_batch % n == 0 else shape.global_batch
 
 
-def row_axes(cfg) -> tuple[str, ...]:
-    """The mesh axes a train cell's rows split over: pod x data where the
-    model computes on Megatron blocks over ``model`` (its ranks share their
-    rows), pod x data x model where it gathers every weight whole."""
-    blocks = registry.model_class(cfg).tensor_parallel
-    return ("pod", "data") if blocks else ("pod", "data", "model")
+ROW_AXES = ("pod", "data")  # a train cell's rows split over these; model ranks share them
 
 
-def train_rows(shape, mesh, cfg) -> int:
+def train_rows(shape, mesh) -> int:
     """This rank's rows of a train cell's global batch: the step splits
-    them over :func:`row_axes` (``train.step.build_train_step``), so this
+    them over :data:`ROW_AXES` (``train.step.build_train_step``), so this
     bounds the microbatch count."""
     sizes = mesh_sizes(mesh)
-    return shape.global_batch // math.prod(sizes.get(a, 1) for a in row_axes(cfg))
+    return shape.global_batch // math.prod(sizes.get(a, 1) for a in ROW_AXES)
 
 
-def train_refusal(shape, multi_pod: bool, cfg) -> Optional[str]:
+def train_refusal(shape, multi_pod: bool) -> Optional[str]:
     """Why the train step cannot take a train cell on its mesh, or None:
-    the rows split over :func:`row_axes`, and no rank repeats another's."""
-    axes = row_axes(cfg)
+    the rows split over :data:`ROW_AXES`, and no rank repeats another's."""
     sizes = dict(zip(("pod", "data", "model") if multi_pod else ("data", "model"),
                      MULTI_POD if multi_pod else SINGLE_POD))
-    n = math.prod(sizes.get(a, 1) for a in axes)
+    n = math.prod(sizes.get(a, 1) for a in ROW_AXES)
     if shape.global_batch % n == 0:
         return None
-    why = (f"the global batch of {shape.global_batch} rows does not split over the {n} ranks of "
-           + " x ".join(a for a in axes if a in sizes))
-    if "model" in axes:
-        why += (f": the port's {cfg.family} family ({cfg.name}) computes on whole gathered "
-                "weights, so each rank along model takes rows of its own")
-    return why
+    return (f"the global batch of {shape.global_batch} rows does not split over the {n} ranks of "
+            + " x ".join(a for a in ROW_AXES if a in sizes))
 
 
 def choose_microbatches(trace: Callable[[int], dict], b_local: int, state_bytes: int,
@@ -393,7 +379,7 @@ def prefill_cost(model, cfg, shape, mesh) -> dict:
                 # serving semantic: only the last position's logits feed sampling
                 return model.forward(params, ins["tokens"], *extras)[:, -1, :]
             blocks = step_lib.tagged_params(model, params, p_shard)
-            with spmd.use(spmd.Context(mesh, rows, b, model_blocks=model.tensor_parallel)):
+            with spmd.use(spmd.Context(mesh, rows, b)):
                 last = model.forward(blocks, ins["tokens"], *extras)[:, -1, :]
                 if last.shape[-1] != cfg.padded_vocab:  # a vocab-parallel block
                     last = spmd.gather_model(last, 1)
@@ -483,7 +469,7 @@ def cell_cost(cfg, shape, mesh, grad_comp: bool = False) -> tuple[dict, int]:
     def trace(k: int, runs: int = 1) -> dict:
         return train_cost(model, cfg, shape, mesh, k, runs, grad_comp)
 
-    k, c1 = choose_microbatches(trace, train_rows(shape, mesh, cfg),
+    k, c1 = choose_microbatches(trace, train_rows(shape, mesh),
                                 *train_arg_bytes(model, mesh, grad_comp))
     if k == 1:
         return c1, 1
@@ -500,7 +486,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, verbose: bool = True,
             "kind": shape.kind, "seq_len": shape.seq_len,
             "global_batch": shape.global_batch}
     if ok and shape.kind == "train":
-        why = train_refusal(shape, multi_pod, cfg)
+        why = train_refusal(shape, multi_pod)
         ok = why is None
     if not ok:
         cell["status"] = "skipped"

@@ -85,10 +85,6 @@ def cross_block(p: dict, c, x: torch.Tensor, enc: torch.Tensor) -> torch.Tensor:
 
 
 class EncDecLM:
-    # the sharded train step computes on Megatron blocks over ``model``
-    # (``dist.spmd``; the cross-attention too), and the ranks along
-    # ``model`` share their rows
-    tensor_parallel = True
     supports_paged_kv = False
     # blockfloat8 decode self-attention reads its dense cache through K10
     supports_fused_attention = True

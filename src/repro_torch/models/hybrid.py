@@ -18,10 +18,24 @@ there is no K10 route (a windowed layer is not K10's function) and no
 paged pool.  With a (B,) per-slot index a free lane (-1) keeps its SSD
 state (see ``repro_torch.models.rwkv6``); its attention writes are dropped
 as on every cache.
+
+In the sharded train and serving steps (``dist.spmd``) the layers compute
+on Megatron blocks over ``model``, as the reference's GSPMD program
+partitions them: the attention is ``models.layers``' (this rank's q heads,
+kv heads split alike or cut from replicated leaves; decode gathers the q
+heads and combines the blocks of a split cache), the SSD branch is
+column-parallel (``w_in``, ``w_bc``, ``w_dt``, ``dt_bias``, ``a_log`` and
+``skip`` on this rank's heads) with a row-parallel ``w_out``, and the MLP,
+the embedding and the unembedding are ``models.layers``'.  Heads that do
+not divide over ``model`` (hymba-1.5b's 25 and 5) are replicated and run
+whole on every rank.  Decode advances this rank's SSD heads of the
+recurrent state and gathers the whole state over ``model``, since every
+``model`` rank holds all of it.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import torch
@@ -101,6 +115,9 @@ def ssd_step(xh, B, C, dt, a, S):
     return y, S_new
 
 
+_SSD_HEADS = ("w_in", "w_bc", "w_dt", "dt_bias", "a_log", "skip", "w_out")  # split alike
+
+
 def _ssd_inputs(p: dict, c: ArchConfig, x: torch.Tensor):
     """xh (x's dtype), B, C, dt (f32) and the decay a of ``x`` (b, s, d)."""
     n = c.ssm_state
@@ -113,11 +130,18 @@ def _ssd_inputs(p: dict, c: ArchConfig, x: torch.Tensor):
 
 
 def ssd_apply(p: dict, c: ArchConfig, x: torch.Tensor, state0=None):
+    """The SSD branch over ``x`` (b, s, d): its output and final state (of
+    this rank's heads where they split over ``model``: column-parallel
+    inputs, the row-parallel ``w_out`` reduced over ``model``)."""
     dt_ = x.dtype
+    split = spmd.model_split(*(p[k] for k in _SSD_HEADS))
+    if split is not None:
+        x = spmd.to_model(x)
     xh, B, C, dt, a = _ssd_inputs(p, c, x)
     y32, S = ssd_chunked(xh.to(torch.float32), B, C, dt, a, state0)
     y = y32.to(dt_) + xh * p["skip"].to(dt_)[None, None]
-    return L._out_proj(y, p["w_out"]), S
+    out = L._out_proj(y, p["w_out"])
+    return (out if split is None else spmd.from_model(out)), S
 
 
 class HymbaLM:
@@ -125,10 +149,6 @@ class HymbaLM:
 
     supports_paged_kv = False
     supports_fused_attention = False
-    # the sharded train step gathers every weight whole and splits the rows
-    # over ``model`` too (``dist.spmd``): its parallel attention and SSD
-    # heads have no Megatron blocks here
-    tensor_parallel = False
 
     def __init__(self, cfg: ArchConfig, device=None):
         self.cfg = cfg
@@ -180,15 +200,8 @@ class HymbaLM:
 
     def _fused_layer(self, lp, window: int, x, positions):
         h = L.rmsnorm(lp["norm"], x)
-        ac = self._attn_config()
-        q, k, v = L._qkv(lp["attn"], ac, h, positions)
-        n_rep = ac.n_heads // ac.n_kv_heads
-        k, v = L._repeat_kv(k, n_rep), L._repeat_kv(v, n_rep)
-        if x.shape[1] > ac.flash_threshold:
-            out = L._sdpa_flash(q, k, v, positions, positions, window, ac.chunk_kv)
-        else:
-            out = L._sdpa_full(q, k, v, positions, positions, window)
-        attn_out = L._out_proj(out, lp["attn"]["wo"])
+        ac = dataclasses.replace(self._attn_config(), window=window)
+        attn_out = L.attention(lp["attn"], ac, h, positions)
         ssd_out, _ = ssd_apply(lp["ssd"], self.cfg, h)
         return self._fuse(lp, x, attn_out, ssd_out)
 
@@ -255,7 +268,7 @@ class HymbaLM:
             lp = spmd.gather(lp)
             h = L.rmsnorm(lp["norm"], x)
             acache = acaches[i]
-            q, k_new, v_new = L._qkv(lp["attn"], ac, h, pos)
+            q, k_new, v_new, hb = L.serve_qkv(lp["attn"], ac, h, pos)  # every head
             L.cache_update(acache, codec, k_new, v_new, index)
             blk = spmd.seq_block(next(iter(acache.values())))  # a split sequence's block
             kk, vv = L.cache_read(acache, codec, h.dtype)
@@ -271,16 +284,23 @@ class HymbaLM:
                 att = L._weighted(probs, vv)
             else:
                 att = L._softmax_over(logits, vv, blk, h.dtype)
-            a_out = L._out_proj(att, lp["attn"]["wo"])
+            a_out = L.serve_out(att, lp["attn"], hb)
 
             sp = lp["ssd"]
+            split = spmd.model_split(*(sp[k] for k in _SSD_HEADS))
             xh, Bm, Cm, dtv, a = _ssd_inputs(sp, c, h)
             xh = xh[:, 0]
+            S = cache["ssd_state"][i]  # every head's state, on every model rank
+            lo = 0 if split is None else split[0] * xh.shape[1]
             y, S_new = ssd_step(xh.to(torch.float32), Bm[:, 0], Cm[:, 0], dtv[:, 0], a,
-                                cache["ssd_state"][i])
-            cache["ssd_state"][i] = _keep_free_lanes(S_new, cache["ssd_state"][i], index)
+                                S[:, lo:lo + xh.shape[1]])
+            if split is not None:  # every rank's heads of the new state
+                S_new = spmd.gather_model(S_new, 1)
+            cache["ssd_state"][i] = _keep_free_lanes(S_new, S, index)
             y = y.to(dt) + xh * sp["skip"].to(dt)[None]
             s_out = L._out_proj(y, sp["w_out"])[:, None]
+            if split is not None:
+                s_out = spmd.from_model(s_out)
             x = self._fuse(lp, x, a_out, s_out)
         x = L.rmsnorm(params["final_norm"], x)
         return L.unembed(params["unembed"], x)[:, 0, :], cache

@@ -14,6 +14,21 @@ exp(A_t - A_s) have non-positive exponents, so they never overflow in f32,
 and one f32 state per chunk is carried by a Python loop (the reference's
 ``lax.scan``).  Decode is the O(1) recurrent step (:func:`wkv_step`).
 
+In the sharded train and serving steps (``dist.spmd``) the layers compute
+on Megatron blocks over ``model``, as the reference's GSPMD program
+partitions them: the time mix's ``wr``, ``wk``, ``wv`` and ``wg`` are
+column-parallel (this rank's heads), ``u`` holds the same heads and ``wo``
+is row-parallel; the token-shift mixes and the decay LoRA are computed
+whole from the rows every ``model`` rank shares, inside the model region
+(their leaves enter it through ``spmd.to_model``, since each rank's
+gradient is its heads' part), and only this rank's columns of the decay
+are formed.  Where the column blocks cut a head (``u`` does not split),
+the time mix gathers them whole and computes every head on every rank.
+The channel mix's ``wk`` is column-parallel and ``wv`` row-parallel; its
+``wr`` (``embed`` on both dimensions) is whole on every rank.  Decode
+advances this rank's heads of the recurrent state and gathers the whole
+state over ``model``, since every ``model`` rank holds all of it.
+
 The model has no attention, so it has no paged KV pool, no prefill and no
 K10 route: the serving engine feeds prompts token by token.  One serving
 difference from the reference: with a (B,) per-slot index, a free lane
@@ -80,10 +95,8 @@ def channel_mix_spec(c: ArchConfig) -> dict:
     }
 
 
-def _token_shift(x: torch.Tensor, last: Optional[torch.Tensor] = None) -> torch.Tensor:
-    if last is None:
-        return F.pad(x[:, :-1], (0, 0, 1, 0))
-    return torch.cat([last[:, None, :], x[:, :-1]], dim=1)
+def _token_shift(x: torch.Tensor) -> torch.Tensor:
+    return F.pad(x[:, :-1], (0, 0, 1, 0))
 
 
 def _mix(x, prev, mu):
@@ -91,8 +104,11 @@ def _mix(x, prev, mu):
 
 
 def _rkvwg(p: dict, c: ArchConfig, x: torch.Tensor, prev: torch.Tensor):
-    h, k = _heads(c)
-    b, t, d = x.shape
+    """r, k, v (B, T, heads, 64), g (B, T, columns) and the log decay
+    (float32, as r) of the heads that ``p``'s column leaves hold (all of
+    them, or this rank's: :func:`time_heads`)."""
+    _, k = _heads(c)
+    b, t, _ = x.shape
     dt = x.dtype
     r = _mix(x, prev, p["mu_r"]) @ p["wr"].to(dt)
     key = _mix(x, prev, p["mu_k"]) @ p["wk"].to(dt)
@@ -102,8 +118,58 @@ def _rkvwg(p: dict, c: ArchConfig, x: torch.Tensor, prev: torch.Tensor):
     f32 = torch.float32
     ww = p["w0"].to(f32) + torch.tanh(xw.to(f32) @ p["wA"].to(f32)) @ p["wB"].to(f32)
     logw = -torch.exp(torch.clamp(ww, -8.0, 4.0))  # log decay, in (-e^4, 0)
-    shp = (b, t, h, k)
+    shp = (b, t, r.shape[-1] // k, k)
     return r.reshape(shp), key.reshape(shp), v.reshape(shp), g, logw.reshape(shp)
+
+
+_COLUMNS = ("wr", "wk", "wv", "wg")  # the time mix's column-parallel leaves
+_REGION = ("mu_r", "mu_k", "mu_v", "mu_w", "mu_g", "wA")  # whole, used for this rank's heads
+
+
+def time_heads(p: dict) -> tuple[dict, Optional[tuple[int, int]]]:
+    """The time mix's leaves as this rank computes them, and the block of
+    the heads it holds, ``(index, count)``; ``None`` where it computes
+    every head (no mesh, heads replicated, or column blocks that cut a
+    head, which are gathered whole here).  On blocks, the whole leaves the
+    region uses enter it through ``spmd.to_model`` and ``w0`` and ``wB``
+    are cut to this rank's columns."""
+    split = spmd.model_split(*(p[k] for k in _COLUMNS + ("wo",)))
+    if split is None:
+        return p, None
+    if spmd.model_split(p["u"]) is None:  # the column blocks cut a head
+        whole = {k: spmd.model_gather(p[k], 1) for k in _COLUMNS}
+        return dict(p, **whole, wo=spmd.model_gather(p["wo"], 0)), None
+    width = p["wr"].shape[1]
+    lo = split[0] * width
+    q = dict(p, **{k: spmd.to_model(p[k]) for k in _REGION})
+    q["w0"] = spmd.to_model(p["w0"]).narrow(0, lo, width)
+    q["wB"] = spmd.to_model(p["wB"]).narrow(1, lo, width)
+    return q, split
+
+
+def time_out(p: dict, out: torch.Tensor, g: torch.Tensor, split, dtype) -> torch.Tensor:
+    """The time mix's output of the wkv ``out`` (B, T, heads, 64) gated by
+    ``g``: the (row-parallel) ``wo``, reduced over ``model`` on blocks."""
+    b, t = out.shape[:2]
+    y = (out.reshape(b, t, -1).to(dtype) * g) @ p["wo"].to(dtype)
+    return y if split is None else spmd.from_model(y)
+
+
+def channel_out(p: dict, xn: torch.Tensor, prev: torch.Tensor) -> torch.Tensor:
+    """The channel mix of the normed ``xn`` and its token shift ``prev``:
+    column-parallel ``wk`` and row-parallel ``wv`` where ``mlp`` splits over
+    ``model``; ``wr`` whole."""
+    dt = xn.dtype
+    split = spmd.model_split(p["wk"], p["wv"])
+    xk = _mix(xn, prev, p["mu_k"])
+    if split is not None:
+        xk = spmd.to_model(xk)
+    kk = torch.square(F.relu(xk @ p["wk"].to(dt)))
+    kv = kk @ p["wv"].to(dt)
+    if split is not None:
+        kv = spmd.from_model(kv)
+    rr = torch.sigmoid(_mix(xn, prev, p["mu_r"]) @ p["wr"].to(dt))
+    return rr * kv
 
 
 def wkv_chunked(r, k, v, logw, u, state0=None):
@@ -166,10 +232,6 @@ class RWKV6LM:
     # no attention: no paged KV pool and no K10 route
     supports_paged_kv = False
     supports_fused_attention = False
-    # the sharded train step gathers every weight whole and splits the rows
-    # over ``model`` too (``dist.spmd``): its time-mix and channel-mix have
-    # no Megatron blocks here
-    tensor_parallel = False
 
     def __init__(self, cfg: ArchConfig, device=None):
         self.cfg = cfg
@@ -189,31 +251,19 @@ class RWKV6LM:
             "unembed": {"table": P((c.padded_vocab, c.d_model), ("vocab", "embed"), "small")},
         }
 
-    def _time_mix(self, p, x, state=None, last_x=None):
-        c = self.cfg
+    def _time_mix(self, p, x):
         xn = L.layernorm(p["ln"], x)
-        prev = _token_shift(xn, last_x)
-        r, k, v, g, logw = _rkvwg(p, c, xn, prev)
-        out, S = wkv_chunked(r, k, v, logw, p["u"], state)
-        b, t = x.shape[:2]
-        y = (out.reshape(b, t, c.d_model).to(x.dtype) * g) @ p["wo"].to(x.dtype)
-        return y, S, xn[:, -1]
-
-    def _channel_mix(self, p, x, last_x=None):
-        xn = L.layernorm(p["ln"], x)
-        prev = _token_shift(xn, last_x)
-        return self._channel_out(p, xn, prev), xn[:, -1]
-
-    @staticmethod
-    def _channel_out(p, xn, prev):
-        dt = xn.dtype
-        kk = torch.square(F.relu(_mix(xn, prev, p["mu_k"]) @ p["wk"].to(dt)))
-        rr = torch.sigmoid(_mix(xn, prev, p["mu_r"]) @ p["wr"].to(dt))
-        return rr * (kk @ p["wv"].to(dt))
+        q, split = time_heads(p)
+        if split is not None:
+            xn = spmd.to_model(xn)
+        r, k, v, g, logw = _rkvwg(q, self.cfg, xn, _token_shift(xn))
+        out, _ = wkv_chunked(r, k, v, logw, q["u"])
+        return time_out(q, out, g, split, x.dtype)
 
     def _layer(self, lp: dict, x: torch.Tensor) -> torch.Tensor:
-        x = x + self._time_mix(lp["time"], x)[0]
-        return x + self._channel_mix(lp["channel"], x)[0]
+        x = x + self._time_mix(lp["time"], x)
+        xn = L.layernorm(lp["channel"]["ln"], x)
+        return x + channel_out(lp["channel"], xn, _token_shift(xn))
 
     def forward(self, params: dict, tokens: torch.Tensor,
                 prefix: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -270,13 +320,18 @@ class RWKV6LM:
             tp, cp = lp["time"], lp["channel"]
             xn = L.layernorm(tp["ln"], x)
             prev = cache["tm_x"][i][:, None, :].to(xn.dtype)
-            r, k, v, g, logw = _rkvwg(tp, c, xn, prev)
-            out, S_new = wkv_step(r[:, 0], k[:, 0], v[:, 0], logw[:, 0], tp["u"], cache["wkv"][i])
-            b = x.shape[0]
-            x = x + (out.reshape(b, 1, c.d_model).to(x.dtype) * g) @ tp["wo"].to(x.dtype)
+            q, split = time_heads(tp)
+            r, k, v, g, logw = _rkvwg(q, c, xn, prev)
+            S = cache["wkv"][i]  # every head's state, on every model rank
+            lo = 0 if split is None else split[0] * r.shape[2]
+            out, S_new = wkv_step(r[:, 0], k[:, 0], v[:, 0], logw[:, 0], q["u"],
+                                  S[:, lo:lo + r.shape[2]])
+            if split is not None:  # every rank's heads of the new state
+                S_new = spmd.gather_model(S_new, 1)
+            x = x + time_out(q, out[:, None], g, split, x.dtype)
             xn2 = L.layernorm(cp["ln"], x)
             prev2 = cache["cm_x"][i][:, None, :].to(xn2.dtype)
-            x = x + self._channel_out(cp, xn2, prev2)
+            x = x + channel_out(cp, xn2, prev2)
             for name, new in (("wkv", S_new), ("tm_x", xn[:, 0].to(f32)),
                               ("cm_x", xn2[:, 0].to(f32))):
                 cache[name][i] = _keep_free_lanes(new, cache[name][i], index)

@@ -17,7 +17,7 @@ parameters arrive as this rank's blocks and are gathered where they are
 used: the outer leaves at the top of ``forward`` and ``decode_step``, a
 layer's inside its checkpoint (or, without gradients, as the layer runs).  Attention, the
 MLPs, the embedding, the unembedding and :func:`lm_loss` compute on their
-``model`` blocks (``tensor_parallel``; ``models.layers``).  ``decode_step``
+``model`` blocks (``models.layers``), as every family's do.  ``decode_step``
 and ``prefill`` (the serving path) run without gradients.
 """
 
@@ -55,9 +55,6 @@ def unstack(tree: Any, n: int) -> list:
 
 
 class DenseLM(nn.Module):
-    # the sharded train step computes on Megatron blocks over ``model``
-    # (``dist.spmd``), and the ranks along ``model`` share their rows
-    tensor_parallel = True
     # decode routes every KV access through layers.decode_attention, so the
     # serving tier can swap the dense (B, S) cache for a paged pool
     supports_paged_kv = True

@@ -18,23 +18,21 @@ is replicated; ``opt.step`` is replicated.  One process per rank of a
 * **Rows.**  Every rank gets the whole global batch and takes its rows:
   pod-major, then ``data`` within a pod and within each microbatch (the
   axes of ``dist.sharding.batch_sharding``, the reference's ``("pod",
-  "data")``).  A model with ``tensor_parallel`` (the dense, vlm, MoE and
-  audio families) computes on Megatron blocks over ``model``, so the
-  ranks along ``model`` share those rows, as under the reference's GSPMD
-  program; rwkv6 and hymba gather their weights whole, so their rows split
-  over ``model`` too.  A microbatch whose rows do not divide over the row
-  axes raises: no rank repeats another's rows.
+  "data")``).  Every family computes on Megatron blocks over ``model``,
+  so the ranks along ``model`` share those rows, as under the reference's
+  GSPMD program.  A microbatch whose rows do not divide over the row axes
+  raises: no rank repeats another's rows.
 * **Compute.**  The model computes on this rank's blocks through
   ``repro_torch.dist.spmd``: each leaf is all-gathered over ``data`` where
   it is used (a layer's inside its activation checkpoint); attention, the
-  MLPs, the embedding and the loss run on their ``model`` blocks between
-  the region operators (``tensor_parallel``), the expert stacks stay split
-  over ``model`` (expert parallelism), and the MoE routing sees the whole
-  microbatch, as the reference's global program does.  A gather's backward
-  reduce-scatters the gradient over the axes whose ranks hold distinct
-  rows, so each rank ends with its block's gradient summed over those
-  ranks of its pod; the step divides by their number (``data``, and
-  ``model`` for rwkv6 and hymba).
+  MLPs, rwkv6's time and channel mixes, hymba's SSD heads, the embedding
+  and the loss run on their ``model`` blocks between the region operators,
+  the expert stacks stay split over ``model`` (expert parallelism), and
+  the MoE routing sees the whole microbatch, as the reference's global
+  program does.  A gather's backward reduce-scatters the gradient over the
+  axes whose ranks hold distinct rows, so each rank ends with its block's
+  gradient summed over those ranks of its pod; the step divides by their
+  number (``data``).
 * **Pods.**  The gradient mean over ``"pod"`` runs on each block: with
   ``grad_comp.enabled`` it is :func:`repro_torch.dist.collectives.
   compressed_pod_mean` (int8 or int4 codes and float32 block scales cross
@@ -52,10 +50,8 @@ What differs from the reference:
   column- and row-parallel pair, a vocab-parallel embedding and loss, and
   the MoE's row and expert gathers (``dist.spmd``).  Where XLA may choose
   another partition of an op (it may, for instance, gather a small weight
-  rather than reduce a large activation), the port's is fixed.  rwkv6 and
-  hymba compute on whole gathered weights with rows over ``model`` (the
-  reference shares their rows too).  The numbers are the same function
-  within float32 rounding.
+  rather than reduce a large activation), the port's is fixed.  The
+  numbers are the same function within float32 rounding.
 * Error feedback is per pod: the reference stacks it as ``(n_pods, *shape)``
   bfloat16 on ``PS("pod", *spec)``; here each pod's ranks keep their pod's
   row, ``shape`` bfloat16 on the param's spec.
@@ -303,8 +299,7 @@ def build_train_step(model, mesh=None, step_cfg: TrainStepConfig = TrainStepConf
     lr_fn = _schedule(step_cfg)
     gc = step_cfg.grad_comp
     k = max(1, step_cfg.microbatches)
-    n_pods, n_data, n_model = sizes.get("pod", 1), sizes.get("data", 1), sizes.get("model", 1)
-    shared = model.tensor_parallel and n_model > 1  # the model ranks share their rows
+    n_pods = sizes.get("pod", 1)
     compressed = gc.enabled and "pod" in sizes
     coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate())) if mesh is not None else {}
     device = model.device
@@ -314,13 +309,12 @@ def build_train_step(model, mesh=None, step_cfg: TrainStepConfig = TrainStepConf
     specs = [() if sh is None else sh.spec for sh in shardings]
 
     # the batch's rows: pod-major over the whole batch, then the other axes
-    # of ``batch_sharding`` (``data``) within each microbatch, then ``model``
-    # unless the model ranks share their rows
+    # of ``batch_sharding`` (``data``) within each microbatch; the model
+    # ranks share their rows
     bspec = shardlib.batch_sharding(mesh).spec if mesh is not None else ()
     batch_axes = () if not bspec else (bspec[0],) if isinstance(bspec[0], str) else bspec[0]
     outer = tuple(a for a in batch_axes if a == "pod")
-    inner = tuple(a for a in batch_axes if a != "pod") + (
-        ("model",) if n_model > 1 and not shared else ())
+    inner = tuple(a for a in batch_axes if a != "pod")
     # the ranks of a pod whose rows differ: a pod's gradient sums over them
     in_pod = math.prod(sizes[a] for a in inner)
     # the routing's rows: the pods' too unless each pod routes its own
@@ -388,8 +382,7 @@ def build_train_step(model, mesh=None, step_cfg: TrainStepConfig = TrainStepConf
         micro = local_batch(batch)
         ctx = None
         if mesh is not None:
-            ctx = spmd.Context(mesh, route_axes, next(iter(micro.values())).shape[1],
-                               model_blocks=shared)
+            ctx = spmd.Context(mesh, route_axes, next(iter(micro.values())).shape[1])
         loss, grads = grads_of(leaves, treedef, micro, runs, ctx)
         if in_pod > 1:  # the gathers' backward summed each block over the pod's rows
             grads = [g / torch.full_like(g, in_pod) for g in grads]
@@ -574,7 +567,7 @@ def build_serve_step(model, mesh=None, codec: KVCodecConfig = KVCodecConfig(),
                  for path, _ in tree_util.tree_flatten_with_path(cache)[0]]
         c_leaves, c_def = tree_util.tree_flatten(cache)
         local_cache = tree_util.tree_unflatten(c_def, seq_blocks(names, c_leaves))
-        ctx = spmd.Context(mesh, axes if split else (), rows, model_blocks=model.tensor_parallel)
+        ctx = spmd.Context(mesh, axes if split else (), rows)
         with spmd.use(ctx):
             logits, _ = model.decode_step(blocks, local_cache, token, index, codec, attention)
             wrong = [items[i][0] for i, t in enumerate(tree_util.tree_flatten(blocks)[0])

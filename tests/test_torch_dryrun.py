@@ -21,16 +21,16 @@ tensors and a fake process group, no card.
   state): a traced step's state is each leaf's local block (its bytes the
   sum of the blocks' from the specs) and its all-gather and reduce-scatter
   bytes are non-zero; the committed ``experiments/torch_dryrun/`` train
-  cells lie on ``(16, 16)`` and ``(2, 16, 16)`` with non-zero all-gather
-  and reduce-scatter bytes (rwkv6's and hymba's multi-pod cells skipped),
-  the prefill, decode and ``long_500k`` cells on the same unfolded meshes,
-  every ``decode_32k`` cell fitting one card; a prefill cell traces on the
-  unfolded meshes with its parameters in blocks;
-* the train step's rows: a family on Megatron blocks splits them over pod
-  x data (the ranks along ``model`` share them) and refuses rows that do
-  not split there; ``train_4k``'s 256 rows lie on the 512 ranks for
-  minicpm-2b, and rwkv6 and hymba, whose rows split over ``model`` too,
-  are skipped there with their family named;
+  cells (every one ``ok``, rwkv6's and hymba's multi-pod cells too) lie on
+  ``(16, 16)`` and ``(2, 16, 16)`` with non-zero all-gather and
+  reduce-scatter bytes, the prefill, decode and ``long_500k`` cells on the
+  same unfolded meshes, every ``decode_32k`` cell fitting one card; a
+  prefill cell traces on the unfolded meshes with its parameters in blocks;
+* the train step's rows: every family computes on Megatron blocks, so the
+  rows split over pod x data (the ranks along ``model`` share them) and
+  rows that do not split there are refused; ``train_4k``'s 256 rows lie on
+  the 512 ranks, and rwkv6 and hymba trace a step on the multi-pod mesh
+  with no all-gather over ``model``;
 * a Megatron block that reaches a layer without its hook makes the step
   raise (no fallback);
 * the dry run refuses to replace a process group that is up, ``meta`` is a
@@ -272,12 +272,8 @@ def test_committed_cells_lie_on_their_meshes():
     assert len(cells) == 62
     for c in cells:
         multi = c["mesh"] == "multi"
-        cfg = treg.get_config(c["arch"])
-        if c["kind"] == "train" and multi and cfg.family in ("ssm", "hybrid"):
-            assert c["status"] == "skipped", c["arch"]  # 256 rows on pod x data x model
-            assert c["skip_reason"] == dryrun.train_refusal(treg.SHAPES["train_4k"], True, cfg)
-        elif c["kind"] == "train":
-            assert c["status"] == "ok", c["arch"]
+        if c["kind"] == "train":
+            assert c["status"] == "ok", (c["arch"], c["mesh"])
         if c["status"] != "ok":
             continue
         if c["kind"] == "train":
@@ -319,8 +315,8 @@ def test_prefill_cell_on_the_unfolded_mesh_holds_blocks(multi_pod):
 
 @pytest.mark.parametrize("multi_pod", [False, True])
 def test_train_step_refuses_rows_that_do_not_split_over_pod_and_data(multi_pod):
-    """No rank repeats another's rows: minicpm-2b computes on Megatron
-    blocks, so its rows split over pod x data (the ranks along ``model``
+    """No rank repeats another's rows: every family computes on Megatron
+    blocks, so the rows split over pod x data (the ranks along ``model``
     share them), and a microbatch whose rows do not divide over those ranks
     raises in the step; the dry run skips such a cell with its reason before
     tracing it."""
@@ -332,36 +328,45 @@ def test_train_step_refuses_rows_that_do_not_split_over_pod_and_data(multi_pod):
             with pytest.raises(ValueError, match="does not split"):
                 dryrun.train_cost(model, cfg, treg.ShapeCell("train_small", 8, rows, "train"),
                                   mesh, k, 1)
-        assert dryrun.train_rows(treg.ShapeCell("train_small", 8, 2 * n, "train"), mesh, cfg) == 2
-    why = dryrun.train_refusal(treg.ShapeCell("train_small", 8, n // 2, "train"), multi_pod, cfg)
+        assert dryrun.train_rows(treg.ShapeCell("train_small", 8, 2 * n, "train"), mesh) == 2
+    why = dryrun.train_refusal(treg.ShapeCell("train_small", 8, n // 2, "train"), multi_pod)
     assert why is not None and why.endswith("ranks of pod x data" if multi_pod else "ranks of data")
-    assert dryrun.train_refusal(treg.ShapeCell("train_small", 8, n, "train"), multi_pod,
-                                cfg) is None
+    assert dryrun.train_refusal(treg.ShapeCell("train_small", 8, n, "train"), multi_pod) is None
 
 
 def test_multi_pod_train_4k_takes_256_rows_on_model_blocks():
     """``train_4k``'s 256 rows on the 512 ranks of (2, 16, 16): eight rows
     a rank, shared along ``model``."""
-    cfg = treg.get_config("minicpm-2b")
     shape = treg.SHAPES["train_4k"]
-    assert dryrun.train_refusal(shape, True, cfg) is None
-    assert dryrun.row_axes(cfg) == ("pod", "data")
+    assert dryrun.train_refusal(shape, True) is None
+    assert dryrun.ROW_AXES == ("pod", "data")
     with dryrun.fake_mesh(True) as mesh:
-        assert dryrun.train_rows(shape, mesh, cfg) == 8
+        assert dryrun.train_rows(shape, mesh) == 8
 
 
 @pytest.mark.parametrize("arch", ["rwkv6-1.6b", "hymba-1.5b"])
 def test_whole_weight_families_still_refuse_256_rows_on_512_ranks(arch):
-    """rwkv6 and hymba gather their weights whole, so their rows split over
-    ``model`` too: ``train_4k`` on the multi-pod mesh is skipped untraced,
-    the reason naming the family."""
-    cfg = treg.get_config(arch)
-    assert dryrun.row_axes(cfg) == ("pod", "data", "model")
-    assert dryrun.train_refusal(treg.SHAPES["train_4k"], False, cfg) is None
-    cell = dryrun.run_cell(arch, "train_4k", True, verbose=False)
-    assert cell["status"] == "skipped"
-    assert "does not split over the 512 ranks of pod x data x model" in cell["skip_reason"]
-    assert f"{cfg.family} family ({arch})" in cell["skip_reason"]
+    """rwkv6 and hymba, which gathered their weights whole and refused
+    ``train_4k``'s 256 rows on the 512 ranks of (2, 16, 16), compute on
+    Megatron blocks: nothing refuses the cell, and a step at published
+    widths (2 layers, 32 rows of 8 tokens: one a pod x data rank) traces on
+    the multi-pod mesh with its weights gathered over ``data``, its
+    activations reduced over ``model`` and no all-gather over ``model``
+    (rwkv6's 32 heads split 2 a rank, hymba's 25 replicated)."""
+    from repro_torch.dist import spmd
+
+    cfg = treg.get_config(arch).scaled(n_layers=2)
+    assert dryrun.train_refusal(treg.SHAPES["train_4k"], True) is None
+    with dryrun.fake_mesh(True) as mesh:
+        assert dryrun.train_rows(treg.SHAPES["train_4k"], mesh) == 8
+        model = treg.build_model(cfg, device="meta")
+        spmd.reset_sent_bytes()
+        cost = dryrun.train_cost(model, cfg, treg.ShapeCell("train_small", 8, 32, "train"),
+                                 mesh, 1, 1)
+        sent = {k: dict(v) for k, v in spmd.sent_by_axis.items()}
+    assert cost["flops"] > 0 and cost["collective"]["all-gather"] > 0
+    assert sent["all_gather"].get("data", 0) > 0 and sent["all_reduce"].get("model", 0) > 0
+    assert "model" not in sent["all_gather"] and "model" not in sent["reduce_scatter"], sent
 
 
 def test_a_model_block_no_layer_takes_raises(monkeypatch):

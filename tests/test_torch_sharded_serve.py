@@ -87,6 +87,7 @@ MESHES = {"2x2x2": ((2, 2, 2), ("pod", "data", "model")), "4x2": ((4, 2), ("data
 CACHE_SHAPES = ((4, 8192), (1, 8192), (4, 2048))
 DRILL = dict(total_steps=9, ckpt_every=2, drain_deadline_s=30.0, grow_back_after=2)
 DRILL_SHAPE = {"data": 2, "model": 2}
+STATES = ("wkv", "ssd_state")  # recurrent states: every model rank holds every head
 
 
 def _cases() -> list:
@@ -147,6 +148,7 @@ from repro_torch.train import supervisor as sup
 
 inp = pickle.load(open(f"{root}/inputs.pkl", "rb"))
 mesh = make_mesh((2, 2), ("data", "model"), "cpu")
+STATES = inp["states"]
 out = {"serve": {}}
 
 def whole(x):
@@ -163,11 +165,13 @@ for (arch, kind, codec, attention), case in inp["serve"].items():
     cache = place_cache({k: torch.from_numpy(v).to(spec[k].dtype) for k, v in case["cache"].items()})
     placed = {k: shardlib.spec_of(v) if shardlib.is_dtensor(v) else () for k, v in cache.items()}
     params = step_lib.place_tree(params, p_shard)
-    logits = []
+    logits, states = [], []
     for tok, idx in case["steps"]:
         lg, cache = serve(params, cache, torch.from_numpy(tok), torch.from_numpy(idx))
         logits.append(whole(lg))
-    out["serve"][(arch, kind, codec, attention)] = {"logits": logits, "placed": placed}
+        states.append({k: shardlib.local(cache[k]).numpy().copy() for k in STATES if k in cache})
+    out["serve"][(arch, kind, codec, attention)] = {"logits": logits, "placed": placed,
+                                                    "states": states}
 
 # the supervised drill with a lost data row
 d = inp["drill"]
@@ -279,8 +283,8 @@ def _free_port() -> int:
 
 
 def _port_serve(inp: dict) -> dict:
-    """The port's one-process ``decode_step`` on each case: logits per
-    step."""
+    """The port's one-process ``decode_step`` on each case: logits and
+    recurrent states per step."""
     from repro_torch.models.interop import params_from_jax
 
     out = {}
@@ -291,12 +295,13 @@ def _port_serve(inp: dict) -> dict:
         kv = TL.KVCodecConfig(codec)
         spec = model.cache_spec(case["b"], case["s"], kv)
         cache = {k: torch.from_numpy(v).to(spec[k].dtype) for k, v in case["cache"].items()}
-        logits = []
+        logits, states = [], []
         for tok, idx in case["steps"]:
             lg, cache = model.decode_step(params, cache, torch.from_numpy(tok),
                                           torch.from_numpy(idx), kv, attention)
             logits.append(lg.numpy())
-        out[(arch, kind, codec, attention)] = logits
+            states.append({k: cache[k].numpy().copy() for k in STATES if k in cache})
+        out[(arch, kind, codec, attention)] = {"logits": logits, "states": states}
     return out
 
 
@@ -336,7 +341,7 @@ def session(tmp_path_factory):
                                                                   jnp.float32)),
              "shape": DRILL_SHAPE, "cfg": DRILL}
     with open(root / "inputs.pkl", "wb") as f:
-        pickle.dump({"serve": serve, "drill": drill, "meshes": MESHES,
+        pickle.dump({"serve": serve, "drill": drill, "meshes": MESHES, "states": STATES,
                      "archs": list(registry.ARCH_IDS), "cache_shapes": CACHE_SHAPES}, f)
     (root / "rank.py").write_text(textwrap.dedent(RANK))
     (root / "reference.py").write_text(textwrap.dedent(REFERENCE))
@@ -397,7 +402,7 @@ def test_cache_placement_equals_reference(session, arch, mesh_name):
 @pytest.mark.parametrize("arch,kind,codec,attention", _cases())
 def test_serve_step_equals_reference(session, arch, kind, codec, attention):
     key = (arch, kind, codec, attention)
-    want, one = session["serve_want"][key], session["serve_one"][key]
+    want, one = session["serve_want"][key], session["serve_one"][key]["logits"]
     runs = [r["serve"][key] for r in session["ranks"]]
     placed = runs[0]["placed"]
     split = [k for k, spec in placed.items() if len(spec) > 2]
@@ -411,6 +416,25 @@ def test_serve_step_equals_reference(session, arch, kind, codec, attention):
             bound = np.abs(o - w) + RTOL * np.abs(w) + ATOL
             assert (np.abs(got - w) <= bound).all(), (step, float(np.abs(got - w).max()))
             np.testing.assert_array_equal(got.argmax(-1), w.argmax(-1))
+    # every model rank's recurrent state holds every head of its data rank's
+    # lanes, as the one-process run's after the same step: within the
+    # logits' atol plus their rtol of the state's largest magnitude (hymba's
+    # SSD states reach |90| at SMOKE, and each element sums decayed terms of
+    # that size, where the one-process float32 run itself lies up to 5.7e-4
+    # from float64; a head left stale or taken from another rank is off by
+    # O(1))
+    one_states = session["serve_one"][key]["states"]
+    for r, run in enumerate(runs):
+        lanes = slice((r // 2) * (B // 2), (r // 2 + 1) * (B // 2))  # rank r: data r // 2
+        for step, (got, w) in enumerate(zip(run["states"], one_states)):
+            assert set(got) == set(w) == ({"wkv"} if arch == "rwkv6-1.6b" else {"ssd_state"}
+                                          if arch == "hymba-1.5b" else set())
+            for name in got:
+                assert run["placed"][name] == (None, "data"), run["placed"][name]
+                scale = float(np.abs(w[name]).max())
+                np.testing.assert_allclose(got[name], w[name][:, lanes], rtol=0,
+                                           atol=ATOL + RTOL * scale,
+                                           err_msg=f"rank {r} step {step} {name}")
 
 
 # ---------------------------------------------------------- K10's blocks --

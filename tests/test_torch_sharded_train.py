@@ -11,10 +11,13 @@
   pod dimension.
 * On 8 ``gloo`` ranks (one subprocess each, one session for the module):
   - **sharded vs replicated**: three steps of the sharded step on
-    ``{"pod": 2, "data": 2, "model": 2}`` (minicpm-2b and phi3.5-moe at
-    SMOKE in float32, and minicpm-2b with two microbatches; the ranks
-    along ``model`` share their rows and compute on Megatron blocks)
-    against the port's own one-process step: the tolerances of
+    ``{"pod": 2, "data": 2, "model": 2}`` (minicpm-2b, phi3.5-moe and
+    rwkv6 at SMOKE in float32, minicpm-2b with two microbatches, hymba in
+    float64; the ranks along ``model`` share their rows and compute on
+    Megatron blocks: rwkv6's one 64-wide head a rank, hymba's 2 q, 1 kv and
+    2 SSD heads a rank) against the port's own one-process step (hymba's
+    one-process float32 ``m`` already lies up to 5.7e-6 from float64's, 16
+    elements outside ``m``'s tolerance): the tolerances of
     ``tests/test_torch_train.py`` (loss ``rtol`` 1e-6, parameters 1e-5
     absolute, second moments ``rtol`` 1e-2), the gradient norm within
     ``rtol`` 1e-5, and each rank's blocks of the shapes its specs give;
@@ -23,8 +26,11 @@
     replicated and cut per rank), minicpm-2b at SMOKE with 2 heads (heads
     replicated, every rank computes the whole attention), whisper-base
     at SMOKE with random frames (self- and cross-attention, GELU MLPs and
-    the tied table on blocks) and qwen3-moe at SMOKE with 6 experts (the
-    experts replicated on 4, each a Megatron MLP on its ``mlp`` blocks).
+    the tied table on blocks), qwen3-moe at SMOKE with 6 experts (the
+    experts replicated on 4, each a Megatron MLP on its ``mlp`` blocks),
+    rwkv6 at SMOKE (32 columns a rank cut its two 64-wide heads: the time
+    mix gathers them whole, the channel mix splits) and hymba at SMOKE (4
+    q and 4 SSD heads split, its 2 kv heads replicated and cut per rank).
     The last three run in float64 (the model modules' float32 casts made
     float64, as ``chip_smoke.py``'s phase 30 evaluates its reference).  At
     SMOKE every step is sensitive at the tolerances' level: a one-ulp change
@@ -143,9 +149,9 @@ def float64_modules(on: bool):
     """The model modules' float32 casts (norms, RoPE, attention scores,
     routing, the loss) made float64 while ``on``, through a stand-in for
     their ``torch``; restored on exit."""
-    from repro_torch.models import encdec, layers, moe, transformer
+    from repro_torch.models import encdec, hybrid, layers, moe, rwkv6, transformer
 
-    mods = (layers, transformer, moe, encdec)
+    mods = (layers, transformer, moe, encdec, rwkv6, hybrid)
     saved = [m.torch for m in mods]
     if on:
         proxy = types.ModuleType("torch")
@@ -209,10 +215,12 @@ def digest(tree):
 # sharded step
 mesh24 = make_mesh((2, 4), ("data", "model"), "cpu")
 CASES = [("minicpm-2b", 1, full, {}, False), ("phi3.5-moe-42b-a6.6b", 1, full, {}, False),
-         ("minicpm-2b", 2, full, {}, False), ("phi3.5-moe-42b-a6.6b", 1, mesh24, {}, False),
+         ("minicpm-2b", 2, full, {}, False), ("rwkv6-1.6b", 1, full, {}, False),
+         ("hymba-1.5b", 1, full, {}, True), ("phi3.5-moe-42b-a6.6b", 1, mesh24, {}, False),
          ("minicpm-2b", 1, mesh24, {"n_heads": 2, "n_kv_heads": 2}, True),
          ("whisper-base", 1, mesh24, {}, True),
-         ("qwen3-moe-30b-a3b", 1, mesh24, {"n_experts": 6}, True)]
+         ("qwen3-moe-30b-a3b", 1, mesh24, {"n_experts": 6}, True),
+         ("rwkv6-1.6b", 1, mesh24, {}, False), ("hymba-1.5b", 1, mesh24, {}, False)]
 for arch, k, mesh, over, f64 in CASES:
     with float64_modules(f64):
         cfg = registry.get_config(arch, smoke=True).scaled(dtype="float32", **over)
@@ -424,9 +432,9 @@ def _hold(got: dict, want: dict, first: dict) -> None:
 
 
 @pytest.mark.parametrize("arch,k", [("minicpm-2b", 1), ("phi3.5-moe-42b-a6.6b", 1),
-                                    ("minicpm-2b", 2)])
+                                    ("minicpm-2b", 2), ("rwkv6-1.6b", 1), ("hymba-1.5b", 1)])
 def test_sharded_step_equals_replicated(ranks, arch, k):
-    want = _replicated(arch, k)
+    want = _replicated(arch, k, f64=arch == "hymba-1.5b")
     for run in ranks:
         _hold(run[("step", arch, k)], want, ranks[0][("step", arch, k)])
 
@@ -435,7 +443,9 @@ def test_sharded_step_equals_replicated(ranks, arch, k):
     ("phi3.5-moe-42b-a6.6b", {}, False),  # 4 q heads split, 2 kv heads replicated on 4
     ("minicpm-2b", {"n_heads": 2, "n_kv_heads": 2}, True),  # heads replicated on 4
     ("whisper-base", {}, True),
-    ("qwen3-moe-30b-a3b", {"n_experts": 6}, True)])  # 6 experts replicated, mlp split on 4
+    ("qwen3-moe-30b-a3b", {"n_experts": 6}, True),  # 6 experts replicated, mlp split on 4
+    ("rwkv6-1.6b", {}, False),  # 32 columns a rank cut its 2 heads of 64: gathered whole
+    ("hymba-1.5b", {}, False)])  # 4 q and 4 SSD heads split, 2 kv heads replicated on 4
 def test_head_layouts_on_data_2_model_4(ranks, arch, over, f64):
     """The step on ``{"data": 2, "model": 4}`` against the one-process step
     (module docstring: the three head layouts)."""
