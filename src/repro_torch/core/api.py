@@ -9,6 +9,13 @@ Modes (paper §II-A):
 A compressor runs on one device, CUDA unless ``device="cpu"`` is passed
 (:func:`repro_torch.device.resolve_device`): inputs are moved there,
 payloads live there, and a payload on another device is refused.
+
+Traced (:mod:`repro_torch.obs.trace`): each ``compress`` and ``decompress``
+is a call (``api.compress``, ``api.decompress``, with the compressor and the
+raw bytes); the 1-D route's pad and reshape of each partition
+(``route.to_3d``) and the join of the parts (``route.cat``) are spans, so
+the copies they put on the device are put down to them; each host read-back
+is a ``sync.<what>`` span, so their count a call is the call's host syncs.
 """
 
 from __future__ import annotations
@@ -22,6 +29,7 @@ import torch
 
 from repro_torch.core import sz, transforms, zfp
 from repro_torch.device import resolve_device
+from repro_torch.obs import trace as obs_trace
 
 
 @dataclasses.dataclass(frozen=True)
@@ -94,62 +102,66 @@ class SZCompressor:
         comp = [sz.compress(p, eb, self.block_size) for p in parts]
         # per-part bit counts summed on the host as Python ints (many
         # partitions can exceed 2**31 bits combined)
-        return comp, sum(int(c.packed.total_bits) for c in comp)
+        with obs_trace.span("sync.total_bits"):
+            return comp, sum(int(c.packed.total_bits) for c in comp)
 
     def compress(self, x, eb: float | None = None, pw_rel: float | None = None,
                  **_: Any) -> CompressionResult:
         x = torch.as_tensor(x, dtype=torch.float32, device=self.device)
         raw = math.prod(x.shape) * 4
-        side_bits = 0
-        meta: dict[str, Any] = {"mode": "abs", "eb": eb}
-        signs = None
-        if pw_rel is not None:
-            t = transforms.log_forward(x)
-            x, signs = t.logs, t.signs
-            eb = transforms.pwrel_to_abs(pw_rel)
-            side_bits = transforms.sign_channel_bits(math.prod(x.shape))
-            meta = {"mode": "pw_rel", "pw_rel": pw_rel, "eb_log": eb}
-        if eb is None:
-            raise ValueError("SZ requires eb= (ABS) or pw_rel=")
-        if self._use_kernel(x):
-            from repro_torch.kernels import ops as kops
+        with obs_trace.call("api.compress", compressor=self.name, raw_bytes=raw):
+            side_bits = 0
+            meta: dict[str, Any] = {"mode": "abs", "eb": eb}
+            signs = None
+            if pw_rel is not None:
+                t = transforms.log_forward(x)
+                x, signs = t.logs, t.signs
+                eb = transforms.pwrel_to_abs(pw_rel)
+                side_bits = transforms.sign_channel_bits(math.prod(x.shape))
+                meta = {"mode": "pw_rel", "pw_rel": pw_rel, "eb_log": eb}
+            if eb is None:
+                raise ValueError("SZ requires eb= (ABS) or pw_rel=")
+            if self._use_kernel(x):
+                from repro_torch.kernels import ops as kops
 
-            packed, padded_shape, eb_i = kops.sz_compress_kernel(x, eb)
-            nbits = int(packed.total_bits) + side_bits
-            payload = {"kernel": True, "kpacked": packed, "padded_shape": padded_shape,
-                       "eb_i": eb_i, "signs": signs, "shape": tuple(x.shape),
-                       "orig_len": math.prod(x.shape), "was_1d": False}
-            meta.update({"was_1d": False, "backend": "kernel"})
+                packed, padded_shape, eb_i = kops.sz_compress_kernel(x, eb)
+                with obs_trace.span("sync.total_bits"):
+                    nbits = int(packed.total_bits) + side_bits
+                payload = {"kernel": True, "kpacked": packed, "padded_shape": padded_shape,
+                           "eb_i": eb_i, "signs": signs, "shape": tuple(x.shape),
+                           "orig_len": math.prod(x.shape), "was_1d": False}
+                meta.update({"was_1d": False, "backend": "kernel"})
+                return CompressionResult(payload, (nbits + 7) // 8, raw, meta)
+            parts, shape_meta = self._canonical(x)
+            comp, nbits = self._compress_parts(parts, eb)
+            nbits += side_bits
+            payload = {"parts": comp, "signs": signs, "shape": tuple(x.shape), **shape_meta}
+            meta.update(shape_meta)
             return CompressionResult(payload, (nbits + 7) // 8, raw, meta)
-        parts, shape_meta = self._canonical(x)
-        comp, nbits = self._compress_parts(parts, eb)
-        nbits += side_bits
-        payload = {"parts": comp, "signs": signs, "shape": tuple(x.shape), **shape_meta}
-        meta.update(shape_meta)
-        return CompressionResult(payload, (nbits + 7) // 8, raw, meta)
 
     def decompress(self, r: CompressionResult) -> torch.Tensor:
         packed = (r.payload["kpacked"] if r.payload.get("kernel")
                   else r.payload["parts"][0].packed)
         _check_payload_device(packed.words, self.device)
-        if r.payload.get("kernel"):
-            from repro_torch.kernels import ops as kops
+        with obs_trace.call("api.decompress", compressor=self.name, raw_bytes=r.raw_nbytes):
+            if r.payload.get("kernel"):
+                from repro_torch.kernels import ops as kops
 
-            x = kops.sz_decompress_kernel(r.payload["kpacked"], r.payload["padded_shape"],
-                                          r.payload["shape"], r.payload["eb_i"])
-        else:
-            parts = [sz.decompress(c) for c in r.payload["parts"]]
-            if r.payload["was_1d"]:
-                part = transforms.HACC_PARTITION
-                flats = [transforms.from_3d(p, min(part, r.payload["orig_len"] - i * part))
-                         for i, p in enumerate(parts)]
-                x = torch.cat(flats)[: r.payload["orig_len"]]
+                x = kops.sz_decompress_kernel(r.payload["kpacked"], r.payload["padded_shape"],
+                                              r.payload["shape"], r.payload["eb_i"])
             else:
-                x = parts[0].reshape(r.payload["shape"])
-        if r.meta["mode"] == "pw_rel":
-            t = transforms.LogTransformed(x, r.payload["signs"], torch.zeros(()))
-            x = transforms.log_inverse(t)
-        return x
+                parts = [sz.decompress(c) for c in r.payload["parts"]]
+                if r.payload["was_1d"]:
+                    part = transforms.HACC_PARTITION
+                    flats = [transforms.from_3d(p, min(part, r.payload["orig_len"] - i * part))
+                             for i, p in enumerate(parts)]
+                    x = torch.cat(flats)[: r.payload["orig_len"]]
+                else:
+                    x = parts[0].reshape(r.payload["shape"])
+            if r.meta["mode"] == "pw_rel":
+                t = transforms.LogTransformed(x, r.payload["signs"], torch.zeros(()))
+                x = transforms.log_inverse(t)
+            return x
 
 
 class ZFPCompressor:
@@ -192,7 +204,10 @@ class ZFPCompressor:
             # 3-D only, so the reshape is mandatory and ``reshape_1d=False``
             # only skips the HACC partitioning
             parts = transforms.partition_1d(x) if self.reshape_1d else [x]
-            shaped = [transforms.to_3d(p, (-(-p.shape[0] // 64), 8, 8)) for p in parts]
+            shaped = []
+            for p in parts:
+                with obs_trace.span("route.to_3d"):
+                    shaped.append(transforms.to_3d(p, (-(-p.shape[0] // 64), 8, 8)))
             return shaped, {"orig_len": x.shape[0], "was_1d": True}
         if x.ndim == 2:
             x = x[:, :, None]
@@ -203,36 +218,39 @@ class ZFPCompressor:
             raise ValueError("ZFP requires rate= (bits/value)")
         x = torch.as_tensor(x, dtype=torch.float32, device=self.device)
         raw = math.prod(x.shape) * 4  # original count: padding not charged
-        orig_shape = tuple(x.shape)
-        parts, shape_meta = self._canonical(x)
-        backend = "kernel" if self._use_kernel() else "core"
-        if backend == "kernel":
-            from repro_torch.kernels import ops as kops
+        with obs_trace.call("api.compress", compressor=self.name, raw_bytes=raw):
+            orig_shape = tuple(x.shape)
+            parts, shape_meta = self._canonical(x)
+            backend = "kernel" if self._use_kernel() else "core"
+            if backend == "kernel":
+                from repro_torch.kernels import ops as kops
 
-            comp = [kops.zfp_compress_kernel(p, rate) for p in parts]
-        else:
-            comp = [zfp.compress(p, rate) for p in parts]
-        nbytes = sum(zfp.compressed_nbytes(c) for c in comp)
-        payload = {"parts": comp, "orig_shape": orig_shape, **shape_meta}
-        return CompressionResult(payload, nbytes, raw,
-                                 {"mode": "rate", "rate": rate, "backend": backend,
-                                  **shape_meta})
+                comp = [kops.zfp_compress_kernel(p, rate) for p in parts]
+            else:
+                comp = [zfp.compress(p, rate) for p in parts]
+            nbytes = sum(zfp.compressed_nbytes(c) for c in comp)
+            payload = {"parts": comp, "orig_shape": orig_shape, **shape_meta}
+            return CompressionResult(payload, nbytes, raw,
+                                     {"mode": "rate", "rate": rate, "backend": backend,
+                                      **shape_meta})
 
     def decompress(self, r: CompressionResult) -> torch.Tensor:
         _check_payload_device(r.payload["parts"][0].words, self.device)
-        if self._use_kernel():
-            from repro_torch.kernels import ops as kops
+        with obs_trace.call("api.decompress", compressor=self.name, raw_bytes=r.raw_nbytes):
+            if self._use_kernel():
+                from repro_torch.kernels import ops as kops
 
-            parts = [kops.zfp_decompress_kernel(c) for c in r.payload["parts"]]
-        else:
-            parts = [zfp.decompress(c) for c in r.payload["parts"]]
-        orig = r.payload["orig_shape"]
-        if r.payload["was_1d"]:
-            return torch.cat([p.reshape(-1) for p in parts])[: orig[0]]
-        x = parts[0]
-        if len(orig) == 2:
-            return x[:, :, 0]
-        return x
+                parts = [kops.zfp_decompress_kernel(c) for c in r.payload["parts"]]
+            else:
+                parts = [zfp.decompress(c) for c in r.payload["parts"]]
+            orig = r.payload["orig_shape"]
+            if r.payload["was_1d"]:
+                with obs_trace.span("route.cat"):
+                    return torch.cat([p.reshape(-1) for p in parts])[: orig[0]]
+            x = parts[0]
+            if len(orig) == 2:
+                return x[:, :, 0]
+            return x
 
 
 _REGISTRY: dict[str, Callable[..., Any]] = {

@@ -10,6 +10,11 @@ is ``core.zfp.decompress``, as in the reference); the name is kept from the
 reference, where that path is XLA.  ``auto`` is ``fused`` on a CUDA tensor
 and ``xla`` on a CPU one, as the reference picks ``fused`` on the TPU.  All
 paths of a compressor emit the same stream.
+
+Traced (:mod:`repro_torch.obs.trace`): the device work around the fused
+kernels is in spans, so the operations it launches are put down to them:
+``sz.guarded_eb``, ``zfp.carve`` and ``zfp.uncarve``; each fused launch is
+its kernel module's ``kernel.<name>`` span.
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ from repro_torch.kernels import lorenzo3d as _lor
 from repro_torch.kernels import sz_fused as _szf
 from repro_torch.kernels import zfp3d as _zfp
 from repro_torch.kernels import zfp_fused as _zfpf
+from repro_torch.obs import trace as obs_trace
 
 
 def _resolve_path(what: str, path: str, device: torch.device) -> str:
@@ -55,7 +61,8 @@ def sz_compress_kernel(x: torch.Tensor, eb: float, path: str = "auto", eb_i=None
                       0, padded[0] - x.shape[0]))
     x = x.contiguous()
     if eb_i is None:
-        eb_i = _lor.guarded_eb(x, eb)
+        with obs_trace.span("sz.guarded_eb"):
+            eb_i = _lor.guarded_eb(x, eb)
     eb_i = torch.as_tensor(eb_i, dtype=torch.float32, device=x.device)
     if path == "fused":
         packed = _szf.fused_compress(x, eb_i)
@@ -80,11 +87,17 @@ def sz_decompress_kernel(packed: bitpack.PackedCodes, padded_shape, orig_shape, 
 # ------------------------------------------------------------ TPU-ZFP -----
 
 
+def _carve(x: torch.Tensor) -> torch.Tensor:
+    """The field's (NB, 4, 4, 4) blocks, a copy, in the ``zfp.carve`` span."""
+    with obs_trace.span("zfp.carve"):
+        return zfp_core._carve_blocks(x.to(torch.float32))
+
+
 def zfp_transform_kernel(x: torch.Tensor):
     """Kernel-path ZFP stages 1-4 on a 3-D field: (u uint32[NB, 64] in
     sequency order, emax uint8[NB], gtops uint8[NB, 10]), the values of
     :func:`repro_torch.core.zfp.block_transform`."""
-    u, emax, gtops = _zfp.zfp3d_transform(zfp_core._carve_blocks(x.to(torch.float32)))
+    u, emax, gtops = _zfp.zfp3d_transform(_carve(x))
     u = u.view(torch.int32)[:, zfp_core._index(zfp_core.PERM, u.device)].view(torch.uint32)
     return u, emax, gtops
 
@@ -96,8 +109,7 @@ def zfp_compress_kernel(x: torch.Tensor, rate: int, path: str = "auto") -> zfp_c
     path = _resolve_path("ZFP", path, x.device)
     zfp_core.payload_words(rate)  # validates the rate before any work
     if path == "fused":
-        blocks = zfp_core._carve_blocks(x.to(torch.float32))
-        words, emax, gtops = _zfpf.fused_compress_blocks(blocks, rate)
+        words, emax, gtops = _zfpf.fused_compress_blocks(_carve(x), rate)
     else:
         u, emax, gtops = zfp_transform_kernel(x)
         words = zfp_core.encode_words(u.view(torch.int32), gtops, rate)
@@ -109,7 +121,8 @@ def zfp_decompress_kernel(c: zfp_core.ZFPCompressed, path: str = "auto") -> torc
     reads :func:`repro_torch.core.zfp.compress` streams: same layout)."""
     if _resolve_path("ZFP", path, c.words.device) == "fused":
         blocks = _zfpf.fused_decompress_blocks(c.words, c.emax, c.gtops, c.rate)
-        return zfp_core._uncarve_blocks(blocks, c.shape)
+        with obs_trace.span("zfp.uncarve"):
+            return zfp_core._uncarve_blocks(blocks, c.shape)
     return zfp_core.decompress(c)
 
 

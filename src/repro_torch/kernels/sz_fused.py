@@ -33,7 +33,9 @@ stream compacted from the rows (:func:`_assemble_stream`,
 ``bitpack.compact_streams``), and back (:func:`_disassemble`,
 :func:`fused_decode_plain`).  The rows exist only because a TPU kernel
 cannot scatter; the CUDA kernels never form them.  ``launches`` counts kernel
-launches, nothing else.
+launches, nothing else; a single field's launch, with its allocations and
+zeroed scratch, is a span ``kernel.fused_compress`` or
+``kernel.fused_decompress`` (:mod:`repro_torch.obs.trace`).
 """
 
 from __future__ import annotations
@@ -45,6 +47,7 @@ import torch
 from repro_torch.core import bitpack
 from repro_torch.kernels import _build
 from repro_torch.kernels import lorenzo3d as _lor
+from repro_torch.obs import trace as obs_trace
 
 TILE = _lor.TILE  # (8, 64, 128)
 CODES_PER_TILE = TILE[0] * TILE[1] * TILE[2]  # 65536
@@ -225,9 +228,10 @@ def fused_compress(x: torch.Tensor, eb_i) -> bitpack.PackedCodes:
     _lor.tile_grid(x.shape)
     eb = _lor._eb_on(eb_i, x)
     _check_rows(x, "fused_compress")
-    total_bits = torch.empty((), dtype=torch.int64, device=x.device)
-    words, widths = _encode(x, eb, 1, None, total_bits.data_ptr())
-    launches["fused_compress"] += 1
+    with obs_trace.span("kernel.fused_compress"):
+        total_bits = torch.empty((), dtype=torch.int64, device=x.device)
+        words, widths = _encode(x, eb, 1, None, total_bits.data_ptr())
+        launches["fused_compress"] += 1
     return bitpack.PackedCodes(words, widths, total_bits, n)
 
 
@@ -321,9 +325,10 @@ def fused_decompress(packed: bitpack.PackedCodes, padded_shape, eb_i) -> torch.T
         return fused_decompress_plain(packed, padded_shape, eb_i)
     _lor.tile_grid(padded_shape)
     eb = _lor._eb_on(eb_i, packed.words)
-    out = torch.empty(tuple(padded_shape), dtype=torch.float32, device=packed.words.device)
-    _decode(packed.words, packed.widths, eb, out, "fused_decompress")
-    launches["fused_decompress"] += 1
+    with obs_trace.span("kernel.fused_decompress"):
+        out = torch.empty(tuple(padded_shape), dtype=torch.float32, device=packed.words.device)
+        _decode(packed.words, packed.widths, eb, out, "fused_decompress")
+        launches["fused_decompress"] += 1
     return out
 
 

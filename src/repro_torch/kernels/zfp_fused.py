@@ -17,7 +17,8 @@ and are masked off, so all forms give the same floats.
 
 On a CUDA tensor the wrappers launch the kernels in ``csrc/zfp_fused.cu``
 (or raise); on a CPU tensor they run the plain versions.  ``launches``
-counts kernel launches, nothing else.
+counts kernel launches, nothing else; each launch, with its allocations, is a
+span ``kernel.<launches key>`` (:mod:`repro_torch.obs.trace`).
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ from repro_torch.core import zfp as zfp_core
 from repro_torch.core.bitpack import u32_to_i64
 from repro_torch.kernels import _build
 from repro_torch.kernels import zfp3d as _zfp3d
+from repro_torch.obs import trace as obs_trace
 
 N_GROUPS = zfp_core.N_GROUPS
 
@@ -60,14 +62,15 @@ def fused_compress_blocks(blocks: torch.Tensor, rate: int):
         return fused_compress_blocks_plain(blocks, rate)
     wpb = zfp_core.payload_words(rate)
     nb = _zfp3d._check_blocks(blocks, "fused_compress_blocks blocks")
-    words = torch.empty(nb, wpb, dtype=torch.int32, device=blocks.device)
-    emax = torch.empty(nb, dtype=torch.uint8, device=blocks.device)
-    gtops = torch.empty(nb, N_GROUPS, dtype=torch.uint8, device=blocks.device)
-    P, I, L = _build.P, _build.I, _build.L
-    _build.launch("zfp_fused", "zfp_fused_encode", [P, P, P, P, L, I, I],
-                  blocks.data_ptr(), words.data_ptr(), emax.data_ptr(), gtops.data_ptr(), nb,
-                  wpb, rate * 64 - zfp_core._HEADER_BITS, device=blocks.device)
-    launches["fused_compress_blocks"] += 1
+    with obs_trace.span("kernel.fused_compress_blocks"):
+        words = torch.empty(nb, wpb, dtype=torch.int32, device=blocks.device)
+        emax = torch.empty(nb, dtype=torch.uint8, device=blocks.device)
+        gtops = torch.empty(nb, N_GROUPS, dtype=torch.uint8, device=blocks.device)
+        P, I, L = _build.P, _build.I, _build.L
+        _build.launch("zfp_fused", "zfp_fused_encode", [P, P, P, P, L, I, I],
+                      blocks.data_ptr(), words.data_ptr(), emax.data_ptr(), gtops.data_ptr(),
+                      nb, wpb, rate * 64 - zfp_core._HEADER_BITS, device=blocks.device)
+        launches["fused_compress_blocks"] += 1
     return words.view(torch.uint32), emax, gtops
 
 
@@ -122,10 +125,11 @@ def fused_decompress_blocks(words: torch.Tensor, emax: torch.Tensor, gtops: torc
     _build.check_cuda(words, torch.int32, "fused_decompress_blocks words")
     _build.check_cuda(emax, torch.uint8, "fused_decompress_blocks emax")
     _build.check_cuda(gtops, torch.uint8, "fused_decompress_blocks gtops")
-    out = torch.empty(nb, 4, 4, 4, dtype=torch.float32, device=words.device)
-    P, I, L = _build.P, _build.I, _build.L
-    _build.launch("zfp_fused", "zfp_fused_decode", [P, P, P, P, L, I, I],
-                  words.data_ptr(), emax.data_ptr(), gtops.data_ptr(), out.data_ptr(), nb,
-                  wpb, rate * 64 - zfp_core._HEADER_BITS, device=words.device)
-    launches["fused_decompress_blocks"] += 1
+    with obs_trace.span("kernel.fused_decompress_blocks"):
+        out = torch.empty(nb, 4, 4, 4, dtype=torch.float32, device=words.device)
+        P, I, L = _build.P, _build.I, _build.L
+        _build.launch("zfp_fused", "zfp_fused_decode", [P, P, P, P, L, I, I],
+                      words.data_ptr(), emax.data_ptr(), gtops.data_ptr(), out.data_ptr(), nb,
+                      wpb, rate * 64 - zfp_core._HEADER_BITS, device=words.device)
+        launches["fused_decompress_blocks"] += 1
     return out
