@@ -721,9 +721,17 @@ def zfp_kernels_vs_plain(inputs: dict, device) -> dict[str, float]:
                  [zff.fused_decompress_blocks_plain(*enc, rate)], f"{label} rate {rate}")
 
     for label, x in inputs.items():
-        hold_all(label, zfp_core._carve_blocks(x))
-        print(f"ZFP kernels vs plain at {label} {tuple(x.shape)}, rates {ZFP_CHECK_RATES}: "
-              "bitwise equal")
+        blocks = zfp_core._carve_blocks(x)
+        hold_all(label, blocks)
+        for rate in ZFP_CHECK_RATES:  # K6 and K7 on the field itself, the compressors' entry
+            enc = zff.fused_compress_field(x, rate)
+            hold("fused_compress_blocks", enc, zff.fused_compress_blocks_plain(blocks, rate),
+                 f"{label} field rate {rate}")
+            hold("fused_decompress_blocks", [zff.fused_decompress_field(*enc, rate, x.shape)],
+                 [zfp_core._uncarve_blocks(zff.fused_decompress_blocks_plain(*enc, rate),
+                                           x.shape)], f"{label} field rate {rate}")
+        print(f"ZFP kernels vs plain at {label} {tuple(x.shape)}, rates {ZFP_CHECK_RATES}, on "
+              "its carved blocks and on the field itself: bitwise equal")
     for nb in ZFP_HARD_COUNTS:
         blocks = zfp_cases.hard_blocks(nb, SEED + nb).to(device)
         hold_all(f"{nb} hard blocks", blocks)
@@ -979,7 +987,11 @@ def zfp_hacc(hacc, device) -> None:
 def zfp_stage_times(x) -> dict[str, float]:
     """Median ms of each stage of one ZFP compress and decompress of ``x``
     on both paths (CUDA-graph replays), beside the whole entry-point calls
-    (event pairs), and the peak device memory of one entry-point call each."""
+    (event pairs), and the peak device memory of one entry-point call each.
+    The fused path's K6 and K7 read and write the field (``K6.field``,
+    ``K7.field``); the same kernels on its carved blocks (the arena's entry:
+    the blocks as the field (4 nb, 4, 4)), with the carve and uncarve copies
+    that route needs, are timed beside them."""
     comp = get_compressor("tpu-zfp")
     r = comp.compress(x, rate=ZFP_RATE)
     c = r.payload["parts"][0]
@@ -993,11 +1005,14 @@ def zfp_stage_times(x) -> dict[str, float]:
         "zfp.xla.decompress.core_decompress": lambda: zfp_core.decompress(c),
     }
     stages = {
-        "zfp.fused.compress.carve": lambda: zfp_core._carve_blocks(x),
-        "zfp.fused.compress.K6": lambda: zff.fused_compress_blocks(blocks, ZFP_RATE),
-        "zfp.fused.decompress.K7": lambda: zff.fused_decompress_blocks(
+        "zfp.fused.compress.K6.field": lambda: zff.fused_compress_field(x, ZFP_RATE),
+        "zfp.fused.decompress.K7.field": lambda: zff.fused_decompress_field(
+            c.words, c.emax, c.gtops, ZFP_RATE, c.shape),
+        "zfp.blocks.compress.carve": lambda: zfp_core._carve_blocks(x),
+        "zfp.blocks.compress.K6": lambda: zff.fused_compress_blocks(blocks, ZFP_RATE),
+        "zfp.blocks.decompress.K7": lambda: zff.fused_decompress_blocks(
             c.words, c.emax, c.gtops, ZFP_RATE),
-        "zfp.fused.decompress.uncarve": lambda: zfp_core._uncarve_blocks(dec, c.shape),
+        "zfp.blocks.decompress.uncarve": lambda: zfp_core._uncarve_blocks(dec, c.shape),
         "zfp.xla.compress.K5": lambda: k5.zfp3d_transform(blocks),
         "zfp.xla.compress.permute+encode_words": lambda: zfp_core.encode_words(
             u.view(torch.int32)[:, perm], gtops, ZFP_RATE),
@@ -1348,22 +1363,24 @@ def kernel_times(x, eb: float) -> dict[str, dict]:
                              lambda: szf.fused_decompress_plain(packed, shape, eb_i),
                              sz_stream_bytes(n, 1, used, decode=True)),
     }
-    # ZFP at the main path's rate; headers at the format's 11 B per block
+    # ZFP at the main path's rate; headers at the format's 11 B per block.  K6
+    # and K7 on the field itself, as the compressors launch them; their plain
+    # versions on its carved blocks
     blocks = zfp_core._carve_blocks(x)
     zb = blocks.shape[0]
     zn = 64 * zb  # points of the carved blocks
-    enc = zff.fused_compress_blocks(blocks, ZFP_RATE)
+    enc = zff.fused_compress_field(x, ZFP_RATE)
     ops.update(zfp_ops(enc[2], ZFP_RATE))
     stream_bytes = 4 * zfp_core.payload_words(ZFP_RATE) * zb + 11 * zb
     runs.update({
         "zfp3d_transform": (lambda: k5.zfp3d_transform(blocks),
                             lambda: k5.zfp3d_transform_plain(blocks), 8 * zn + 11 * zb),
-        "fused_compress_blocks": (lambda: zff.fused_compress_blocks(blocks, ZFP_RATE),
+        "fused_compress_blocks": (lambda: zff.fused_compress_field(x, ZFP_RATE),
                                   lambda: zff.fused_compress_blocks_plain(blocks, ZFP_RATE),
-                                  4 * zn + stream_bytes),
-        "fused_decompress_blocks": (lambda: zff.fused_decompress_blocks(*enc, ZFP_RATE),
+                                  4 * x.numel() + stream_bytes),
+        "fused_decompress_blocks": (lambda: zff.fused_decompress_field(*enc, ZFP_RATE, x.shape),
                                     lambda: zff.fused_decompress_blocks_plain(*enc, ZFP_RATE),
-                                    stream_bytes + 4 * zn),
+                                    stream_bytes + 4 * x.numel()),
     })
     return {name: timed(kernel, plain, nbytes, ops[name])
             for name, (kernel, plain, nbytes) in runs.items()}
@@ -1731,16 +1748,19 @@ def serving_card_vs_cpu(device) -> None:
 
 
 def ptxas_resources(logs: dict[str, str]) -> dict[str, dict]:
-    """Registers and spill bytes of K1 and of each K10 instantiation
-    (``kvc_attention_kernel<D>``) from the build's ``-Xptxas=-v`` report;
-    empty for a library that was not compiled in this run."""
+    """Registers and spill bytes of K1, of each K10 instantiation
+    (``kvc_attention_kernel<D>``) and of K6 and K7 from the build's
+    ``-Xptxas=-v`` report; empty for a library that was not compiled in
+    this run."""
     out, name = {}, None
     for log in logs.values():
         for line in log.splitlines():
             m = re.search(r"Compiling entry function '(\S+)'", line)
             if m:
                 k10m = re.search(r"kvc_attention_kernelILi(\d+)E", m.group(1))
+                zfpm = re.search(r"zfp_fused_(?:en|de)code_kernel", m.group(1))
                 name = (f"kvc_attention_kernel<{k10m.group(1)}>" if k10m else
+                        zfpm.group(0) if zfpm else
                         "lorenzo3d_quantize_kernel" if "lorenzo3d_quantize_kernel" in m.group(1)
                         else None)
                 if name:
@@ -5722,9 +5742,14 @@ def run(device) -> dict:
 
     stages = stage_times(base, ebs["baryon_density"])
     print(f"stages at {N}^3 baryon_density (median ms; peak MiB): " + json.dumps(stages))
+    print("K6/K7 registers and spill bytes: " + json.dumps(
+        {k: v for k, v in resources.items() if k.startswith("zfp_fused")}))
     stages = zfp_stage_times(base)
     print(f"ZFP stages at {N}^3 baryon_density, rate {ZFP_RATE} (median ms; peak MiB): "
           + json.dumps(stages))
+    stages = zfp_stage_times(torch.cat([base, vx], dim=2))
+    print(f"ZFP stages at a Nyx box, {N} x {N} x {2 * N} baryon_density | vx, rate {ZFP_RATE} "
+          "(median ms; peak MiB): " + json.dumps(stages))
     times = kernel_times(base, ebs["baryon_density"])
     times.update(batched_kernel_times(xb, eb_rows))
     times["kvc_decode_attention"], _ = k10_times(device, serving, resources)

@@ -44,7 +44,7 @@ zfp3d_transform_kernel(const float* __restrict__ blocks, uint32_t* __restrict__ 
   if (t < nbc) {
     float v[64];
     zfp::Header h;
-    zfp::read_row(buf, t, v);
+    zfp::read_row(buf, t, v, t & 7);
     zfp::forward_block(v, u, h);
 #pragma unroll
     for (int g = 0; g < zfp::N_GROUPS; ++g)
@@ -52,7 +52,7 @@ zfp3d_transform_kernel(const float* __restrict__ blocks, uint32_t* __restrict__ 
     hdr[TILE * zfp::N_GROUPS + t] = static_cast<uint8_t>(h.emax);
   }
   __syncthreads();  // every row is read: the tile takes the coefficients
-  if (t < nbc) zfp::write_row(buf, t, u);
+  if (t < nbc) zfp::write_row(buf, t, u, t & 7);
   __syncthreads();
   zfp::store_tile(u_out + b0 * 64, buf, nbc);
   zfp::store_bytes(gtops + b0 * zfp::N_GROUPS, hdr, nbc * zfp::N_GROUPS);

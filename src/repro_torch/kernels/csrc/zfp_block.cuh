@@ -415,12 +415,14 @@ __device__ __forceinline__ void store_tile(uint32_t* __restrict__ dst, const uin
   }
 }
 
-// Row t of the swizzled tile <-> a thread's 64 registers.
-__device__ __forceinline__ void read_row(const uint32_t* buf, int t, float (&v)[64]) {
+// Row t of the swizzled tile <-> a thread's 64 registers: chunk c of the row
+// at c ^ sw, where sw takes 8 distinct values over any 8 consecutive rows
+// (t & 7 above; the field layout's slab rows permute those bits).
+__device__ __forceinline__ void read_row(const uint32_t* buf, int t, float (&v)[64], int sw) {
   const uint4* row = reinterpret_cast<const uint4*>(buf) + t * 16;
 #pragma unroll
   for (int c = 0; c < 16; ++c) {
-    const uint4 q = row[c ^ (t & 7)];
+    const uint4 q = row[c ^ sw];
     v[4 * c] = __uint_as_float(q.x);
     v[4 * c + 1] = __uint_as_float(q.y);
     v[4 * c + 2] = __uint_as_float(q.z);
@@ -428,11 +430,11 @@ __device__ __forceinline__ void read_row(const uint32_t* buf, int t, float (&v)[
   }
 }
 
-__device__ __forceinline__ void write_row(uint32_t* buf, int t, const uint32_t (&v)[64]) {
+__device__ __forceinline__ void write_row(uint32_t* buf, int t, const uint32_t (&v)[64], int sw) {
   uint4* row = reinterpret_cast<uint4*>(buf) + t * 16;
 #pragma unroll
   for (int c = 0; c < 16; ++c)
-    row[c ^ (t & 7)] = make_uint4(v[4 * c], v[4 * c + 1], v[4 * c + 2], v[4 * c + 3]);
+    row[c ^ sw] = make_uint4(v[4 * c], v[4 * c + 1], v[4 * c + 2], v[4 * c + 3]);
 }
 
 // n contiguous words between device memory and shared memory (16-byte
@@ -468,6 +470,183 @@ __device__ __forceinline__ void load_bytes(uint8_t* buf, const uint8_t* __restri
 __device__ __forceinline__ void store_bytes(uint8_t* __restrict__ dst, const uint8_t* buf, int n) {
   for (int i = threadIdx.x; i < n; i += TILE) dst[i] = buf[i];
 }
+
+// ------------------------------------------------ where the floats live ---
+//
+// K6 reads a CTA's nbc blocks of floats into each thread's v[64] (thread t
+// owns block b0 + t) and K7 writes them back, through a Field's load and
+// store.  Both are called by every thread of the CTA (they may hold
+// barriers), leave the shared buffer free, and touch v only for t < nbc.
+// Carved (nb, 4, 4, 4) blocks are the field (4 nb, 4, 4): block b at x =
+// 4 b, its values in the same order, a CTA's blocks one run (the slab path).
+
+// The field itself, (X, Y, Z) contiguous with z fastest, in the blocks'
+// order of core/zfp.py _carve_blocks: block b = (bx * gy + by) * gz + bz of
+// the grid padded to multiples of 4, its value c = 16 * i1 + 4 * i2 + i3 at
+// (4 bx + i1, 4 by + i2, 4 bz + i3).  So quad q = 4 * i1 + i2 of a block
+// (v[4q .. 4q + 3]) is 4 consecutive z values of the field.  Reads clamp
+// each coordinate to its side - 1 (the replicate padding, F.pad's value);
+// writes drop the points past a side (the crop).  Offsets are 64-bit.
+struct Field {
+  long long X, Y, Z;
+  long long gy, gz;  // blocks along y and z
+  bool vec;          // Z % 4 == 0 and the field 16-byte aligned: every quad is whole and aligned
+  // vec, Y % 4 == 0 and gy * gz divides TILE (so both are powers of two): a
+  // CTA's blocks are whole x slabs of blocks, one contiguous run of the
+  // field (HACC's (N/64, 8, 8): 16 KB), moved in address order through the
+  // swizzled tile.  Otherwise, where vec, each thread moves its own block's
+  // quads between the field and its registers: a warp's 32 blocks lie along
+  // z, so a quad's accesses are runs of up to 512 bytes (a Nyx box's 256 x
+  // 256 x 512: 16 runs of 1 KB a CTA).  Else each thread moves its block
+  // point by point, in a loop, through its own row of the tile.
+  bool slab;
+  int lgy, lgz;  // log2 of gy and gz, when slab
+  // A slab CTA's tile: row t (block b0 + t) keeps chunk c at c ^ sw(t), sw(t)
+  // t's low 3 bits rotated left by rot (chosen by lgz), so that 8
+  // consecutive quads of the run (one 128-byte line) land in 8 distinct bank
+  // groups, as 8 consecutive rows' chunks do for read_row and write_row.
+  // Thread t copies quads j = t + 64 k of the run, k < 16, in address order;
+  // their tile quads are slab_tile(j) = slab_tile(t) ^ step[k], slab_tile
+  // being linear in j's bits (step[k] = slab_tile(64 k), a kernel parameter
+  // read at constant k): one XOR a copy.  No parameter array is indexed at
+  // run time here (a table of sw per row, so indexed, slowed both kernels
+  // by 10-15% on an H100).
+  int rot;
+  uint16_t step[16];
+
+  __host__ __device__ int sw(int t) const { return ((t << rot) | ((t & 7) >> (3 - rot))) & 7; }
+
+  // The tile quad (t * 16 + chunk) of quad j of a slab CTA's run.
+  __host__ __device__ int slab_tile(int j) const {
+    const int bz = j & ((1 << lgz) - 1), yy = (j >> lgz) & ((4 << lgy) - 1);
+    const int xx = j >> (lgz + lgy + 2);
+    const int t = ((((xx >> 2) << lgy) | (yy >> 2)) << lgz) | bz;
+    return ((t << 4) | ((xx & 3) << 2) | (yy & 3)) ^ sw(t);
+  }
+
+  __device__ __forceinline__ void corner(long long b, long long& x, long long& y,
+                                         long long& z) const {
+    z = 4 * (b % gz);
+    b /= gz;
+    y = 4 * (b % gy);
+    x = 4 * (b / gy);
+  }
+
+  // A slab CTA's run: from x0 = 4 * (b0 >> (lgy + lgz)), nbc * 16 quads, of
+  // which the quads of x planes inside the field are the first (X - x0) *
+  // Y * Z / 4.  Full CTAs whose planes all lie in the field (all but the
+  // last at most) copy with no guard, so all 16 loads of a thread are in
+  // flight at once.
+  __device__ __forceinline__ int run_quads(long long x0, int nbc) const {
+    return static_cast<int>(min(static_cast<long long>(nbc) * 16, ((X - x0) * Y * Z) >> 2));
+  }
+
+  __device__ __forceinline__ void load(uint32_t* buf, const float* __restrict__ src, long long b0,
+                                       int nbc, float (&v)[64]) const {
+    const int t = threadIdx.x;
+    if (slab) {
+      const long long x0 = 4 * (b0 >> (lgy + lgz)), plane = Y * Z;
+      const uint4* s4 = reinterpret_cast<const uint4*>(src) + ((x0 * plane) >> 2);
+      uint4* b4 = reinterpret_cast<uint4*>(buf);
+      if (run_quads(x0, nbc) == TILE * 16) {
+        const int own = slab_tile(t);
+#pragma unroll
+        for (int k = 0; k < 16; ++k) b4[own ^ step[k]] = __ldg(s4 + t + 64 * k);
+      } else {  // x clamped to X - 1: a plane's quads again
+        const int lplane = lgz + lgy + 2;  // log2 of the quads in an x plane
+        for (int j = t; j < nbc * 16; j += TILE) {
+          const long long x = min(x0 + (j >> lplane), X - 1);
+          b4[slab_tile(j)] = __ldg(s4 + (((x - x0) * plane) >> 2) + (j & ((1 << lplane) - 1)));
+        }
+      }
+      __syncthreads();
+      if (t < nbc) read_row(buf, t, v, sw(t));
+      __syncthreads();
+    } else if (vec) {
+      if (t < nbc) {
+        long long x, y, z;
+        corner(b0 + t, x, y, z);
+#pragma unroll
+        for (int q = 0; q < 16; ++q) {
+          const uint4 w = __ldg(reinterpret_cast<const uint4*>(
+              src + (min(x + (q >> 2), X - 1) * Y + min(y + (q & 3), Y - 1)) * Z + z));
+          v[4 * q] = __uint_as_float(w.x);
+          v[4 * q + 1] = __uint_as_float(w.y);
+          v[4 * q + 2] = __uint_as_float(w.z);
+          v[4 * q + 3] = __uint_as_float(w.w);
+        }
+      }
+    } else {  // point by point into the thread's own tile row (a loop: little code)
+      if (t < nbc) {
+        long long x, y, z;
+        corner(b0 + t, x, y, z);
+#pragma unroll 1
+        for (int i = 0; i < 64; ++i) {
+          const int q = i >> 2;
+          buf[((t * 16 + (q ^ (t & 7))) << 2) | (i & 3)] = __float_as_uint(__ldg(
+              src + (min(x + (q >> 2), X - 1) * Y + min(y + (q & 3), Y - 1)) * Z +
+              min(z + (i & 3), Z - 1)));
+        }
+        read_row(buf, t, v, t & 7);
+      }
+      __syncthreads();  // every row is read: the buffer's rows become stream rows
+    }
+  }
+
+  __device__ __forceinline__ void store(uint32_t* buf, float* __restrict__ dst, long long b0,
+                                        int nbc, const float (&v)[64]) const {
+    const int t = threadIdx.x;
+    if (slab) {
+      __syncthreads();  // the buffer's stream rows are read
+      if (t < nbc) {
+        uint32_t bits[64];
+#pragma unroll
+        for (int c = 0; c < 64; ++c) bits[c] = __float_as_uint(v[c]);
+        write_row(buf, t, bits, sw(t));
+      }
+      __syncthreads();
+      const long long x0 = 4 * (b0 >> (lgy + lgz)), plane = Y * Z;
+      uint4* d4 = reinterpret_cast<uint4*>(dst) + ((x0 * plane) >> 2);
+      const uint4* b4 = reinterpret_cast<const uint4*>(buf);
+      const int n4 = run_quads(x0, nbc);
+      if (n4 == TILE * 16) {
+        const int own = slab_tile(t);
+#pragma unroll
+        for (int k = 0; k < 16; ++k) d4[t + 64 * k] = b4[own ^ step[k]];
+      } else {
+        for (int j = t; j < n4; j += TILE) d4[j] = b4[slab_tile(j)];
+      }
+    } else if (vec) {
+      if (t < nbc) {
+        long long x, y, z;
+        corner(b0 + t, x, y, z);
+#pragma unroll
+        for (int q = 0; q < 16; ++q)
+          if (x + (q >> 2) < X && y + (q & 3) < Y)
+            *reinterpret_cast<uint4*>(dst + ((x + (q >> 2)) * Y + y + (q & 3)) * Z + z) =
+                make_uint4(__float_as_uint(v[4 * q]), __float_as_uint(v[4 * q + 1]),
+                           __float_as_uint(v[4 * q + 2]), __float_as_uint(v[4 * q + 3]));
+      }
+    } else {  // point by point from the thread's own tile row
+      __syncthreads();  // the buffer's stream rows are read
+      if (t < nbc) {
+        uint32_t bits[64];
+#pragma unroll
+        for (int c = 0; c < 64; ++c) bits[c] = __float_as_uint(v[c]);
+        write_row(buf, t, bits, t & 7);
+        long long x, y, z;
+        corner(b0 + t, x, y, z);
+#pragma unroll 1
+        for (int i = 0; i < 64; ++i) {
+          const int q = i >> 2;
+          if (x + (q >> 2) < X && y + (q & 3) < Y && z + (i & 3) < Z)
+            dst[((x + (q >> 2)) * Y + y + (q & 3)) * Z + z + (i & 3)] =
+                __uint_as_float(buf[((t * 16 + (q ^ (t & 7))) << 2) | (i & 3)]);
+        }
+      }
+    }
+  }
+};
 
 }  // namespace zfp
 

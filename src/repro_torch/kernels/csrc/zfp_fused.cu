@@ -31,10 +31,15 @@
 // collectives (a warp per block spends several warp instructions per scalar
 // step: lanes idle in the lifts, a warp reduction per group top, a ballot
 // per bit plane each way).  cuZFP also gives a block a thread.
-//  - The CTA's span of blocks is contiguous in both directions: it moves
-//    between device and shared memory with coalesced 16-byte accesses
-//    (zfp_block.cuh's tile helpers; the float tile is swizzled so that each
-//    thread reads its own 256-byte row with conflict-free 16-byte loads).
+//  - The floats are read and written in place in the field itself (zfp_block.cuh
+//    Field), in the blocks' order of core/zfp.py _carve_blocks, so no carved
+//    copy is made: the padding is replicated on read and cropped on write.
+//    Carved (nb, 4, 4, 4) blocks, the snapshot arena's, are the field
+//    (4 nb, 4, 4).  16-byte quads move with coalesced accesses, through a
+//    swizzled tile in shared memory where a CTA's floats are one run (each
+//    thread then reads its own 256-byte row with conflict-free 16-byte
+//    loads), else straight to a thread's registers, a warp's quads running
+//    along z.
 //  - Stages 1-3 run on 64 registers (forward_block); the sequency
 //    permutation is a renaming; a group's top plane is the bit length of
 //    the OR of its members.
@@ -58,10 +63,10 @@
 // masked, as the reference reads 0 past the row), the absent runs put back
 // with no branch (a zero-width insertion where a group is present), the
 // inverse transposes, the inverse permutation by renaming, stages 1-3
-// inverted, the floats through the swizzled tile and out coalesced.
+// inverted, the floats out to the field the way K6 read them.
 // Every index into a thread's arrays is a compile-time constant, so nothing
 // goes to local memory: ptxas reports 0 spill bytes for both kernels (K6
-// 110 registers, K7 96; chip_smoke.py prints the report at each build).
+// 112 registers, K7 96; chip_smoke.py prints the report at each build).
 #include "zfp_block.cuh"
 
 namespace {
@@ -69,7 +74,7 @@ namespace {
 using zfp::TILE;
 
 __global__ void __launch_bounds__(TILE)
-zfp_fused_encode_kernel(const float* __restrict__ blocks, uint32_t* __restrict__ words,
+zfp_fused_encode_kernel(const float* __restrict__ x, zfp::Field f, uint32_t* __restrict__ words,
                         uint8_t* __restrict__ emax, uint8_t* __restrict__ gtops, long long nb,
                         int wpb, int budget) {
   __shared__ __align__(16) uint32_t buf[zfp::BUF_WORDS];
@@ -79,11 +84,8 @@ zfp_fused_encode_kernel(const float* __restrict__ blocks, uint32_t* __restrict__
   const int t = threadIdx.x;
   const int cap = min(wpb, zfp::ROW_WORDS), rs = min(wpb, zfp::ROW_WORDS + 1);
 
-  zfp::load_tile(buf, reinterpret_cast<const uint32_t*>(blocks + b0 * 64), nbc);
-  __syncthreads();
   float v[64];
-  if (t < nbc) zfp::read_row(buf, t, v);
-  __syncthreads();  // the float tile is read: its rows become stream rows
+  f.load(buf, x, b0, nbc, v);  // the buffer is free again: its rows become stream rows
   if (t < nbc) {
     uint32_t u[64];
     zfp::Header h;
@@ -111,8 +113,8 @@ zfp_fused_encode_kernel(const float* __restrict__ blocks, uint32_t* __restrict__
 
 __global__ void __launch_bounds__(TILE)
 zfp_fused_decode_kernel(const uint32_t* __restrict__ words, const uint8_t* __restrict__ emax,
-                        const uint8_t* __restrict__ gtops, float* __restrict__ out, long long nb,
-                        int wpb, int budget) {
+                        const uint8_t* __restrict__ gtops, float* __restrict__ x, zfp::Field f,
+                        long long nb, int wpb, int budget) {
   __shared__ __align__(16) uint32_t buf[zfp::BUF_WORDS];
   __shared__ uint8_t hdr[TILE * (zfp::N_GROUPS + 1)];
   const long long b0 = static_cast<long long>(blockIdx.x) * TILE;
@@ -143,41 +145,59 @@ zfp_fused_decode_kernel(const uint32_t* __restrict__ words, const uint8_t* __res
     zfp::decode_planes(buf + t * rs, h, budget, u);
     zfp::inverse_block(u, h.emax, v);
   }
-  __syncthreads();  // the stream rows are read: the buffer becomes the float tile
-  if (t < nbc) {
-    uint32_t bitsv[64];
-#pragma unroll
-    for (int c = 0; c < 64; ++c) bitsv[c] = __float_as_uint(v[c]);
-    zfp::write_row(buf, t, bitsv);
+  f.store(buf, x, b0, nbc, v);
+}
+
+// The Field of a contiguous (X, Y, Z) f32 field at p (see zfp_block.cuh).
+zfp::Field field_layout(const void* p, long long X, long long Y, long long Z) {
+  zfp::Field f{X, Y, Z, (Y + 3) / 4, (Z + 3) / 4, false, false, 0, 0, 0, {}};
+  f.vec = Z % 4 == 0 && reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  const long long per_slab = f.gy * f.gz;
+  if (f.vec && Y % 4 == 0 && per_slab > 0 && TILE % per_slab == 0) {
+    f.slab = true;
+    f.lgy = __builtin_ctzll(f.gy);
+    f.lgz = __builtin_ctzll(f.gz);
+    // A line's 8 quads: the low 3 bits of j are bz's lgz bits, then i2's
+    // (chunk bits 0, 1), then by's or i1's; rotating the row's bits so that
+    // the varying ones reach the bank bits left free gives 8 banks.
+    f.rot = f.lgz >= 3 ? 0 : f.lgz == 2 ? 1 : 2;
+    for (int k = 0; k < 16; ++k) f.step[k] = static_cast<uint16_t>(f.slab_tile(64 * k));
   }
-  __syncthreads();
-  zfp::store_tile(reinterpret_cast<uint32_t*>(out + b0 * 64), buf, nbc);
+  return f;
 }
 
 }  // namespace
 
 REPRO_DEFINE_ERROR_STRING()
 
-// blocks: f32 (nb, 4, 4, 4); words: uint32 (nb, wpb), wpb = 2*rate - 1;
-// emax: uint8 (nb); gtops: uint8 (nb, 10); budget = rate*64 - 58 bits.
-extern "C" int zfp_fused_encode(const float* blocks, uint32_t* words, uint8_t* emax,
-                                uint8_t* gtops, long long nb, int wpb, int budget,
+// x: f32 (X, Y, Z) contiguous, whose blocks are those of core/zfp.py
+// _carve_blocks(x), nb = ceil(X/4) * ceil(Y/4) * ceil(Z/4) of them in that
+// order (carved blocks: X = 4 nb, Y = Z = 4); words: uint32 (nb, wpb),
+// wpb = 2*rate - 1; emax: uint8 (nb); gtops: uint8 (nb, 10); budget =
+// rate*64 - 58 bits.
+extern "C" int zfp_fused_encode(const float* x, uint32_t* words, uint8_t* emax, uint8_t* gtops,
+                                long long X, long long Y, long long Z, int wpb, int budget,
                                 cudaStream_t stream) {
+  const zfp::Field f = field_layout(x, X, Y, Z);
+  const long long nb = (X + 3) / 4 * f.gy * f.gz;
   const long long grid = (nb + TILE - 1) / TILE;
   if (grid > 0)
     zfp_fused_encode_kernel<<<static_cast<unsigned>(grid), TILE, 0, stream>>>(
-        blocks, words, emax, gtops, nb, wpb, budget);
+        x, f, words, emax, gtops, nb, wpb, budget);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The inverse: words/emax/gtops as zfp_fused_encode writes them -> f32
-// blocks (nb, 4, 4, 4).
+// The inverse: words/emax/gtops as zfp_fused_encode writes them -> the
+// field x, f32 (X, Y, Z) contiguous; only its points are written
+// (_uncarve_blocks' crop).
 extern "C" int zfp_fused_decode(const uint32_t* words, const uint8_t* emax, const uint8_t* gtops,
-                                float* blocks, long long nb, int wpb, int budget,
-                                cudaStream_t stream) {
+                                float* x, long long X, long long Y, long long Z, int wpb,
+                                int budget, cudaStream_t stream) {
+  const zfp::Field f = field_layout(x, X, Y, Z);
+  const long long nb = (X + 3) / 4 * f.gy * f.gz;
   const long long grid = (nb + TILE - 1) / TILE;
   if (grid > 0)
     zfp_fused_decode_kernel<<<static_cast<unsigned>(grid), TILE, 0, stream>>>(
-        words, emax, gtops, blocks, nb, wpb, budget);
+        words, emax, gtops, x, f, nb, wpb, budget);
   return static_cast<int>(cudaGetLastError());
 }

@@ -11,10 +11,11 @@ reference, where that path is XLA.  ``auto`` is ``fused`` on a CUDA tensor
 and ``xla`` on a CPU one, as the reference picks ``fused`` on the TPU.  All
 paths of a compressor emit the same stream.
 
-Traced (:mod:`repro_torch.obs.trace`): the device work around the fused
-kernels is in spans, so the operations it launches are put down to them:
-``sz.guarded_eb``, ``zfp.carve`` and ``zfp.uncarve``; each fused launch is
-its kernel module's ``kernel.<name>`` span.
+Traced (:mod:`repro_torch.obs.trace`): the device work around the kernels
+is in spans, so the operations it launches are put down to them:
+``sz.guarded_eb``, and ``zfp.carve`` on the ZFP ``xla`` path (the fused ZFP
+path reads and writes the field in place: nothing is left around K6 and
+K7); each fused launch is its kernel module's ``kernel.<name>`` span.
 """
 
 from __future__ import annotations
@@ -109,7 +110,8 @@ def zfp_compress_kernel(x: torch.Tensor, rate: int, path: str = "auto") -> zfp_c
     path = _resolve_path("ZFP", path, x.device)
     zfp_core.payload_words(rate)  # validates the rate before any work
     if path == "fused":
-        words, emax, gtops = _zfpf.fused_compress_blocks(_carve(x), rate)
+        # a view is made contiguous first: the copy _carve_blocks' reshape made
+        words, emax, gtops = _zfpf.fused_compress_field(x.to(torch.float32).contiguous(), rate)
     else:
         u, emax, gtops = zfp_transform_kernel(x)
         words = zfp_core.encode_words(u.view(torch.int32), gtops, rate)
@@ -120,9 +122,7 @@ def zfp_decompress_kernel(c: zfp_core.ZFPCompressed, path: str = "auto") -> torc
     """Kernel-path decode of :func:`zfp_compress_kernel` output (it also
     reads :func:`repro_torch.core.zfp.compress` streams: same layout)."""
     if _resolve_path("ZFP", path, c.words.device) == "fused":
-        blocks = _zfpf.fused_decompress_blocks(c.words, c.emax, c.gtops, c.rate)
-        with obs_trace.span("zfp.uncarve"):
-            return zfp_core._uncarve_blocks(blocks, c.shape)
+        return _zfpf.fused_decompress_field(c.words, c.emax, c.gtops, c.rate, c.shape)
     return zfp_core.decompress(c)
 
 

@@ -31,9 +31,11 @@ from repro_torch.core.api import get_compressor
 from repro_torch.data import cosmo, kvc_cases, sz_cases, zfp_cases
 from repro_torch.kernels import _build
 from repro_torch.kernels import lorenzo3d as tlor
+from repro_torch.kernels import ops as kops
 from repro_torch.kernels import sz_fused as tszf
 from repro_torch.kernels import zfp3d as tzfp3d
 from repro_torch.kernels import zfp_fused as tzfpf
+from repro_torch.obs import trace
 
 # Writes the file named after -o, or fails when FAKE_NVCC_FAIL is set.
 FAKE_NVCC = """#!/bin/sh
@@ -312,6 +314,118 @@ def test_cuda_zfp_compressor_launches_k6_k7_and_matches_plain_cpu(cuda_device, f
     rec = interop.to_record(rc)
     assert _same(gpu.decompress(interop.from_record(rec)), xg)
     assert tzfp.compression_ratio(rg.payload["parts"][0], n_values=x.size) == rg.ratio
+
+
+# K6 and K7 on the field, in place: HACC's last partition scaled down
+# (X % 4 == 3, Y = Z = 8: a CTA's blocks are one run of the field), a Nyx
+# box (each thread's quads along z), a field ragged on every axis with
+# inf, NaN and 3e38 in it (every quad read and written point by point), and
+# a block count that is no multiple of a CTA's 64.
+FIELD_SHAPES = {"hacc_last": (32767, 8, 8), "nyx_box": (256, 256, 512), "ragged": (61, 62, 63),
+                "nb_not_64": (259, 8, 8)}
+
+
+def _card_field(shape, seed, device) -> torch.Tensor:
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn(shape, generator=g, device=device).cumsum(2).cumsum(1)
+    x[0, 0, :4] = torch.tensor([np.inf, -np.inf, np.nan, 3e38], device=device)
+    return x
+
+
+def _plain_field(x, rate):
+    """The plain route of a field: ``_carve_blocks`` + plain K6, and plain K7
+    + ``_uncarve_blocks`` of that stream."""
+    want = tzfpf.fused_compress_blocks_plain(tzfp._carve_blocks(x), rate)
+    back = tzfp._uncarve_blocks(tzfpf.fused_decompress_blocks_plain(*want, rate), tuple(x.shape))
+    return want, back
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", list(FIELD_SHAPES))
+@pytest.mark.parametrize("rate", [1, 8, 16, 33])
+def test_cuda_zfp_field_layout_matches_plain(cuda_device, shape, rate):
+    """K6 reading the field gives the words, emax and gtops of the plain
+    route (``_carve_blocks`` + plain K6), and K7 writing the field gives the
+    plain K7's floats through ``_uncarve_blocks``: bitwise, rates 1 to 33."""
+    shape = FIELD_SHAPES[shape]
+    x = _card_field(shape, rate, cuda_device)
+    want, want_back = _plain_field(x, rate)
+    got = tzfpf.fused_compress_field(x, rate)
+    for g, w in zip(got, want):
+        assert _same(g, w)
+    back = tzfpf.fused_decompress_field(*got, rate, shape)
+    assert back.is_contiguous() and tuple(back.shape) == shape
+    assert _same(back, want_back)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["hacc_last", "ragged"])
+def test_cuda_zfp_field_layout_on_views_and_unaligned_fields(cuda_device, shape):
+    """``ops`` makes a view contiguous before K6; a field or a block tensor
+    whose base is not 16-byte aligned is read point by point; K7 writes only
+    the field's points (the words around it keep their values).  Each
+    against the plain route."""
+    shape, rate = FIELD_SHAPES[shape], 8
+    x = _card_field(shape, 3, cuda_device)
+    want, want_back = _plain_field(x, rate)
+    view = _card_field(shape[::-1], 4, cuda_device).permute(2, 1, 0)
+    c = kops.zfp_compress_kernel(view, rate, path="fused")
+    wv, wv_back = _plain_field(view, rate)
+    assert _same(c.words, wv[0]) and _same(c.emax, wv[1]) and _same(c.gtops, wv[2])
+    assert _same(kops.zfp_decompress_kernel(c, path="fused"), wv_back)
+    n = x.numel()
+    store = torch.full((n + 8,), 12345.0, device=cuda_device)
+    store[1:n + 1] = x.reshape(-1)
+    unaligned = store[1:n + 1].view(shape)
+    for g, w in zip(tzfpf.fused_compress_field(unaligned, rate), want):
+        assert _same(g, w)
+    store.fill_(12345.0)
+    P, I, L = _build.P, _build.I, _build.L
+    _build.launch("zfp_fused", "zfp_fused_decode", [P, P, P, P, L, L, L, I, I],
+                  want[0].view(torch.int32).data_ptr(), want[1].data_ptr(), want[2].data_ptr(),
+                  store[1:].data_ptr(), *shape, tzfp.payload_words(rate),
+                  rate * 64 - tzfp._HEADER_BITS,
+                  device=cuda_device)
+    assert _same(store[1:n + 1].view(shape), want_back)
+    assert bool((store[0] == 12345.0).all()) and bool((store[n + 1:] == 12345.0).all())
+    blocks = tzfp._carve_blocks(x)  # the arena's entry, from an unaligned base too
+    bstore = torch.zeros(blocks.numel() + 4, device=cuda_device)
+    bstore[1:blocks.numel() + 1] = blocks.reshape(-1)
+    for g, w in zip(tzfpf.fused_compress_blocks(bstore[1:blocks.numel() + 1].view(blocks.shape),
+                                                rate), want):
+        assert _same(g, w)
+
+
+@pytest.mark.cuda
+def test_cuda_zfp_compressor_launches_the_field_layout(cuda_device):
+    """Every K6 and K7 launch of ``tpu-zfp`` (a 1-D, a 3-D and a 2-D field)
+    is a ``kernel.*`` span with ``layout="field"`` and no carve or uncarve
+    span; the arena's launches keep ``layout="blocks"``."""
+    comp = get_compressor("tpu-zfp")
+    xs = [torch.linspace(-1.0, 1.0, 64 * 1000 + 5, device=cuda_device),
+          _card_field((61, 62, 63), 5, cuda_device), _card_field((33, 70, 4), 6, cuda_device)[..., 0]]
+    blocks = tzfp._carve_blocks(xs[1])
+    comp.decompress(comp.compress(xs[0], rate=8))  # builds and loads the kernels untraced
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    trace.enable()
+    try:
+        for x in xs:
+            comp.decompress(comp.compress(x, rate=8))
+        tzfpf.fused_decompress_arena(*tzfpf.fused_compress_arena(blocks, 8), 8)
+        torch.cuda.synchronize()
+    finally:
+        trace.disable()
+    events = trace.TRACER.events
+    trace.clear()
+    launched = kernels.launch_counts()
+    assert launched["fused_compress_blocks"] == 4 and launched["fused_decompress_blocks"] == 4
+    spans = [e for e in events if e["name"] in ("kernel.fused_compress_blocks",
+                                                "kernel.fused_decompress_blocks")]
+    assert len(spans) == 8
+    assert [e["args"]["layout"] for e in spans if e["call"] is not None] == ["field"] * 6
+    assert [e["args"]["layout"] for e in spans if e["call"] is None] == ["blocks"] * 2
+    assert not {"zfp.carve", "zfp.uncarve"} & {e["name"] for e in events}
 
 
 # ------------------------------------ the SZ stream kernels (K3, K4, K8, K9) ----

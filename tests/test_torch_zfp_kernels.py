@@ -147,6 +147,38 @@ def test_k6_k7_plain_match_core_at_every_rate(rate):
                  tz.blocks_from_stream(words, emax, gtops, rate))
 
 
+# The field layout's shapes, scaled down from the card tests': HACC's last
+# partition (X % 4 == 3, Y = Z = 8), a Nyx box's 1 : 1 : 2, a field ragged
+# on every axis, a block count that is no multiple of a CTA's 64, and a 2-D
+# field's trailing unit axis.
+FIELD_SHAPES = {"hacc_last": (63, 8, 8), "nyx_box": (32, 32, 64), "ragged": (21, 22, 23),
+                "nb_not_64": (259, 8, 8), "2d": (9, 13, 1)}
+
+
+@pytest.mark.parametrize("shape", list(FIELD_SHAPES))
+@pytest.mark.parametrize("rate", [1, 8, 16, 33])
+def test_k6_k7_field_entries_match_core(rate, shape):
+    """The field entries' plain route (what K6 and K7 read and write in place
+    on the card) gives the JAX package's ``zfp.compress`` stream and
+    ``zfp.decompress`` floats, and so does the ``fused`` path of ``ops`` on
+    a view of the same values that is not contiguous."""
+    x = _rand_field(rate, FIELD_SHAPES[shape])
+    cj = jz.compress(jnp.asarray(x), rate)
+    want = np.asarray(jz.decompress(cj))
+    words, emax, gtops = tk6.fused_compress_field(torch.from_numpy(x), rate)
+    _assert_same(words, cj.words)
+    np.testing.assert_array_equal(emax.numpy(), np.asarray(cj.emax))
+    np.testing.assert_array_equal(gtops.numpy(), np.asarray(cj.gtops))
+    got = tk6.fused_decompress_field(words, emax, gtops, rate, x.shape)
+    assert tuple(got.shape) == x.shape
+    _assert_same(got, want)
+    view = torch.from_numpy(np.ascontiguousarray(x.transpose(2, 1, 0))).permute(2, 1, 0)
+    assert not view.is_contiguous()
+    c = tops.zfp_compress_kernel(view, rate, path="fused")
+    _assert_same(c.words, cj.words)
+    _assert_same(tops.zfp_decompress_kernel(c, path="fused"), want)
+
+
 def test_cuda_tables_match_core():
     """The kernels' sequency permutation is ``core.zfp.PERM``."""
     src = (_build.CSRC / "zfp_block.cuh").read_text()
@@ -227,3 +259,11 @@ def test_zfp_wrappers_never_fall_back_off_the_cpu():
         tk6.fused_decompress_blocks(words, emax, gtops, 8)
     with pytest.raises(ValueError, match="rate 4 needs 7 words"):
         tk6.fused_decompress_blocks(words, emax, gtops, 4)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        tk6.fused_compress_field(torch.empty(8, 4, 4, device="meta"), 8)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        tk6.fused_decompress_field(words, emax, gtops, 8, (16, 8, 4))
+    with pytest.raises(ValueError, match="the field needs 2"):
+        tk6.fused_decompress_field(words, emax, gtops, 8, (8, 4, 2))
+    with pytest.raises(ValueError, match="want a 3-D field"):
+        tk6.fused_compress_field(torch.zeros(8, 4), 8)
