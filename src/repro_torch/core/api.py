@@ -13,9 +13,14 @@ payloads live there, and a payload on another device is refused.
 Traced (:mod:`repro_torch.obs.trace`): each ``compress`` and ``decompress``
 is a call (``api.compress``, ``api.decompress``, with the compressor and the
 raw bytes); the 1-D route's pad and reshape of each partition
-(``route.to_3d``) and the join of the parts (``route.cat``) are spans, so
-the copies they put on the device are put down to them; each host read-back
-is a ``sync.<what>`` span, so their count a call is the call's host syncs.
+(``route.to_3d``; on SZ's route with the counters ``codes``, the cube's
+values, and ``pad``, the zeros it added) and the join of the parts
+(``route.cat``) are spans, so the copies they put on the device are put
+down to them; PW_REL's log transform and its inverse are
+``pwrel.log_forward`` (with ``sign_bits``, the side channel's bits) and
+``pwrel.log_inverse``; each host read-back is a ``sync.<what>`` span, so
+their count a call is the call's host syncs.  The core coder's own spans
+are :mod:`repro_torch.core.sz`'s.
 """
 
 from __future__ import annotations
@@ -94,7 +99,8 @@ class SZCompressor:
             shaped = []
             for p in transforms.partition_1d(x):
                 side = max(4, int(np.ceil(len(p) ** (1 / 3))))
-                shaped.append(transforms.to_3d(p, (side, side, side)))
+                with obs_trace.span("route.to_3d", codes=side ** 3, pad=side ** 3 - len(p)):
+                    shaped.append(transforms.to_3d(p, (side, side, side)))
             return shaped, {"orig_len": x.shape[0], "was_1d": True}
         return [x], {"orig_len": math.prod(x.shape), "was_1d": False}
 
@@ -114,10 +120,11 @@ class SZCompressor:
             meta: dict[str, Any] = {"mode": "abs", "eb": eb}
             signs = None
             if pw_rel is not None:
-                t = transforms.log_forward(x)
+                side_bits = transforms.sign_channel_bits(math.prod(x.shape))
+                with obs_trace.span("pwrel.log_forward", sign_bits=side_bits):
+                    t = transforms.log_forward(x)
                 x, signs = t.logs, t.signs
                 eb = transforms.pwrel_to_abs(pw_rel)
-                side_bits = transforms.sign_channel_bits(math.prod(x.shape))
                 meta = {"mode": "pw_rel", "pw_rel": pw_rel, "eb_log": eb}
             if eb is None:
                 raise ValueError("SZ requires eb= (ABS) or pw_rel=")
@@ -153,14 +160,16 @@ class SZCompressor:
                 parts = [sz.decompress(c) for c in r.payload["parts"]]
                 if r.payload["was_1d"]:
                     part = transforms.HACC_PARTITION
-                    flats = [transforms.from_3d(p, min(part, r.payload["orig_len"] - i * part))
-                             for i, p in enumerate(parts)]
-                    x = torch.cat(flats)[: r.payload["orig_len"]]
+                    with obs_trace.span("route.cat"):
+                        flats = [transforms.from_3d(p, min(part, r.payload["orig_len"] - i * part))
+                                 for i, p in enumerate(parts)]
+                        x = torch.cat(flats)[: r.payload["orig_len"]]
                 else:
                     x = parts[0].reshape(r.payload["shape"])
             if r.meta["mode"] == "pw_rel":
-                t = transforms.LogTransformed(x, r.payload["signs"], torch.zeros(()))
-                x = transforms.log_inverse(t)
+                with obs_trace.span("pwrel.log_inverse"):
+                    t = transforms.LogTransformed(x, r.payload["signs"], torch.zeros(()))
+                    x = transforms.log_inverse(t)
             return x
 
 

@@ -14,6 +14,12 @@ at block borders); ``None`` is global prediction.  The ``exchange`` border
 hooks of :func:`lorenzo_residual` and :func:`lorenzo_reconstruct` let a
 sharded caller (:mod:`repro_torch.dist.insitu`) give each shard's predictor
 its true left neighbours.
+
+Traced (:mod:`repro_torch.obs.trace`): :func:`compress` is the span
+``sz.core_compress`` (its own time the guarded bound and the prequantize),
+with the children ``sz.lorenzo`` (the residual) and ``sz.pack``;
+:func:`decompress` is ``sz.core_decompress``, with the children
+``sz.unpack`` and ``sz.reconstruct`` (the prefix sums and the dequantize).
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ import torch.nn.functional as F
 
 from repro_torch.core import bitpack
 from repro_torch.device import resolve_device
+from repro_torch.obs import trace as obs_trace
 
 _2P31 = 1 << 31
 
@@ -164,29 +171,35 @@ def compress(x: torch.Tensor, eb, block_size: int | None = None) -> SZCompressed
     shape = tuple(x.shape)
     n_codes = math.prod(shape if block_size is None else _padded_shape(shape, block_size))
     bitpack.check_fits("pack_codes", n_codes)  # before anything is allocated
-    x = x.to(torch.float32)
-    eb_i = internal_bound(x.abs().amax(), eb)
-    q = bitpack.round_i32(x / (2.0 * eb_i))
-    if block_size is None:
-        delta = lorenzo_residual(q)
-    else:
-        delta = lorenzo_residual(_to_blocks(q, block_size), ndim=x.ndim)
-    packed = bitpack.pack_codes(delta.reshape(-1))
-    return SZCompressed(packed, eb_i, shape, block_size)
+    with obs_trace.span("sz.core_compress"):
+        x = x.to(torch.float32)
+        eb_i = internal_bound(x.abs().amax(), eb)
+        q = bitpack.round_i32(x / (2.0 * eb_i))
+        with obs_trace.span("sz.lorenzo"):
+            if block_size is None:
+                delta = lorenzo_residual(q)
+            else:
+                delta = lorenzo_residual(_to_blocks(q, block_size), ndim=x.ndim)
+        with obs_trace.span("sz.pack"):
+            packed = bitpack.pack_codes(delta.reshape(-1))
+        return SZCompressed(packed, eb_i, shape, block_size)
 
 
 def decompress(c: SZCompressed) -> torch.Tensor:
-    codes = bitpack.unpack_codes(c.packed)
-    b = c.block_size
-    if b is None:
-        q = lorenzo_reconstruct(codes.reshape(c.shape))
-    else:
-        nd = len(c.shape)
-        padded_shape = _padded_shape(c.shape, b)
-        blk_shape = tuple(s // b for s in padded_shape) + (b,) * nd
-        qb = lorenzo_reconstruct(codes.reshape(blk_shape), ndim=nd)
-        q = _from_blocks(qb, padded_shape, c.shape)
-    return q.to(torch.float32) * (2.0 * c.eb)
+    with obs_trace.span("sz.core_decompress"):
+        with obs_trace.span("sz.unpack"):
+            codes = bitpack.unpack_codes(c.packed)
+        with obs_trace.span("sz.reconstruct"):
+            b = c.block_size
+            if b is None:
+                q = lorenzo_reconstruct(codes.reshape(c.shape))
+            else:
+                nd = len(c.shape)
+                padded_shape = _padded_shape(c.shape, b)
+                blk_shape = tuple(s // b for s in padded_shape) + (b,) * nd
+                qb = lorenzo_reconstruct(codes.reshape(blk_shape), ndim=nd)
+                q = _from_blocks(qb, padded_shape, c.shape)
+            return q.to(torch.float32) * (2.0 * c.eb)
 
 
 def compressed_nbytes(c: SZCompressed) -> torch.Tensor:

@@ -10,7 +10,11 @@ machine that has a card and no JAX.
 * The span trees on the CPU: SZ through the kernel backend (``api.compress``
   > ``sz.guarded_eb``, one ``sync.total_bits`` a call), ZFP on a 1-D field
   (``route.to_3d`` a partition, ``zfp.carve``, ``route.cat``, no ``sync.*``
-  span).
+  span), SZ's 1-D core route under PW_REL (``pwrel.log_forward``,
+  ``route.to_3d`` with its counters, ``sz.core_compress`` > ``sz.lorenzo``,
+  ``sz.pack``; ``sz.core_decompress`` > ``sz.unpack``, ``sz.reconstruct``,
+  ``route.cat``, ``pwrel.log_inverse``), the stream the same with the tracer
+  on or off.
 * On a card (marked ``cuda``): one ``kernel.*`` span a launch that
   ``kernels.launch_counts()`` counts, each innermost, every span inside its
   parent on the clock.  Run it with
@@ -227,6 +231,55 @@ def test_zfp_on_a_1d_field_spans_its_route(tracer, monkeypatch):
     assert [e["name"] for e in sorted(events, key=lambda e: e["start_ns"])
             if e["call"] == c["id"] and e is not c] == ["route.to_3d"] * 3 + ["zfp.carve"] * 3
     assert all(e["parent"] == c["id"] for e in events if e["call"] == c["id"] and e is not c)
+
+
+def test_sz_on_a_1d_pwrel_field_spans_the_core_route(tracer):
+    comp = get_compressor("tpu-sz", backend="core", device="cpu")
+    x = torch.linspace(-3.0, 5.0, 1000)
+    x[::9] = 0.0
+    r = comp.compress(x, pw_rel=1e-2)
+    xr = comp.decompress(r)
+    events = tracer.events
+    ids = _by_id(events)
+    (c,) = [e for e in events if e["name"] == "api.compress"]
+    (d,) = [e for e in events if e["name"] == "api.decompress"]
+    tree = lambda call: Counter((e["name"], ids[e["parent"]]["name"])  # noqa: E731
+                                for e in events if e["call"] == call["id"] and e is not call)
+    assert tree(c) == Counter({("pwrel.log_forward", "api.compress"): 1,
+                               ("route.to_3d", "api.compress"): 1,
+                               ("sz.core_compress", "api.compress"): 1,
+                               ("sz.lorenzo", "sz.core_compress"): 1,
+                               ("sz.pack", "sz.core_compress"): 1,
+                               ("sync.total_bits", "api.compress"): 1})
+    assert tree(d) == Counter({("sz.core_decompress", "api.decompress"): 1,
+                               ("sz.unpack", "sz.core_decompress"): 1,
+                               ("sz.reconstruct", "sz.core_decompress"): 1,
+                               ("route.cat", "api.decompress"): 1,
+                               ("pwrel.log_inverse", "api.decompress"): 1})
+    by_name = {e["name"]: e for e in events}
+    assert by_name["route.to_3d"]["args"] == {"codes": 10**3, "pad": 0}
+    assert by_name["pwrel.log_forward"]["args"] == {"sign_bits": 2 * x.numel()}
+    # compress in order: the log transform, the cube, the coder, the host read-back
+    assert [e["name"] for e in sorted(events, key=lambda e: e["start_ns"])
+            if e["parent"] == c["id"]] == ["pwrel.log_forward", "route.to_3d",
+                                           "sz.core_compress", "sync.total_bits"]
+    assert all(ids[e["parent"]]["start_ns"] <= e["start_ns"] <= e["end_ns"]
+               <= ids[e["parent"]]["end_ns"] for e in events if e["parent"] is not None)
+    # the stream and the reconstruction are the same with the tracer off
+    trace.disable()
+    r_off = comp.compress(x, pw_rel=1e-2)
+    assert torch.equal(comp.decompress(r_off), xr) and r_off.nbytes == r.nbytes
+    assert torch.equal(r_off.payload["signs"], r.payload["signs"])
+    (p_on,), (p_off,) = r.payload["parts"], r_off.payload["parts"]
+    assert torch.equal(p_on.packed.words.view(torch.int32), p_off.packed.words.view(torch.int32))
+    assert torch.equal(p_on.packed.widths, p_off.packed.widths)
+    assert torch.equal(p_on.eb, p_off.eb) and int(p_on.packed.total_bits) == int(p_off.packed.total_bits)
+    # a piece that needs padding counts its zeros
+    trace.enable()
+    comp.compress(torch.linspace(0.0, 1.0, 1001), eb=1e-3)
+    (pad,) = [e for e in trace.TRACER.events if e["name"] == "route.to_3d"]
+    assert pad["args"] == {"codes": 11**3, "pad": 11**3 - 1001}
+    assert "pwrel.log_forward" not in {e["name"] for e in trace.TRACER.events}
 
 
 @pytest.mark.cuda
